@@ -1,0 +1,95 @@
+// K1: the fused background NeRF-MLP forward for Hopper (sm_90a).
+//
+// Replaces durf_tpu/ops/pallas/fused_mlp.py `fused_nerf_mlp` (_fused_forward,
+// the pallas_call at fused_mlp.py:389): the whole NerfMLP (8 trunk layers
+// with the skip input re-read at layer 5, density head, bottleneck,
+// view-conditioned head, rgb head) on a tile of samples, with activations
+// never leaving the SM.
+//
+// Bound on the H100: operations. At the flagship width (8x256 trunk,
+// F_in 60, head 128) a sample costs 1.18 MFLOP of bf16 products against
+// ~256 bytes of input and output, ~4600 FLOP per byte, far above the card's
+// ~295 FLOP/byte balance point. The design keeps every intermediate in
+// shared memory, so device memory sees only x, the per-ray condition rows,
+// the weights (L2-resident: 1.2 MB) and the [4, N] outputs, and runs every
+// wide layer on the tensor cores (mma.sync, fp32 accumulation); see
+// mlp_tile.cuh. The per-ray condition product viewdirs_enc @
+// head_0_kernel[width:] is hoisted out (one row per ray, not per sample).
+
+#include "mlp_tile.cuh"
+
+namespace durf {
+
+template <int NTW, int NTC>
+__global__ void __launch_bounds__(THREADS)
+    fused_nerf_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cond,
+                              const bf16* __restrict__ w, const float* __restrict__ b,
+                              float* __restrict__ rgb_out, float* __restrict__ den_out,
+                              long long n, int s_per_ray, MlpDesc d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hmax = d.width > d.wc ? d.width : d.wc;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* hs = xs + TILE_M * ld_of(d.in_pad);
+  bf16* ws = hs + TILE_M * ld_of(hmax);
+  const long long tile0 = (long long)blockIdx.x * TILE_M;
+
+  load_x_tile(xs, x, d, tile0, n);
+  float rgb[4], den[4];
+  run_mlp<NTW, NTC>(d, w, b, cond, xs, hs, ws, tile0, n, s_per_ray, rgb, den);
+
+  const long long sample = tile0 + (threadIdx.x >> 1);
+  if ((threadIdx.x & 1) == 0 && sample < n) {
+    for (int c = 0; c < d.n_rgb; ++c) rgb_out[c * n + sample] = rgb[c];
+    for (int c = 0; c < d.n_den; ++c) den_out[c * n + sample] = den[c];
+  }
+}
+
+template <int NTW, int NTC>
+static int launch(const float* x, const float* cond, const bf16* w, const float* b, float* rgb,
+                  float* den, long long n, int s_per_ray, const MlpDesc& d, cudaStream_t stream) {
+  const size_t smem = smem_bytes(d);
+  auto kern = fused_nerf_mlp_fwd_kernel<NTW, NTC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = (n + TILE_M - 1) / TILE_M;
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, cond, w, b, rgb, den, n, s_per_ray, d);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace durf
+
+using durf::MlpDesc;
+
+extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const void* w,
+                                       const float* b, float* rgb, float* den, long long n,
+                                       int s_per_ray, int in_dim, int width, int depth, int skip,
+                                       int wc, int depth_cond, int n_rgb, int n_den,
+                                       const long long* w_off, const long long* b_off,
+                                       int n_layers, void* stream) {
+  if (n_layers > durf::MAX_LAYERS || n_layers != depth + depth_cond + 3) return -1;
+  MlpDesc d = {};
+  d.in_dim = in_dim;
+  d.in_pad = (in_dim + durf::BK - 1) / durf::BK * durf::BK;
+  d.width = width;
+  d.depth = depth;
+  d.skip = skip;
+  d.wc = wc;
+  d.depth_cond = depth_cond;
+  d.n_rgb = n_rgb;
+  d.n_den = n_den;
+  for (int l = 0; l < n_layers; ++l) {
+    d.w_off[l] = w_off[l];
+    d.b_off[l] = b_off[l];
+  }
+  auto wb = static_cast<const durf::bf16*>(w);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (width == 256 && wc == 128)
+    return durf::launch<8, 4>(x, cond, wb, b, rgb, den, n, s_per_ray, d, s);
+  if (width == 256 && wc == 256)
+    return durf::launch<8, 8>(x, cond, wb, b, rgb, den, n, s_per_ray, d, s);
+  if (width == 128 && wc == 128)
+    return durf::launch<4, 4>(x, cond, wb, b, rgb, den, n, s_per_ray, d, s);
+  if (width == 128 && wc == 256)
+    return durf::launch<4, 8>(x, cond, wb, b, rgb, den, n, s_per_ray, d, s);
+  return -2;
+}

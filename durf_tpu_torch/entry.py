@@ -1,0 +1,103 @@
+"""Entry point: the flagship eval forward, like the JAX package's
+`__graft_entry__.entry()`."""
+
+from __future__ import annotations
+
+import torch
+
+from durf_tpu_torch.configs import Config, MLPConfig, ModelConfig
+from durf_tpu_torch.data.synthetic import example_ray_batch
+from durf_tpu_torch.devices import resolve_device
+from durf_tpu_torch.models.mipnerf import construct_model
+
+
+def flagship_config(tiny: bool = False) -> Config:
+    """The flagship operating point: the reference waymo.gin widths (2
+    levels x 128 samples, 8x256 background MLP, two 8x128 object MLPs)."""
+    if tiny:
+        model = ModelConfig(
+            num_samples=8,
+            num_levels=2,
+            max_deg_point=4,
+            deg_view=2,
+            num_objects=2,
+            timesteps=5,
+            density_noise=0.0,
+            no_pose_opt=True,
+            no_yaw_opt=True,
+            mlp=MLPConfig(net_depth=2, net_width=16, net_width_condition=8),
+            box_mlp=MLPConfig(net_depth=2, net_width=8, net_width_condition=8),
+        )
+    else:
+        model = ModelConfig(
+            num_samples=128,
+            num_levels=2,
+            max_deg_point=10,
+            deg_view=4,
+            num_objects=2,
+            timesteps=5,
+            density_noise=0.0,
+            no_pose_opt=True,
+            no_yaw_opt=True,
+        )
+    return Config(
+        dataset_loader="waymo",
+        batching="timestep",
+        batch_size=512,
+        near=0.0,
+        far=40.0,
+        rand_bkgd=False,
+        randomized=True,
+        grad_max_norm=1.0,
+        grad_max_val=0.1,
+        depth_loss_mult=1e-4,
+        near_loss_mult=0.01,
+        empty_loss_mult=1.0,
+        sky_loss_mult=1.0,
+        tv_loss_mult=0.0,
+        eps_init=3.0,
+        eps_final=0.2,
+        eps_max_steps=200_000,
+        alpha_init=10.0,
+        alpha_final=10.0,
+        alpha_max_steps=1,
+        max_steps=200_000,
+        model=model,
+    )
+
+
+def kernel_operating_point(config: Config) -> Config:
+    """Switch a config to the kernel operating point (in place; returned):
+    bf16 MLP compute, the fused MLP kernels (K1 background, K3 objects),
+    recurrent encode, coordinate-major diagonal pipeline."""
+    m = config.model
+    m.compute_dtype = "bfloat16"
+    m.use_pallas_mlp = True
+    m.fused_objects = True
+    m.recurrent_encode = True
+    m.diag_covariance = True
+    m.coord_major = True
+    return config
+
+
+def entry(device="cuda"):
+    """(forward, example_args): the flagship model at the kernel operating
+    point with weights from seed 0, and a forward(rays, ext, ts) -> (rgb,
+    depth, acc) of its last level. Runs on the card unless the caller asks
+    for the CPU; raises when there is no card."""
+    device = resolve_device(device)
+    config = kernel_operating_point(flagship_config())
+    batch = example_ray_batch(batch_size=config.batch_size)
+    model = construct_model(config.model, batch, device)
+
+    def forward(rays, ext, ts):
+        with torch.inference_mode():
+            out = model(rays, ext=ext, ts=ts, background="gray", alpha=10.0)[-1]
+        return out["rgb"], out["depth"], out["acc"]
+
+    example_args = (
+        batch["rays"].to(device),
+        torch.as_tensor(batch["ext"], device=device),
+        int(batch["ts"]),
+    )
+    return forward, example_args

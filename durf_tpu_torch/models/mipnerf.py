@@ -1,0 +1,305 @@
+"""The dynamic scene-graph Mip-NeRF: a background field plus per-object
+fields inside oriented boxes (reference obbpose_model.py:42-261).
+
+Counterpart of the JAX package's `models/mipnerf.py` for the eval forward of
+the coordinate-major diagonal pipeline. Per level:
+  stratified / inverse-CDF samples -> conical-frustum Gaussians ->
+  (dynamic) windowed IPE + object MLPs on the composite rays ->
+  background mask, contraction, IPE, background MLP -> additive raw merge ->
+  activations -> compositing.
+With `use_pallas_mlp` the background MLP runs K1 and the object MLPs K3
+(ops/kernels/); without it both run the plain path in `compute_dtype`.
+
+Not ported yet, and refused with NotImplementedError: proposal levels,
+occupancy-grid sampling, object-ray compaction, the row-major and
+full-covariance pipelines, randomized (training) sampling with density
+noise, and the random background.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+from torch import nn
+
+from durf_tpu_torch import ops
+from durf_tpu_torch.configs import ModelConfig
+from durf_tpu_torch.devices import resolve_device
+from durf_tpu_torch.models.mlp import NerfMLP, get_activation
+from durf_tpu_torch.ops.kernels import obj_mlp as k3
+from durf_tpu_torch.rays import Rays
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a config that asks for a path the port
+    does not have yet."""
+    unported = {
+        "use_proposal": cfg.use_proposal and cfg.num_levels > 1,
+        "grid_sampling": cfg.grid_sampling,
+        "obj_ray_capacity > 0 (object-ray compaction)": cfg.obj_ray_capacity > 0.0,
+        "diag_covariance=False (full covariance)": not cfg.diag_covariance,
+        "coord_major=False (row-major samples)": not cfg.coord_major,
+        "remat_mlp (a training option)": cfg.remat_mlp,
+        "use_pallas_mlp without fused_objects (per-object K1 on blended inputs)": (
+            cfg.use_pallas_mlp and cfg.dynamics and not cfg.fused_objects
+        ),
+        "use_pallas_mlp without use_viewdirs": cfg.use_pallas_mlp and not cfg.use_viewdirs,
+    }
+    asked = [name for name, on in unported.items() if on]
+    if asked:
+        raise NotImplementedError(f"durf_tpu_torch does not implement yet: {', '.join(asked)}")
+
+
+def encoding_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(background input, object input, view condition) feature counts."""
+    ipe = 2 * 3 * (cfg.max_deg_point - cfg.min_deg_point)
+    cond = 3 + 2 * 3 * cfg.deg_view if cfg.use_viewdirs else 0
+    return ipe, 3 + ipe, cond
+
+
+class MipNerf(nn.Module):
+    """Mip-NeRF with an optional NSG-style scene graph of `num_objects`
+    objects over `timesteps` box poses (the learnable `box_centers` table)."""
+
+    def __init__(self, config: ModelConfig, num_objects: int = 0, timesteps: int = 0):
+        super().__init__()
+        check_supported(config)
+        self.config = config
+        bg_in, obj_in, cond_dim = encoding_dims(config)
+        self.background_mlp = NerfMLP(
+            config.mlp, bg_in, cond_dim, config.compute_dtype, config.use_pallas_mlp
+        )
+        self.dynamic = config.dynamics and num_objects > 0
+        if self.dynamic:
+            # The object MLPs take the kernel path through K3, not K1.
+            self.object_mlps = NerfMLP(
+                config.box_mlp, obj_in, cond_dim, config.compute_dtype, False, num_objects
+            )
+            self.box_centers = nn.Parameter(torch.zeros((timesteps, num_objects, 6)))
+
+    def forward(
+        self,
+        rays: Rays,
+        ext: torch.Tensor | None = None,
+        ts=None,
+        background: str = "gray",
+        alpha=10.0,
+        randomized: bool = False,
+    ) -> List[Dict[str, Any]]:
+        """Render a batch of rays (tensors [B, ...]).
+
+        Args:
+          ext: [N_obj, 3] box half-extents (dynamic model).
+          ts: the timestep of this batch (index into the pose table).
+          background: 'white' | 'gray' | 'black'.
+          alpha: BARF frequency-annealing scalar.
+
+        Returns one dict per level: rgb [B,3], depth [B], acc [B],
+        weights [B,S], t_vals [B,S+1], t_mids [B,S], t_dists [B,S],
+        pose [N_obj,3], rot [N_obj,3], dyn_mask [B,1], z_out [B], and for the
+        dynamic model obj_hit_rays (rays hitting any box).
+        """
+        if randomized:
+            raise NotImplementedError("randomized (training) sampling is not ported yet")
+        cfg = self.config
+        dtype = self.background_mlp.compute_dtype
+        origins, dirs = rays.origins, rays.directions
+        batch = origins.shape[0]
+
+        if self.dynamic:
+            if ext is None or ts is None:
+                raise ValueError("the dynamic model needs ext and ts")
+            t = int(ts)
+            box_pose = self.box_centers[t, :, :3]  # [N_obj, 3]
+            box_rot = self.box_centers[t, :, 3:]
+            n_obj = box_pose.shape[0]
+            box_mat = ops.axis_angle_to_matrix(box_rot)
+            origins_o, dirs_o = ops.world_to_box_frames(
+                origins,
+                dirs,
+                box_pose.expand(batch, n_obj, 3),
+                box_mat.expand(batch, n_obj, 3, 3),
+            )
+            box_dims = ext.expand(batch, n_obj, 3)
+            z_in, z_out, hit = ops.ray_box_intersection(origins_o, dirs_o, -box_dims, box_dims)
+            miss_all = (hit.sum(dim=-1) == 0).to(origins.dtype)  # [B]
+            # Composite rays: object-frame rays where a box is hit (boxes are
+            # assumed not to overlap along a ray), world rays elsewhere.
+            origins_s = (origins_o * hit[..., None]).sum(dim=-2) + miss_all[..., None] * origins
+            dirs_s = (dirs_o * hit[..., None]).sum(dim=-2) + miss_all[..., None] * dirs
+            z_out_ret = (hit * z_out).sum(dim=-1)
+            dyn_mask = hit.sum(dim=-1, keepdim=True)
+        else:
+            origins_s, dirs_s = origins, dirs
+            z_out_ret = torch.zeros((batch,), dtype=origins.dtype, device=origins.device)
+            dyn_mask = torch.zeros((batch, 1), dtype=origins.dtype, device=origins.device)
+            box_pose = torch.zeros((1, 3), dtype=origins.dtype, device=origins.device)
+            box_rot = torch.zeros((1, 3), dtype=origins.dtype, device=origins.device)
+
+        near, far = rays.near, rays.far
+        if self.dynamic and cfg.use_box_nearfar:
+            m = cfg.box_nearfar_margin
+            near = (hit * (z_in - m)).sum(-1, keepdim=True) + miss_all[..., None] * rays.near
+            far = (hit * (z_out + m)).sum(-1, keepdim=True) + miss_all[..., None] * rays.far
+            near = torch.maximum(near, rays.near)
+            far = torch.minimum(torch.maximum(far, near + 1e-3), rays.far)
+
+        viewdirs_enc = (
+            ops.pos_enc(rays.viewdirs, 0, cfg.deg_view, append_identity=True)
+            if cfg.use_viewdirs
+            else None
+        )
+
+        ret: List[Dict[str, Any]] = []
+        t_vals = weights = None
+        for i_level in range(cfg.num_levels):
+            n_level = cfg.level_samples(i_level)
+            if i_level == 0:
+                t_vals, samples = ops.sample_along_rays(
+                    origins_s, dirs_s, rays.radii, n_level, near, far, cfg.lindisp, cfg.ray_shape
+                )
+            else:
+                t_vals, samples = ops.resample_along_rays(
+                    origins_s,
+                    dirs_s,
+                    rays.radii,
+                    t_vals,
+                    weights,
+                    cfg.ray_shape,
+                    cfg.resample_padding,
+                    num_samples=n_level,
+                )
+            mean, cov = samples  # [3, B, S] each
+            if cfg.disable_integration:
+                cov = torch.zeros_like(cov)
+
+            level_out: Dict[str, Any] = {}
+            if self.dynamic:
+                obj_rgbs, obj_densities = self._objects(mean, cov, viewdirs_enc, hit, alpha, dtype)
+                level_out["obj_hit_rays"] = (hit.sum(dim=-1) > 0).sum().to(torch.float32)
+                # The background sees the complement mask, clamped at 0: a ray
+                # hitting two boxes would otherwise flip the covariance
+                # negative (reference obbpose_model.py:205).
+                bkgd = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0)[None, :, None]
+                mean, cov = bkgd * mean, bkgd * cov
+
+            if cfg.contraction:
+                mean, cov = ops.contract_gaussian_diag(
+                    mean, cov, threshold=cfg.contract_threshold, dim=0
+                )
+            samples_enc = ops.integrated_pos_enc_cm(
+                mean,
+                cov,
+                cfg.min_deg_point,
+                cfg.max_deg_point,
+                safe=not cfg.fast_trig,
+                recurrent=cfg.recurrent_encode,
+            )
+            raw_rgb, raw_density = self.background_mlp(samples_enc, viewdirs_enc)
+            if self.dynamic:
+                raw_rgb = raw_rgb + obj_rgbs
+                raw_density = raw_density + obj_densities
+
+            rgb = get_activation(cfg.rgb_activation)(raw_rgb)
+            density = get_activation(cfg.density_activation)(raw_density + cfg.density_bias)
+            comp_rgb, depth, acc, weights, t_vals, t_mids, t_dists = ops.volumetric_rendering_cm(
+                rgb, density[0], t_vals, dirs_s, background=background
+            )
+            ret.append(
+                dict(
+                    **level_out,
+                    rgb=comp_rgb,
+                    depth=depth,
+                    acc=acc,
+                    weights=weights,
+                    t_vals=t_vals,
+                    t_mids=t_mids,
+                    t_dists=t_dists,
+                    pose=box_pose,
+                    rot=box_rot,
+                    dyn_mask=dyn_mask,
+                    z_out=z_out_ret,
+                )
+            )
+        return ret
+
+    def _objects(self, mean, cov, viewdirs_enc, hit, alpha, dtype):
+        """Hit-masked sum over the object MLPs: ([3, B, S], [1, B, S]).
+
+        One windowed encode of the composite-ray samples serves every
+        object: for a 0/1 mask, windowed_ipe(hit*m, hit*cov) ==
+        hit*windowed_ipe(m, cov) + (1-hit)*windowed_ipe(0, 0), so the masked
+        input is a blend with the constant zero-sample encoding c0.
+        """
+        cfg = self.config
+        enc_kwargs = dict(
+            min_deg=cfg.min_deg_point,
+            max_deg=cfg.max_deg_point,
+            alpha=alpha,
+            safe=not cfg.fast_trig,
+            recurrent=cfg.recurrent_encode,
+        )
+        enc = ops.windowed_ipe_cm(mean, cov, **enc_kwargs)
+        if cfg.use_pallas_mlp:
+            return k3.obj_mlps_apply(
+                self.object_mlps.operands(), cfg.box_mlp, enc, viewdirs_enc, hit, dtype
+            )
+        zero = torch.zeros((3, 1, 1), dtype=mean.dtype, device=mean.device)
+        c0 = ops.windowed_ipe_cm(zero, zero, **enc_kwargs)  # [F, 1, 1]
+        gate = hit.T[..., None]  # [N_obj, B, 1]
+        obj_rgb, obj_density = self.object_mlps.forward_objects(enc, viewdirs_enc, gate, c0)
+        hit_fm = hit.T[:, None, :, None]  # [N_obj, 1, B, 1]
+        return (hit_fm * obj_rgb).sum(dim=0), (hit_fm * obj_density).sum(dim=0)
+
+
+def construct_model(config: ModelConfig, example_batch: dict, device="cuda", seed: int = 0):
+    """Build the model on `device` with fresh weights drawn from `seed`:
+    glorot-uniform kernels and zero biases from a CPU torch.Generator, and
+    the pose table from example_batch['init'] (a [T, N_obj, 6] array, or
+    None for the static model). Runs on the card unless the caller asks
+    for the CPU."""
+    device = resolve_device(device)
+    init = example_batch.get("init")
+    n_obj, timesteps = (0, 0) if init is None else (init.shape[1], init.shape[0])
+    model = MipNerf(config, n_obj, timesteps)
+    gen = torch.Generator().manual_seed(seed)
+    model.background_mlp.reset_parameters(gen)
+    if model.dynamic:
+        model.object_mlps.reset_parameters(gen)
+        with torch.no_grad():
+            model.box_centers.copy_(torch.as_tensor(np.asarray(init, np.float32)))
+    return model.to(device).eval()
+
+
+def render_image(render_fn, rays: Rays, chunk: int = 8192) -> Dict[str, np.ndarray]:
+    """Render a full [H, W] image in chunks.
+
+    Args:
+      render_fn: fn(rays_chunk) -> dict with 'rgb' [N, 3], 'depth' [N],
+        'acc' [N] tensors (see train.make_render_fn).
+      rays: Rays whose leaves are [H, W, ...] (numpy or tensors).
+      chunk: rays per call; the last chunk is padded to `chunk` by repeating
+        its last ray, so every call sees one shape.
+
+    Returns a dict of [H, W, ...] numpy arrays (rgb, depth, acc).
+    """
+    height, width = rays.origins.shape[:2]
+    num_rays = height * width
+    flat = rays.map(lambda r: torch.as_tensor(np.asarray(r) if not torch.is_tensor(r) else r)
+                    .reshape(num_rays, r.shape[-1]))
+    outs = []
+    for i in range(0, num_rays, chunk):
+        chunk_rays = flat.map(lambda r: r[i : i + chunk])
+        pad = chunk - chunk_rays.origins.shape[0]
+        if pad > 0:
+            chunk_rays = chunk_rays.map(
+                lambda r: torch.cat([r, r[-1:].expand(pad, r.shape[-1])], dim=0)
+            )
+        out = render_fn(chunk_rays)
+        if pad > 0:
+            out = {k: v[: chunk - pad] for k, v in out.items()}
+        outs.append(out)  # stays on the device; one transfer at the end
+    merged = {k: torch.cat([o[k] for o in outs], dim=0).cpu().numpy() for k in outs[0]}
+    return {k: v.reshape((height, width) + v.shape[1:]) for k, v in merged.items()}
