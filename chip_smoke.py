@@ -5,19 +5,36 @@
 
 Phases (each one fails the run, with a non-zero exit, if it goes wrong):
   1. print the card's name and power limit;
-  2. build the CUDA kernels from durf_tpu_torch/csrc/ with nvcc;
-  3. K1 (fused background MLP) against its plain PyTorch version at the
-     flagship width, at N = 8192 x 128 and at an N that is not a tile
-     multiple, atol 2e-2 (bf16 operands, float32 sums in another order);
-     times of the kernel and of the plain version, and the bound;
-  4. K3 (objects-in-grid MLP) the same way at N_obj = 2, 4, 8;
-  5. the slice: the flagship model at the kernel operating point renders
-     two 128x128 frames through make_render_fn + render_image in chunks of
-     8192 rays; K1 and K3 must each launch levels x chunks = 8 times; the
-     images must be finite with rgb and acc in [0, 1]; one chunk is held
-     against the same model on the plain versions (atol 2e-2 on rgb);
-  6. a JSON line with every kernel's numbers, then the card's name and
-     power limit, and as the last line {"ok": true, "device": {...}}.
+  2. build the CUDA kernels from durf_tpu_torch/csrc/ with nvcc, all
+     sources at once;
+  3. K1 (fused background MLP forward) against its plain PyTorch version
+     at the flagship width, at N = 8192 x 128 and at an N that is not a
+     tile multiple, atol 2e-2 (bf16 operands, float32 sums in another
+     order); times of the kernel and of the plain version, and the bound;
+  4. K2 (its backward) against the plain backward at N = 4096 x 128 and
+     1000 x 77 on random cotangents: every output (dx, d cond_lin, each
+     weight and bias gradient) finite and within relative L2 2e-2; at
+     4096 x 128 also the whole autograd Function (K1 then K2, with the
+     per-ray condition product) against autograd of the plain forward;
+  5. K3 (objects-in-grid MLP forward) like K1 at N_obj = 2, 4, 8;
+  6. K4 (its backward) like K2 at N_obj = 2, 4, 8 (hit density 0.5), and
+     its Function against autograd of the plain forward at N_obj = 2;
+  7. the render slice: the flagship model at the kernel operating point
+     renders two 128x128 frames through make_render_fn + render_image in
+     chunks of 8192 rays; K1 and K3 must each launch levels x chunks = 8
+     times; the images must be finite with rgb and acc in [0, 1]; one chunk
+     is held against the same model on the plain versions (atol 2e-2);
+  8. the training slice: entry.train_entry() (batch 4096, seed 0), 2
+     warm-up then 10 timed steps; K1-K4 must each launch levels x steps =
+     20 times and every stat be finite; ms per step, rays/s, ray-samples/s;
+  9. descent: 20 steps at a constant lr of 5e-3, the last loss below the
+     first;
+ 10. one step's loss and raw gradients on the kernel path against the
+     plain path with the same weights and random stream (batch 1024): loss
+     within relative 1e-2, every gradient leaf within relative L2 5e-2;
+ 11. a JSON line with every kernel's numbers (launches from the training
+     slice), then the card's name and power limit, and as the last line
+     {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when CUDA is not available, or
 when run outside a checkout of the repository.
@@ -39,6 +56,17 @@ TOL = 2e-2
 K1_SHAPES = ((8192, 128), (1000, 77))
 K3_RAYS, K3_SAMPLES, K3_OBJECTS = 8192, 128, (2, 4, 8)
 SLICE_SIZE, SLICE_CHUNK = 128, 8192
+# Backward checks: the training step's shape (4096 rays x 128 samples) and
+# one that is not a tile multiple; K4 at these object counts.
+BWD_SHAPES = ((4096, 128), (1000, 77))
+K4_OBJECTS = (2, 4, 8)
+# Relative L2 error per backward output: bf16 operands, float32 sums in
+# another order, and isolated relu flips.
+BWD_TOL = 2e-2
+# Training phases: the flagship batch (bench.py:31), steps, and the smaller
+# batch of the kernel-vs-plain step comparison.
+TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, DESCENT_STEPS = 4096, 2, 10, 20
+COMPARE_BATCH = 1024
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -177,6 +205,151 @@ def check_k3(dev, gen):
     return result
 
 
+def rel_err(a, b) -> float:
+    """||a - b|| / ||b|| (0 when both are 0)."""
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den > 0 else float((a - b).norm())
+
+
+def compare_grads(what, out, ref, names=("dx", "dcond_lin")):
+    """Every backward output finite and within BWD_TOL relative L2 of the
+    plain version; returns the largest max_abs_err."""
+    import torch
+
+    names = list(names) + [f"operand{i}" for i in range(len(out) - len(names))]
+    worst_rel, worst_abs = 0.0, 0.0
+    for name, a, b in zip(names, out, ref):
+        finite = bool(torch.isfinite(a).all())
+        rel, mab = rel_err(a, b), float((a - b).abs().max())
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, mab)
+        if not finite or rel > BWD_TOL:
+            raise SystemExit(f"{what}: {name} disagrees with the plain backward: rel {rel} "
+                             f"(tol {BWD_TOL}), max_abs {mab}, finite={finite}")
+    print(f"{what}: max rel L2 {worst_rel:.3e}, max_abs_err {worst_abs:.3e} over {len(out)} outputs")
+    return worst_abs
+
+
+def check_function(what, kernel_fn, plain_fn, leaves, names, g_rgb, g_den):
+    """The autograd Function with its glue (the per-ray condition product,
+    need_dx, head_0's zero condition rows) against autograd of the plain
+    forward: gradients of <rgb, g_rgb> + <den, g_den> for every leaf."""
+    import torch
+
+    grads = []
+    for fn in (kernel_fn, plain_fn):
+        inputs = [t.detach().requires_grad_(True) for t in leaves]
+        rgb, den = fn(*inputs)
+        loss = (rgb * g_rgb).sum() + (den * g_den).sum()
+        grads.append(torch.autograd.grad(loss, inputs))
+        del rgb, den, loss, inputs
+    compare_grads(what, grads[0], grads[1], names)
+    del grads
+    torch.cuda.empty_cache()
+
+
+def check_k2(dev, gen):
+    import torch
+
+    from durf_tpu_torch.configs import MLPConfig
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+
+    cfg, f_in, f_c = MLPConfig(), 60, 27
+    w = random_mlp(cfg, f_in, f_c, None, gen, dev)
+    per_sample, _, params = mlp_macs(cfg, f_in, f_c)
+    result = None
+    for i, (b, s) in enumerate(BWD_SHAPES):
+        n = b * s
+        x = (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)
+        cond = (2 * torch.rand((b, f_c), generator=gen) - 1).to(dev)
+        cond_lin = k1.cond_linear(cond, w[k1.head0_index(cfg)], cfg).contiguous()
+        g_rgb = torch.randn((3, n), generator=gen).to(dev)
+        g_den = torch.randn((1, n), generator=gen).to(dev)
+        _, _, res = k1._k1_launch(x, cond_lin, w, cfg, s, save=True)
+        dx, dcond, grads = k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s)
+        torch.cuda.synchronize()
+        ref = k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den)
+        err = compare_grads(f"K2 fused_nerf_mlp_bwd N={n} (B={b}, S={s})",
+                            [dx, dcond, *grads], [ref[0], ref[1], *ref[2]])
+        del ref, dx, dcond, grads
+        if i == 0:
+            check_function(
+                f"K2 through FusedNerfMlpFn vs autograd of the plain forward N={n}",
+                lambda x_, c_, *w_: k1.fused_nerf_mlp(x_, c_, w_, cfg, s),
+                lambda x_, c_, *w_: k1.fused_nerf_mlp_reference(x_, c_, w_, cfg, s),
+                [x, cond, *w], ("dx", "dcond"), g_rgb, g_den,
+            )
+            ms = time_ms(lambda: k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s), iters=10)
+            plain_ms = time_ms(
+                lambda: k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den), 3, 1
+            )
+            flops = 4.0 * per_sample * n  # the dX and dW products
+            nbytes = 4.0 * (2 * f_in * n + 2 * cfg.net_width_condition * b + 2 * params + 4 * n)
+            bound_ms, bound_by = bound(flops, nbytes)
+            print(
+                f"K2 N={n}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
+            )
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del x, cond, cond_lin, g_rgb, g_den, res
+        torch.cuda.empty_cache()
+    return result
+
+
+def check_k4(dev, gen):
+    import torch
+
+    from durf_tpu_torch.configs import MLPConfig
+    from durf_tpu_torch.ops.kernels import obj_mlp as k3
+
+    cfg, f_in, f_c = MLPConfig(net_width=128), 63, 27
+    per_sample, _, params = mlp_macs(cfg, f_in, f_c)
+    result = None
+    cases = [(BWD_SHAPES[0], n_obj) for n_obj in K4_OBJECTS] + [(BWD_SHAPES[1], K4_OBJECTS[0])]
+    for (b, s), n_obj in cases:
+        n = b * s
+        w = random_mlp(cfg, f_in, f_c, n_obj, gen, dev)
+        x = (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)
+        hit = (torch.rand((n_obj, b), generator=gen) < 0.5).float().to(dev)
+        cond_lin = torch.randn((n_obj, b, cfg.net_width_condition), generator=gen)
+        cond_lin = cond_lin.to(torch.bfloat16).float().to(dev)
+        g_rgb = torch.randn((3, n), generator=gen).to(dev)
+        g_den = torch.randn((1, n), generator=gen).to(dev)
+        _, _, res = k3._k3_launch(x, hit, cond_lin, w, cfg, s, save=True)
+        dx, dcond, grads = k3.fused_obj_mlp_bwd(res, hit, g_rgb, g_den, w, cfg, s)
+        torch.cuda.synchronize()
+        ref = k3.fused_obj_mlp_bwd_reference(x, hit, cond_lin, w, cfg, s, g_rgb, g_den)
+        what = f"K4 fused_obj_mlp_bwd N_obj={n_obj} N={n} (B={b}, S={s})"
+        err = compare_grads(what, [dx, dcond, *grads], [ref[0], ref[1], *ref[2]])
+        del ref, dx, dcond, grads
+        if (b, s) == BWD_SHAPES[0] and n_obj == K4_OBJECTS[0]:
+            check_function(
+                f"K4 through FusedObjMlpFn vs autograd of the plain forward N_obj={n_obj} N={n}",
+                lambda x_, c_, *w_: k3.fused_obj_mlp(x_, hit, c_, w_, cfg, s),
+                lambda x_, c_, *w_: k3.fused_obj_mlp_reference(x_, hit, c_, w_, cfg, s),
+                [x, cond_lin, *w], ("dx", "dcond_lin"), g_rgb, g_den,
+            )
+        if (b, s) == BWD_SHAPES[0]:
+            ms = time_ms(lambda: k3.fused_obj_mlp_bwd(res, hit, g_rgb, g_den, w, cfg, s), iters=10)
+            plain_ms = time_ms(
+                lambda: k3.fused_obj_mlp_bwd_reference(x, hit, cond_lin, w, cfg, s, g_rgb, g_den),
+                2, 1,
+            )
+            flops = 4.0 * per_sample * n * n_obj
+            nbytes = 4.0 * (2 * f_in * n + n_obj * b * (1 + 2 * cfg.net_width_condition)
+                            + 2 * n_obj * params + 4 * n)
+            bound_ms, bound_by = bound(flops, nbytes)
+            print(
+                f"K4 N_obj={n_obj} N={n}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
+            )
+            if n_obj == K4_OBJECTS[0]:
+                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by)
+        del w, x, hit, cond_lin, g_rgb, g_den, res
+        torch.cuda.empty_cache()
+    return result
+
+
 def check_slice(dev, card):
     import copy
 
@@ -259,6 +432,119 @@ def check_slice(dev, card):
     return launches, ms_chunk
 
 
+def training_launches():
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+    from durf_tpu_torch.ops.kernels import obj_mlp as k3
+
+    return {
+        "K1": k1.fused_nerf_mlp.launches,
+        "K2": k1.fused_nerf_mlp_bwd.launches,
+        "K3": k3.fused_obj_mlp.launches,
+        "K4": k3.fused_obj_mlp_bwd.launches,
+    }
+
+
+def reset_launches():
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+    from durf_tpu_torch.ops.kernels import obj_mlp as k3
+
+    for fn in (k1.fused_nerf_mlp, k1.fused_nerf_mlp_bwd, k3.fused_obj_mlp, k3.fused_obj_mlp_bwd):
+        fn.launches = 0
+
+
+def check_train(dev, card):
+    """The training slice: the flagship step at batch TRAIN_BATCH through
+    entry.train_entry, WARMUP_STEPS then TIMED_STEPS on the host clock."""
+    import math
+
+    import torch
+
+    from durf_tpu_torch.entry import train_entry
+
+    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH)
+    for _ in range(WARMUP_STEPS):
+        state, stats = step_fn(state, batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, stats = step_fn(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = training_launches()
+    levels = state.config.model.num_levels
+    expect = levels * TIMED_STEPS
+    print(f"train: launches {launches} (expected {expect} each)")
+    if any(v != expect for v in launches.values()):
+        raise SystemExit(f"the training step did not go through the kernels: {launches}")
+    bad = [k for k, v in stats.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+    if bad:
+        raise SystemExit(f"training stats not finite: {bad}")
+    samples = state.config.model.samples_per_ray()
+    ms = 1e3 * dt / TIMED_STEPS
+    rays_s = TIMED_STEPS * TRAIN_BATCH / dt
+    print(
+        f"train: batch {TRAIN_BATCH}, {TIMED_STEPS} steps in {dt:.4f} s: {ms:.3f} ms/step, "
+        f"{rays_s:.1f} rays/s, {rays_s * samples:.1f} ray-samples/s "
+        f"(ray-samples as bench.py:191-192, {samples} per ray); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss {float(stats['train/loss']):.5f}, "
+        f"psnr {float(stats['train/psnr']):.3f} ({card})"
+    )
+    if not math.isfinite(ms):
+        raise SystemExit("train: no time measured")
+    return launches, ms
+
+
+def check_descent(dev):
+    """DESCENT_STEPS steps on the fixed batch at a constant lr: the loss falls."""
+    import torch
+
+    from durf_tpu_torch.entry import train_entry
+
+    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, constant_lr=5e-3)
+    losses = []
+    for _ in range(DESCENT_STEPS):
+        state, stats = step_fn(state, batch)
+        losses.append(stats["train/loss"])
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    print(f"descent: {DESCENT_STEPS} steps at lr 5e-3: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"the training step did not descend: {losses}")
+
+
+def check_step_vs_plain(dev):
+    """One step's loss and raw gradients on the kernel path against the same
+    weights and random stream with use_pallas_mlp=False, at batch
+    COMPARE_BATCH (the plain path keeps every fp32 activation for autograd)."""
+    import copy
+
+    import torch
+
+    from durf_tpu_torch.entry import train_entry
+    from durf_tpu_torch.models import MipNerf
+    from durf_tpu_torch.train import make_grad_fn
+
+    _, state, batch = train_entry(dev, batch_size=COMPARE_BATCH)
+    config = state.config
+    plain_cfg = copy.deepcopy(config)
+    plain_cfg.model.use_pallas_mlp = False
+    init = state.model.box_centers
+    plain = MipNerf(plain_cfg.model, init.shape[1], init.shape[0]).to(dev)
+    plain.load_state_dict(state.model.state_dict())
+    loss_k, _, grads_k = make_grad_fn(state.model, config)(0, batch)
+    loss_p, _, grads_p = make_grad_fn(plain, plain_cfg)(0, batch)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(((rel_err(grads_k[n], grads_p[n]), n) for n in grads_p), key=lambda t: t[0])
+    print(
+        f"step vs plain (batch {COMPARE_BATCH}): loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
+        f"(rel {loss_rel:.3e}); worst gradient leaf {worst[1]} rel L2 {worst[0]:.3e} "
+        f"over {len(grads_p)} leaves"
+    )
+    if loss_rel > 1e-2 or worst[0] > 5e-2:
+        raise SystemExit("the kernel step disagrees with the plain step")
+
+
 def main() -> int:
     import torch
 
@@ -287,29 +573,31 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(0)
-    k1_num = check_k1(dev, gen)
-    k3_num = check_k3(dev, gen)
-    launches, _ = check_slice(dev, smi)
+    nums = {
+        "K1": check_k1(dev, gen),
+        "K2": check_k2(dev, gen),
+        "K3": check_k3(dev, gen),
+        "K4": check_k4(dev, gen),
+    }
+    check_slice(dev, smi)
+    launches, _ = check_train(dev, smi)
+    check_descent(dev)
+    check_step_vs_plain(dev)
 
+    meta = {
+        "K1": ("K1 fused_nerf_mlp_fwd", "durf_tpu_torch/csrc/fused_mlp.cu",
+               "durf_tpu/ops/pallas/fused_mlp.py:389"),
+        "K2": ("K2 fused_nerf_mlp_bwd", "durf_tpu_torch/csrc/fused_mlp_bwd.cu",
+               "durf_tpu/ops/pallas/fused_mlp.py:562"),
+        "K3": ("K3 fused_obj_mlp_fwd", "durf_tpu_torch/csrc/obj_mlp.cu",
+               "durf_tpu/ops/pallas/obj_mlp.py:193"),
+        "K4": ("K4 fused_obj_mlp_bwd", "durf_tpu_torch/csrc/obj_mlp_bwd.cu",
+               "durf_tpu/ops/pallas/obj_mlp.py:299"),
+    }
     kernels = [
-        dict(
-            name="K1 fused_nerf_mlp_fwd",
-            route="cuda",
-            source="durf_tpu_torch/csrc/fused_mlp.cu",
-            replaces="durf_tpu/ops/pallas/fused_mlp.py:389",
-            launches=launches["K1"],
-            library_ms=None,
-            **k1_num,
-        ),
-        dict(
-            name="K3 fused_obj_mlp_fwd",
-            route="cuda",
-            source="durf_tpu_torch/csrc/obj_mlp.cu",
-            replaces="durf_tpu/ops/pallas/obj_mlp.py:193",
-            launches=launches["K3"],
-            library_ms=None,
-            **k3_num,
-        ),
+        dict(name=name, route="cuda", source=src, replaces=site, launches=launches[k],
+             library_ms=None, **nums[k])
+        for k, (name, src, site) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

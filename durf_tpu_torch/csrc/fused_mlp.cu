@@ -15,6 +15,10 @@
 // wide layer on the tensor cores (mma.sync, fp32 accumulation); see
 // mlp_tile.cuh. The per-ray condition product viewdirs_enc @
 // head_0_kernel[width:] is hoisted out (one row per ray, not per sample).
+//
+// Called from the autograd Function's forward (ops/kernels/fused_mlp.py), it
+// also writes the input tile and every stored activation in bf16 to device
+// memory (save_x / save_act), the residuals K2 (fused_mlp_bwd.cu) reads.
 
 #include "mlp_tile.cuh"
 
@@ -25,6 +29,7 @@ __global__ void __launch_bounds__(THREADS)
     fused_nerf_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cond,
                               const bf16* __restrict__ w, const float* __restrict__ b,
                               float* __restrict__ rgb_out, float* __restrict__ den_out,
+                              bf16* __restrict__ save_x, bf16* __restrict__ save_act,
                               long long n, int s_per_ray, MlpDesc d) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hmax = d.width > d.wc ? d.width : d.wc;
@@ -34,8 +39,9 @@ __global__ void __launch_bounds__(THREADS)
   const long long tile0 = (long long)blockIdx.x * TILE_M;
 
   load_x_tile(xs, x, d, tile0, n);
+  if (save_x != nullptr) store_tile(xs, ld_of(d.in_pad), d.in_pad, save_x, tile0, n);
   float rgb[4], den[4];
-  run_mlp<NTW, NTC>(d, w, b, cond, xs, hs, ws, tile0, n, s_per_ray, rgb, den);
+  run_mlp<NTW, NTC>(d, w, b, cond, xs, hs, ws, tile0, n, s_per_ray, rgb, den, save_act);
 
   const long long sample = tile0 + (threadIdx.x >> 1);
   if ((threadIdx.x & 1) == 0 && sample < n) {
@@ -46,13 +52,15 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int NTW, int NTC>
 static int launch(const float* x, const float* cond, const bf16* w, const float* b, float* rgb,
-                  float* den, long long n, int s_per_ray, const MlpDesc& d, cudaStream_t stream) {
+                  float* den, bf16* save_x, bf16* save_act, long long n, int s_per_ray,
+                  const MlpDesc& d, cudaStream_t stream) {
   const size_t smem = smem_bytes(d);
   auto kern = fused_nerf_mlp_fwd_kernel<NTW, NTC>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long grid = (n + TILE_M - 1) / TILE_M;
-  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, cond, w, b, rgb, den, n, s_per_ray, d);
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, cond, w, b, rgb, den, save_x, save_act, n,
+                                                  s_per_ray, d);
   return (int)cudaGetLastError();
 }
 
@@ -65,7 +73,8 @@ extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const 
                                        int s_per_ray, int in_dim, int width, int depth, int skip,
                                        int wc, int depth_cond, int n_rgb, int n_den,
                                        const long long* w_off, const long long* b_off,
-                                       int n_layers, void* stream) {
+                                       int n_layers, void* save_x, void* save_act,
+                                       const long long* act_off, int n_act, void* stream) {
   if (n_layers > durf::MAX_LAYERS || n_layers != depth + depth_cond + 3) return -1;
   MlpDesc d = {};
   d.in_dim = in_dim;
@@ -81,15 +90,19 @@ extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const 
     d.w_off[l] = w_off[l];
     d.b_off[l] = b_off[l];
   }
+  if (save_act != nullptr && n_act != depth + 1 + depth_cond) return -1;
+  for (int a = 0; save_act != nullptr && a < n_act; ++a) d.act_off[a] = act_off[a];
   auto wb = static_cast<const durf::bf16*>(w);
+  auto sx = static_cast<durf::bf16*>(save_x);
+  auto sa = static_cast<durf::bf16*>(save_act);
   auto s = static_cast<cudaStream_t>(stream);
   if (width == 256 && wc == 128)
-    return durf::launch<8, 4>(x, cond, wb, b, rgb, den, n, s_per_ray, d, s);
+    return durf::launch<8, 4>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
   if (width == 256 && wc == 256)
-    return durf::launch<8, 8>(x, cond, wb, b, rgb, den, n, s_per_ray, d, s);
+    return durf::launch<8, 8>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
   if (width == 128 && wc == 128)
-    return durf::launch<4, 4>(x, cond, wb, b, rgb, den, n, s_per_ray, d, s);
+    return durf::launch<4, 4>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
   if (width == 128 && wc == 256)
-    return durf::launch<4, 8>(x, cond, wb, b, rgb, den, n, s_per_ray, d, s);
+    return durf::launch<4, 8>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
   return -2;
 }

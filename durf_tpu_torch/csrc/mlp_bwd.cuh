@@ -1,0 +1,538 @@
+// Building blocks of the fused NeRF-MLP backward kernels (Hopper, sm_90a),
+// shared by K2 (fused_mlp_bwd.cu) and K4 (obj_mlp_bwd.cu).
+//
+// The backward of one MLP on N samples runs as four launches:
+//  1. mlp_bwd_kernel: one CTA per 128-sample tile walks the layers in
+//     reverse. The tile's cotangent G_l (bf16 [TILE_M][width] rows in shared
+//     memory) is the A operand of the transposed product G_l . W_l^T (the
+//     weights are packed transposed, so gemm_acc of mlp_tile.cuh runs it
+//     unchanged); the epilogue masks with the saved activation (relu), rounds
+//     to bf16 and writes the next G both to shared memory and to a device
+//     workspace. The x-parts (layer 0, the skip layer) add into dx.
+//  2. dw_kernel: every weight gradient dW_l = A_{l-1}^T . G_l is a product
+//     that reduces over all N samples. Blocks own a 128x128 output tile and
+//     a slice of samples and write fp32 partial sums (split-K); the bias
+//     gradient (column sums of G_l) rides along in the first row tile.
+//  3. reduce_kernel sums the partials of every slice in a fixed order, so
+//     the gradients are deterministic.
+//  4. ray_sum_kernel: d cond_lin[ray] = sum over the ray's samples of
+//     head_0's cotangent (the view condition enters per ray).
+//
+// Rounding points follow the TPU kernel's backward (durf_tpu/ops/pallas/
+// fused_mlp.py:58-77 with act_dtype=bf16): activations are stored in bf16,
+// every cotangent is rounded to bf16 before a product, products accumulate
+// in fp32, and the relu masks come from the stored activations.
+
+#pragma once
+
+#include "mlp_tile.cuh"
+
+namespace durf {
+
+// Where the backward finds its operands, per object (strides on each).
+//  * wt: transposed weights, bf16. Layer l's h-part W_l[:K]^T is [J_l][K]
+//    row-major at wt_off[l] (K = width, or wc for head_i with i >= 1); its
+//    x-part (layer 0 and skip layers) is x_chunks matrices [J_l][64] at
+//    wtx_off[l] + c * J_l * 64, zero past in_dim. -1 where a layer has none.
+//  * g: cotangent workspace, bf16. G_l is [n][gw_l] at g_off[l], gw_l =
+//    width (trunk, bottleneck), wc (head), 8 (density and rgb heads, zero
+//    past their channels).
+struct BwdDesc {
+  long long wt_off[MAX_LAYERS];
+  long long wtx_off[MAX_LAYERS];
+  long long g_off[MAX_LAYERS];
+  long long wt_obj_stride;
+  long long g_obj_stride;
+  int x_chunks;
+};
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// gs[row, col] = bf16(relu'(row, col) * (acc + den_term)), where relu' is
+// (act[sample][col] > 0) for a relu layer (act == nullptr: no relu) and
+// den_term = sum_c gd_c * w_den[col][c] (w_den == nullptr: none) with gd_c
+// = bf16(hit(ray) * g_den[c][sample]). Rows at or past n become 0.
+template <int NT>
+__device__ void bwd_epilogue(const float (&acc)[4][NT][4], bf16* gs, int ldg, const bf16* act,
+                             const float* g_den, const bf16* w_den, int n_den, const float* hit,
+                             long long tile0, long long n, int s_per_ray) {
+  constexpr int N = 32 * NT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = wm * 64 + mi * 16 + (lane >> 2) + half * 8;
+      const long long sample = tile0 + row;
+      const bool valid = sample < n;
+      float gd[4] = {0.f, 0.f, 0.f, 0.f};
+      if (valid && w_den != nullptr) {
+        const float sc = hit != nullptr ? hit[sample / s_per_ray] : 1.f;
+        for (int c = 0; c < n_den; ++c) gd[c] = bf16_round(sc * g_den[c * n + sample]);
+      }
+      const bf16* arow = (valid && act != nullptr) ? act + sample * N : nullptr;
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        const int col = wn * (N / 4) + nj * 8 + (lane & 3) * 2;
+        float v0 = acc[mi][nj][half * 2 + 0];
+        float v1 = acc[mi][nj][half * 2 + 1];
+        if (w_den != nullptr) {
+          for (int c = 0; c < n_den; ++c) {
+            v0 = fmaf(gd[c], __bfloat162float(w_den[col * n_den + c]), v0);
+            v1 = fmaf(gd[c], __bfloat162float(w_den[(col + 1) * n_den + c]), v1);
+          }
+        }
+        if (!valid) {
+          v0 = v1 = 0.f;
+        } else if (arow != nullptr) {
+          const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(arow + col);
+          if (!(__low2float(a) > 0.f)) v0 = 0.f;
+          if (!(__high2float(a) > 0.f)) v1 = 0.f;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(gs + row * ldg + col) = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// dx[col0 + col][sample] += acc[row][col] for col0 + col < in_dim (fp32,
+// feature-major [in_dim][n]). Each element has one owner thread per call.
+template <int NT>
+__device__ void dx_accumulate(const float (&acc)[4][NT][4], float* dx, int col0, int in_dim,
+                              long long tile0, long long n) {
+  constexpr int N = 32 * NT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long sample = tile0 + wm * 64 + mi * 16 + (lane >> 2) + half * 8;
+      if (sample >= n) continue;
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        const int f = col0 + wn * (N / 4) + nj * 8 + (lane & 3) * 2;
+        if (f < in_dim) dx[f * n + sample] += acc[mi][nj][half * 2 + 0];
+        if (f + 1 < in_dim) dx[(f + 1) * n + sample] += acc[mi][nj][half * 2 + 1];
+      }
+    }
+  }
+}
+
+// The rgb head's vjp on the CUDA cores (two threads per row, each half of
+// the head's wc columns): gs[row][k] = bf16((C_last[sample][k] > 0) *
+// sum_c gr_c * w_rgb[k][c]) with gr_c = bf16(hit * g_rgb[c][sample]). Also
+// writes the rounded head cotangents as 8-wide rows of G_rgb and G_den.
+__device__ void rgb_head_bwd(bf16* gs, int ldg, int wc, const bf16* act_last, const bf16* w_rgb,
+                             int n_rgb, const float* g_rgb, const float* g_den, int n_den,
+                             const float* hit, int s_per_ray, bf16* g_rgb_out, bf16* g_den_out,
+                             long long tile0, long long n) {
+  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const long long sample = tile0 + row;
+  const bool valid = sample < n;
+  const float sc = (valid && hit != nullptr) ? hit[sample / s_per_ray] : 1.f;
+  float gr[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c = 0; valid && c < n_rgb; ++c) gr[c] = bf16_round(sc * g_rgb[c * n + sample]);
+  const int k0 = half * (wc / 2), k1 = k0 + wc / 2;
+  for (int k = k0; k < k1; k += 2) {
+    float v0 = 0.f, v1 = 0.f;
+    if (valid) {
+      for (int c = 0; c < n_rgb; ++c) {
+        v0 = fmaf(gr[c], __bfloat162float(w_rgb[k * n_rgb + c]), v0);
+        v1 = fmaf(gr[c], __bfloat162float(w_rgb[(k + 1) * n_rgb + c]), v1);
+      }
+      const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(act_last + sample * wc + k);
+      if (!(__low2float(a) > 0.f)) v0 = 0.f;
+      if (!(__high2float(a) > 0.f)) v1 = 0.f;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(gs + row * ldg + k) = __floats2bfloat162_rn(v0, v1);
+  }
+  if (valid) {
+    const float* src = half == 0 ? g_rgb : g_den;
+    const int nc = half == 0 ? n_rgb : n_den;
+    __align__(16) bf16 r8[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) r8[c] = __float2bfloat16_rn(c < nc ? sc * src[c * n + sample] : 0.f);
+    *reinterpret_cast<uint4*>((half == 0 ? g_rgb_out : g_den_out) + sample * 8) =
+        *reinterpret_cast<const uint4*>(r8);
+  }
+}
+
+// One object's backward on the tile (see the top of this file). act: the
+// object's saved activation segments (MlpDesc::act_off); g: its cotangent
+// workspace; hit: its per-ray gate (nullptr: 1); dx: nullptr skips the
+// x-parts.
+template <int NTW, int NTC>
+__device__ void run_mlp_bwd(const MlpDesc& d, const BwdDesc& e, const bf16* w, const bf16* wt,
+                            const bf16* act, bf16* g, const float* g_rgb, const float* g_den,
+                            const float* hit, float* dx, bf16* gs, bf16* ws, long long tile0,
+                            long long n, int s_per_ray) {
+  constexpr int W = 32 * NTW, WC = 32 * NTC;
+  const int ldg = ld_of(W > WC ? W : WC);
+  const int l_den = d.depth, l_bn = d.depth + 1, l_h0 = d.depth + 2;
+  const int l_rgb = l_h0 + d.depth_cond;
+
+  rgb_head_bwd(gs, ldg, WC, act + d.act_off[d.depth + d.depth_cond], w + d.w_off[l_rgb], d.n_rgb,
+               g_rgb, g_den, d.n_den, hit, s_per_ray, g + e.g_off[l_rgb], g + e.g_off[l_den],
+               tile0, n);
+  __syncthreads();
+  store_tile(gs, ldg, WC, g + e.g_off[l_rgb - 1], tile0, n);
+  {
+    float acc[4][NTC][4];
+    for (int i = d.depth_cond - 1; i >= 1; --i) {  // head_i -> head_{i-1}
+      zero_acc(acc);
+      gemm_acc<NTC>(acc, gs, ldg, WC, wt + e.wt_off[l_h0 + i], WC, ws);
+      bwd_epilogue<NTC>(acc, gs, ldg, act + d.act_off[d.depth + i], nullptr, nullptr, 0, hit,
+                        tile0, n, s_per_ray);
+      __syncthreads();
+      store_tile(gs, ldg, WC, g + e.g_off[l_h0 + i - 1], tile0, n);
+    }
+  }
+  float acc[4][NTW][4];
+  // head_0 -> bottleneck (no activation).
+  zero_acc(acc);
+  gemm_acc<NTW>(acc, gs, ldg, WC, wt + e.wt_off[l_h0], WC, ws);
+  bwd_epilogue<NTW>(acc, gs, ldg, nullptr, nullptr, nullptr, 0, hit, tile0, n, s_per_ray);
+  __syncthreads();
+  store_tile(gs, ldg, W, g + e.g_off[l_bn], tile0, n);
+  // bottleneck and density head -> trunk_{depth-1}.
+  zero_acc(acc);
+  gemm_acc<NTW>(acc, gs, ldg, W, wt + e.wt_off[l_bn], W, ws);
+  bwd_epilogue<NTW>(acc, gs, ldg, act + d.act_off[d.depth - 1], g_den, w + d.w_off[l_den],
+                    d.n_den, hit, tile0, n, s_per_ray);
+  __syncthreads();
+  store_tile(gs, ldg, W, g + e.g_off[d.depth - 1], tile0, n);
+  for (int i = d.depth - 1; i >= 0; --i) {
+    const bool reads_x = i == 0 || ((i - 1) % d.skip == 0 && (i - 1) > 0);
+    if (reads_x && dx != nullptr) {
+      for (int c = 0; c < e.x_chunks; ++c) {
+        float accx[4][2][4];
+        zero_acc(accx);
+        gemm_acc<2>(accx, gs, ldg, W, wt + e.wtx_off[i] + (long long)c * W * 64, W, ws);
+        dx_accumulate<2>(accx, dx, c * 64, d.in_dim, tile0, n);
+      }
+    }
+    if (i == 0) break;
+    zero_acc(acc);
+    gemm_acc<NTW>(acc, gs, ldg, W, wt + e.wt_off[i], W, ws);
+    bwd_epilogue<NTW>(acc, gs, ldg, act + d.act_off[i - 1], nullptr, nullptr, 0, hit, tile0, n,
+                      s_per_ray);
+    __syncthreads();
+    store_tile(gs, ldg, W, g + e.g_off[i - 1], tile0, n);
+  }
+}
+
+__host__ inline size_t bwd_smem_bytes(const MlpDesc& d) {
+  const int hmax = d.width > d.wc ? d.width : d.wc;
+  return ((size_t)TILE_M * ld_of(hmax) + (size_t)STAGES * BK * ld_of(hmax)) * sizeof(bf16);
+}
+
+// TAG (2 for K2, 4 for K4) only names the instantiation, so that a profile
+// tells the two kernels' launches apart.
+template <int TAG, int NTW, int NTC>
+__global__ void __launch_bounds__(THREADS)
+    mlp_bwd_kernel(const float* __restrict__ g_rgb, const float* __restrict__ g_den,
+                   const float* __restrict__ hit, long long n_rays, const bf16* __restrict__ w,
+                   const bf16* __restrict__ wt, const bf16* __restrict__ act, bf16* __restrict__ g,
+                   float* __restrict__ dx, long long n, int s_per_ray, int n_obj, MlpDesc d,
+                   BwdDesc e) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hmax = d.width > d.wc ? d.width : d.wc;
+  bf16* gs = reinterpret_cast<bf16*>(smem);
+  bf16* ws = gs + TILE_M * ld_of(hmax);
+  const long long tile0 = (long long)blockIdx.x * TILE_M;
+  for (int o = 0; o < n_obj; ++o) {
+    run_mlp_bwd<NTW, NTC>(d, e, w + o * d.w_obj_stride, wt + o * e.wt_obj_stride,
+                          act + o * d.act_obj_stride, g + o * e.g_obj_stride, g_rgb, g_den,
+                          hit == nullptr ? nullptr : hit + o * n_rays, dx, gs, ws, tile0, n,
+                          s_per_ray);
+  }
+}
+
+// ---- weight gradients: split-K products over the sample axis ----
+
+constexpr int DW_TILE = 128;          // output rows (features of A) and columns (of G)
+constexpr int DW_BK = 32;             // samples per pipeline stage
+constexpr int DW_LD = DW_TILE + PAD;  // shared row stride (bf16)
+constexpr int JOB_FIELDS = 11;
+
+// One product dW[k][j] = sum_s A[s][k] G[s][j] (+ bias[j] = sum_s G[s][j]),
+// as int64 fields: A address, G address, lda, ldg, k, j, out (offset of
+// dW[0][0] in the flat output, row stride j), bias (offset of bias[0], or
+// -1), first output tile, row tiles, column tiles. A and G are bf16
+// [n][ld] row-major with zeros in columns [k, round8(k)) / [j, round8(j)).
+__device__ __forceinline__ void dw_load_stage(bf16* dst, const bf16* src, long long ld, int cols,
+                                              int c0, long long s0, long long s_end) {
+  for (int c = threadIdx.x; c < DW_BK * (DW_TILE / 8); c += THREADS) {
+    const int r = c / (DW_TILE / 8), cc = c - r * (DW_TILE / 8);
+    const long long s = s0 + r;
+    const int col = c0 + cc * 8;
+    const bool ok = s < s_end && col < cols;
+    cp_async16(dst + r * DW_LD + cc * 8, ok ? src + s * ld + col : src, ok ? 16 : 0);
+  }
+}
+
+template <int TAG>
+__global__ void __launch_bounds__(THREADS)
+    dw_kernel(const long long* __restrict__ jobs, int n_jobs, long long n, long long chunk,
+              float* __restrict__ part, long long total) {
+  constexpr int STAGE = DW_BK * DW_LD;
+  __shared__ __align__(16) unsigned char smem_raw[4 * STAGE * sizeof(bf16)];
+  bf16* const as[2] = {reinterpret_cast<bf16*>(smem_raw),
+                       reinterpret_cast<bf16*>(smem_raw) + STAGE};
+  bf16* const gsm[2] = {reinterpret_cast<bf16*>(smem_raw) + 2 * STAGE,
+                        reinterpret_cast<bf16*>(smem_raw) + 3 * STAGE};
+  const int tile = blockIdx.x;
+  int jb = 0;
+  while (jb + 1 < n_jobs && jobs[(jb + 1) * JOB_FIELDS + 8] <= tile) ++jb;
+  const long long* job = jobs + jb * JOB_FIELDS;
+  const bf16* A = reinterpret_cast<const bf16*>(job[0]);
+  const bf16* G = reinterpret_cast<const bf16*>(job[1]);
+  const long long lda = job[2], ldg = job[3];
+  const int k = (int)job[4], j = (int)job[5];
+  const long long out = job[6], bias = job[7];
+  const int local = tile - (int)job[8];
+  const int tm = local / (int)job[10], tn = local - tm * (int)job[10];
+  const int m0 = tm * DW_TILE, n0 = tn * DW_TILE;
+  const int kv = (k + 7) / 8 * 8, jv = (j + 7) / 8 * 8;
+  const long long s_begin = (long long)blockIdx.y * chunk;
+  const long long s_end = s_begin + chunk < n ? s_begin + chunk : n;
+  const int nks = s_end > s_begin ? (int)((s_end - s_begin + DW_BK - 1) / DW_BK) : 0;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 1, wn = warp >> 1;  // warp tile: 64 rows x 32 columns
+  const bool do_bias = bias >= 0 && tm == 0 && threadIdx.x < DW_TILE;
+  float acc[4][4][4];
+  zero_acc(acc);
+  float bsum = 0.f;
+
+  if (nks > 0) {
+    dw_load_stage(as[0], A, lda, kv, m0, s_begin, s_end);
+    dw_load_stage(gsm[0], G, ldg, jv, n0, s_begin, s_end);
+  }
+  cp_async_commit();
+  for (int kt = 0; kt < nks; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nks) {
+      const long long s0 = s_begin + (long long)(kt + 1) * DW_BK;
+      dw_load_stage(as[cur ^ 1], A, lda, kv, m0, s0, s_end);
+      dw_load_stage(gsm[cur ^ 1], G, ldg, jv, n0, s0, s_end);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* a_s = as[cur];
+    const bf16* g_s = gsm[cur];
+#pragma unroll
+    for (int kk = 0; kk < DW_BK; kk += 16) {
+      // A^T fragments from sample-major rows: ldmatrix.trans of [k][m] 8x8
+      // blocks gives the row-major m16k16 operand.
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4_t(a[mi], a_s + (kk + ((lane >> 4) & 1) * 8 + (lane & 7)) * DW_LD + wm * 64 +
+                             mi * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        uint32_t b[4];
+        ldsm_x4_t(b, g_s + (kk + (lane & 15)) * DW_LD + wn * 32 + nj * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+    if (do_bias) {
+#pragma unroll 8
+      for (int r = 0; r < DW_BK; ++r) bsum += __bfloat162float(g_s[r * DW_LD + threadIdx.x]);
+    }
+    __syncthreads();
+  }
+
+  float* p = part + (long long)blockIdx.y * total;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + half * 8;
+      if (row >= k) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;
+        if (col < j) p[out + (long long)row * j + col] = acc[mi][nt][half * 2 + 0];
+        if (col + 1 < j) p[out + (long long)row * j + col + 1] = acc[mi][nt][half * 2 + 1];
+      }
+    }
+  }
+  if (do_bias && n0 + (int)threadIdx.x < j) p[bias + n0 + threadIdx.x] = bsum;
+}
+
+// out[i] = sum over slices s of part[s][i], in slice order.
+template <int TAG>
+__global__ void reduce_kernel(const float* __restrict__ part, int n_splits, long long total,
+                              float* __restrict__ out) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < n_splits; ++k) s += part[(long long)k * total + i];
+    out[i] = s;
+  }
+}
+
+// dcond[o][r][c] = sum over the ray's samples of G_head0[o][r * S + s][c]
+// (fp32). One block per (ray, object), one thread per column.
+template <int TAG>
+__global__ void ray_sum_kernel(const bf16* __restrict__ g, long long g_obj_stride,
+                               long long g_off, int wc, int s_per_ray, long long n_rays,
+                               float* __restrict__ dcond) {
+  const long long r = blockIdx.x;
+  const int o = blockIdx.y, c = threadIdx.x;
+  const bf16* src = g + o * g_obj_stride + g_off + r * s_per_ray * wc + c;
+  float s = 0.f;
+  for (int i = 0; i < s_per_ray; ++i) s += __bfloat162float(src[(long long)i * wc]);
+  dcond[((long long)o * n_rays + r) * wc + c] = s;
+}
+
+template <int TAG, int NTW, int NTC>
+static int launch_bwd_tiles(const float* g_rgb, const float* g_den, const float* hit,
+                            long long n_rays, const bf16* w, const bf16* wt, const bf16* act,
+                            bf16* g, float* dx, long long n, int s_per_ray, int n_obj,
+                            const MlpDesc& d, const BwdDesc& e, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(d);
+  auto kern = mlp_bwd_kernel<TAG, NTW, NTC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = (n + TILE_M - 1) / TILE_M;
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(g_rgb, g_den, hit, n_rays, w, wt, act, g, dx, n,
+                                                  s_per_ray, n_obj, d, e);
+  return (int)cudaGetLastError();
+}
+
+// Arguments shared by the K2 and K4 entry points (see their extern "C"
+// functions): the four launches of one MLP backward on `stream`.
+struct BwdArgs {
+  const float* g_rgb;
+  const float* g_den;
+  const float* hit;  // [n_obj][n_rays] or nullptr
+  long long n_rays;
+  const bf16* w;     // forward pack (density and rgb heads read from it)
+  const bf16* wt;    // transposed pack
+  const bf16* act;   // saved activations
+  bf16* g;           // cotangent workspace
+  float* dx;         // [in_dim][n] accumulated (zeroed by the caller), or nullptr
+  float* dcond;      // [n_obj][n_rays][wc]
+  const long long* jobs;
+  int n_jobs, n_tiles, n_splits;
+  long long chunk;
+  float* part;       // [n_splits][total]
+  float* dw;         // [total]
+  long long total;
+  long long n;
+  int s_per_ray, n_obj;
+};
+
+// One tile-kernel instantiation per kernel, at the widths of the flagship
+// configuration that runs it (fused_mlp.BWD_WIDTHS): K2 the 8x256
+// background MLP, K4 the 8x128 object MLPs, both with 128-wide heads.
+// Other widths return -2.
+template <int TAG>
+int mlp_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e,
+                          cudaStream_t stream) {
+  constexpr int NTW = TAG == 2 ? 8 : 4;
+  if (d.width != 32 * NTW || d.wc != 128) return -2;
+  int err = launch_bwd_tiles<TAG, NTW, 4>(a.g_rgb, a.g_den, a.hit, a.n_rays, a.w, a.wt, a.act, a.g,
+                                          a.dx, a.n, a.s_per_ray, a.n_obj, d, e, stream);
+  if (err != 0) return err;
+  dw_kernel<TAG><<<dim3((unsigned)a.n_tiles, (unsigned)a.n_splits), THREADS, 0, stream>>>(
+      a.jobs, a.n_jobs, a.n, a.chunk, a.part, a.total);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  long long blocks = (a.total + THREADS - 1) / THREADS;
+  if (blocks > 4096) blocks = 4096;
+  reduce_kernel<TAG><<<(unsigned)blocks, THREADS, 0, stream>>>(a.part, a.n_splits, a.total, a.dw);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  ray_sum_kernel<TAG><<<dim3((unsigned)a.n_rays, (unsigned)a.n_obj), d.wc, 0, stream>>>(
+      a.g, e.g_obj_stride, e.g_off[d.depth + 2], d.wc, a.s_per_ray, a.n_rays, a.dcond);
+  return (int)cudaGetLastError();
+}
+
+// Descriptors from the flat arrays the Python wrappers pass.
+inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int depth, int skip,
+                          int wc, int depth_cond, int n_rgb, int n_den, const long long* w_off,
+                          const long long* act_off, const long long* wt_off,
+                          const long long* wtx_off, const long long* g_off, int n_layers,
+                          long long w_obj_stride, long long act_obj_stride,
+                          long long wt_obj_stride, long long g_obj_stride) {
+  if (n_layers > MAX_LAYERS || n_layers != depth + depth_cond + 3) return -1;
+  d = MlpDesc{};
+  e = BwdDesc{};
+  d.in_dim = in_dim;
+  d.in_pad = (in_dim + BK - 1) / BK * BK;
+  d.width = width;
+  d.depth = depth;
+  d.skip = skip;
+  d.wc = wc;
+  d.depth_cond = depth_cond;
+  d.n_rgb = n_rgb;
+  d.n_den = n_den;
+  d.w_obj_stride = w_obj_stride;
+  d.act_obj_stride = act_obj_stride;
+  for (int l = 0; l < n_layers; ++l) {
+    d.w_off[l] = w_off[l];
+    e.wt_off[l] = wt_off[l];
+    e.wtx_off[l] = wtx_off[l];
+    e.g_off[l] = g_off[l];
+  }
+  for (int a = 0; a < depth + 1 + depth_cond; ++a) d.act_off[a] = act_off[a];
+  e.wt_obj_stride = wt_obj_stride;
+  e.g_obj_stride = g_obj_stride;
+  e.x_chunks = (in_dim + 63) / 64;
+  return 0;
+}
+
+}  // namespace durf
+
+// The C entry point NAME of K2 (TAG 2) and K4 (TAG 4); each .cu expands it
+// once.
+#define DURF_DEFINE_BWD_ENTRY(NAME, TAG)                                                              \
+  extern "C" int NAME(                                                                           \
+      const float* g_rgb, const float* g_den, const float* hit, long long n_rays, const void* w, \
+      const void* wt, const void* act, void* g, float* dx, float* dcond, const long long* jobs,  \
+      int n_jobs, int n_tiles, int n_splits, long long chunk, float* part, float* dw,            \
+      long long total, long long n, int s_per_ray, int n_obj, int in_dim, int width, int depth,  \
+      int skip, int wc, int depth_cond, int n_rgb, int n_den, const long long* w_off,            \
+      const long long* act_off, const long long* wt_off, const long long* wtx_off,               \
+      const long long* g_off, int n_layers, long long w_obj_stride, long long act_obj_stride,    \
+      long long wt_obj_stride, long long g_obj_stride, void* stream) {                           \
+    durf::MlpDesc d;                                                                             \
+    durf::BwdDesc e;                                                                             \
+    int err = durf::make_bwd_descs(d, e, in_dim, width, depth, skip, wc, depth_cond, n_rgb,      \
+                                   n_den, w_off, act_off, wt_off, wtx_off, g_off, n_layers,      \
+                                   w_obj_stride, act_obj_stride, wt_obj_stride, g_obj_stride);   \
+    if (err != 0) return err;                                                                    \
+    durf::BwdArgs a{g_rgb,                                                                       \
+                    g_den,                                                                       \
+                    hit,                                                                         \
+                    n_rays,                                                                      \
+                    static_cast<const durf::bf16*>(w),                                           \
+                    static_cast<const durf::bf16*>(wt),                                          \
+                    static_cast<const durf::bf16*>(act),                                         \
+                    static_cast<durf::bf16*>(g),                                                 \
+                    dx,                                                                          \
+                    dcond,                                                                       \
+                    jobs,                                                                        \
+                    n_jobs,                                                                      \
+                    n_tiles,                                                                     \
+                    n_splits,                                                                    \
+                    chunk,                                                                       \
+                    part,                                                                        \
+                    dw,                                                                          \
+                    total,                                                                       \
+                    n,                                                                           \
+                    s_per_ray,                                                                   \
+                    n_obj};                                                                      \
+    return durf::mlp_bwd_launch<TAG>(a, d, e, static_cast<cudaStream_t>(stream));                     \
+  }

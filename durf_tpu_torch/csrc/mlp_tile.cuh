@@ -52,6 +52,12 @@ struct MlpDesc {
   long long b_obj_stride;
   long long w_off[MAX_LAYERS];
   long long b_off[MAX_LAYERS];
+  // Saved activations for the backward (used only when a save pointer is
+  // given): segment a of object o is a [n][width] bf16 row-major buffer at
+  // act + o * act_obj_stride + act_off[a]; segments are trunk_0..
+  // trunk_{depth-1} (width), bottleneck (width), head_0.. (wc).
+  long long act_obj_stride;
+  long long act_off[MAX_LAYERS];
 };
 
 __host__ __device__ inline int ld_of(int k) { return k + PAD; }
@@ -240,13 +246,29 @@ __device__ void load_x_tile(bf16* xs, const float* x, const MlpDesc& d, long lon
   __syncthreads();
 }
 
+// Copy the tile's bf16 rows s[0:TILE_M][0:cols] (row stride lds) to rows
+// [tile0, tile0 + TILE_M) of a [n][cols] row-major buffer in 16-byte chunks,
+// skipping rows at or past n. cols is a multiple of 8.
+__device__ __forceinline__ void store_tile(const bf16* s, int lds, int cols, bf16* dst,
+                                           long long tile0, long long n) {
+  const int chunks = cols / 8;
+  for (int c = threadIdx.x; c < TILE_M * chunks; c += THREADS) {
+    const int r = c / chunks, cc = c - r * chunks;
+    if (tile0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (tile0 + r) * cols + cc * 8) =
+          *reinterpret_cast<const uint4*>(s + r * lds + cc * 8);
+  }
+}
+
 // One object's MLP on the tile: trunk, density head, bottleneck, condition
 // head(s), rgb head. Returns this thread's row sums in rgb[] / den[] (row =
 // threadIdx.x / 2). `cond` holds the per-ray head_0 condition rows [n_rays][wc].
+// With `save` (this object's activation segments, see MlpDesc) every stored
+// activation tile is also written to device memory for the backward.
 template <int NTW, int NTC>
 __device__ void run_mlp(const MlpDesc& d, const bf16* w, const float* b, const float* cond,
                         const bf16* xs, bf16* hs, bf16* ws, long long tile0, long long n,
-                        int s_per_ray, float (&rgb)[4], float (&den)[4]) {
+                        int s_per_ray, float (&rgb)[4], float (&den)[4], bf16* save = nullptr) {
   constexpr int W = 32 * NTW;
   const int ldx = ld_of(d.in_pad);
   const int hmax = d.width > d.wc ? d.width : d.wc;
@@ -267,14 +289,16 @@ __device__ void run_mlp(const MlpDesc& d, const bf16* w, const float* b, const f
       }
       epilogue<NTW>(acc, hs, ldh, b + d.b_off[i], nullptr, tile0, n, s_per_ray, true);
       __syncthreads();
+      if (save != nullptr) store_tile(hs, ldh, W, save + d.act_off[i], tile0, n);
     }
     small_head(hs, ldh, W, w + d.w_off[d.depth], b + d.b_off[d.depth], d.n_den, den);
     // bottleneck (no activation); gemm_acc's closing barrier also orders
-    // the density head's reads of hs before the overwrite.
+    // the density head's and the save's reads of hs before the overwrite.
     zero_acc(acc);
     gemm_acc<NTW>(acc, hs, ldh, W, w + d.w_off[d.depth + 1], W, ws);
     epilogue<NTW>(acc, hs, ldh, b + d.b_off[d.depth + 1], nullptr, tile0, n, s_per_ray, false);
     __syncthreads();
+    if (save != nullptr) store_tile(hs, ldh, W, save + d.act_off[d.depth], tile0, n);
   }
   {
     constexpr int WC = 32 * NTC;
@@ -286,6 +310,7 @@ __device__ void run_mlp(const MlpDesc& d, const bf16* w, const float* b, const f
       epilogue<NTC>(acc, hs, ldh, b + d.b_off[l], i == 0 ? cond : nullptr, tile0, n, s_per_ray,
                     true);
       __syncthreads();
+      if (save != nullptr) store_tile(hs, ldh, WC, save + d.act_off[d.depth + 1 + i], tile0, n);
     }
     const int l = d.depth + 2 + d.depth_cond;
     small_head(hs, ldh, WC, w + d.w_off[l], b + d.b_off[l], d.n_rgb, rgb);

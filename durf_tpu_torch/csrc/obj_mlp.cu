@@ -14,6 +14,11 @@
 // rounded to bf16 as the JAX package does) against ~270 bytes of input and
 // output. The per-layer work is the same tensor-core tile pipeline as K1
 // (mlp_tile.cuh); only the input features are shared across objects.
+//
+// Called from the autograd Function's forward (ops/kernels/obj_mlp.py), it
+// also writes the shared input tile once and each object's stored
+// activations in bf16 to device memory, the residuals K4 (obj_mlp_bwd.cu)
+// reads.
 
 #include "mlp_tile.cuh"
 
@@ -24,7 +29,8 @@ __global__ void __launch_bounds__(THREADS)
     fused_obj_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ hit,
                              const float* __restrict__ cond_lin, const bf16* __restrict__ w,
                              const float* __restrict__ b, float* __restrict__ rgb_out,
-                             float* __restrict__ den_out, long long n, long long n_rays,
+                             float* __restrict__ den_out, bf16* __restrict__ save_x,
+                             bf16* __restrict__ save_act, long long n, long long n_rays,
                              int s_per_ray, int n_obj, MlpDesc d) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hmax = d.width > d.wc ? d.width : d.wc;
@@ -36,12 +42,13 @@ __global__ void __launch_bounds__(THREADS)
   const long long ray = sample < n ? sample / s_per_ray : 0;
 
   load_x_tile(xs, x, d, tile0, n);
+  if (save_x != nullptr) store_tile(xs, ld_of(d.in_pad), d.in_pad, save_x, tile0, n);
   float rgb_acc[4] = {0.f, 0.f, 0.f, 0.f}, den_acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int o = 0; o < n_obj; ++o) {
     float rgb[4], den[4];
     run_mlp<NTW, NTC>(d, w + o * d.w_obj_stride, b + o * d.b_obj_stride,
                       cond_lin + (long long)o * n_rays * d.wc, xs, hs, ws, tile0, n, s_per_ray,
-                      rgb, den);
+                      rgb, den, save_act == nullptr ? nullptr : save_act + o * d.act_obj_stride);
     const float g = hit[(long long)o * n_rays + ray];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -57,15 +64,16 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int NTW, int NTC>
 static int launch(const float* x, const float* hit, const float* cond_lin, const bf16* w,
-                  const float* b, float* rgb, float* den, long long n, long long n_rays,
-                  int s_per_ray, int n_obj, const MlpDesc& d, cudaStream_t stream) {
+                  const float* b, float* rgb, float* den, bf16* save_x, bf16* save_act,
+                  long long n, long long n_rays, int s_per_ray, int n_obj, const MlpDesc& d,
+                  cudaStream_t stream) {
   const size_t smem = smem_bytes(d);
   auto kern = fused_obj_mlp_fwd_kernel<NTW, NTC>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long grid = (n + TILE_M - 1) / TILE_M;
-  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, hit, cond_lin, w, b, rgb, den, n, n_rays,
-                                                  s_per_ray, n_obj, d);
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, hit, cond_lin, w, b, rgb, den, save_x,
+                                                  save_act, n, n_rays, s_per_ray, n_obj, d);
   return (int)cudaGetLastError();
 }
 
@@ -80,7 +88,9 @@ extern "C" int durf_fused_obj_mlp_fwd(const float* x, const float* hit, const fl
                                       int depth_cond, int n_rgb, int n_den,
                                       const long long* w_off, const long long* b_off,
                                       int n_layers, long long w_obj_stride,
-                                      long long b_obj_stride, void* stream) {
+                                      long long b_obj_stride, void* save_x, void* save_act,
+                                      const long long* act_off, int n_act,
+                                      long long act_obj_stride, void* stream) {
   if (n_layers > durf::MAX_LAYERS || n_layers != depth + depth_cond + 3) return -1;
   MlpDesc d = {};
   d.in_dim = in_dim;
@@ -98,15 +108,24 @@ extern "C" int durf_fused_obj_mlp_fwd(const float* x, const float* hit, const fl
     d.w_off[l] = w_off[l];
     d.b_off[l] = b_off[l];
   }
+  if (save_act != nullptr && n_act != depth + 1 + depth_cond) return -1;
+  for (int a = 0; save_act != nullptr && a < n_act; ++a) d.act_off[a] = act_off[a];
+  d.act_obj_stride = act_obj_stride;
   auto wb = static_cast<const durf::bf16*>(w);
+  auto sx = static_cast<durf::bf16*>(save_x);
+  auto sa = static_cast<durf::bf16*>(save_act);
   auto s = static_cast<cudaStream_t>(stream);
   if (width == 128 && wc == 128)
-    return durf::launch<4, 4>(x, hit, cond_lin, wb, b, rgb, den, n, n_rays, s_per_ray, n_obj, d, s);
+    return durf::launch<4, 4>(x, hit, cond_lin, wb, b, rgb, den, sx, sa, n, n_rays, s_per_ray,
+                                     n_obj, d, s);
   if (width == 256 && wc == 128)
-    return durf::launch<8, 4>(x, hit, cond_lin, wb, b, rgb, den, n, n_rays, s_per_ray, n_obj, d, s);
+    return durf::launch<8, 4>(x, hit, cond_lin, wb, b, rgb, den, sx, sa, n, n_rays, s_per_ray,
+                                     n_obj, d, s);
   if (width == 128 && wc == 256)
-    return durf::launch<4, 8>(x, hit, cond_lin, wb, b, rgb, den, n, n_rays, s_per_ray, n_obj, d, s);
+    return durf::launch<4, 8>(x, hit, cond_lin, wb, b, rgb, den, sx, sa, n, n_rays, s_per_ray,
+                                     n_obj, d, s);
   if (width == 256 && wc == 256)
-    return durf::launch<8, 8>(x, hit, cond_lin, wb, b, rgb, den, n, n_rays, s_per_ray, n_obj, d, s);
+    return durf::launch<8, 8>(x, hit, cond_lin, wb, b, rgb, den, sx, sa, n, n_rays, s_per_ray,
+                                     n_obj, d, s);
   return -2;
 }

@@ -1,5 +1,6 @@
-"""Entry point: the flagship eval forward, like the JAX package's
-`__graft_entry__.entry()`."""
+"""Entry points: the flagship eval forward, like the JAX package's
+`__graft_entry__.entry()`, and the flagship training step that bench.py
+builds (bench.py:147-172), without object-ray compaction."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from durf_tpu_torch.configs import Config, MLPConfig, ModelConfig
 from durf_tpu_torch.data.synthetic import example_ray_batch
 from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.models.mipnerf import construct_model
+from durf_tpu_torch.train import batch_to, create_train_state, make_optimizer, make_train_step
 
 
 def flagship_config(tiny: bool = False) -> Config:
@@ -101,3 +103,28 @@ def entry(device="cuda"):
         int(batch["ts"]),
     )
     return forward, example_args
+
+
+def train_entry(device="cuda", batch_size: int = 4096, constant_lr: float | None = None):
+    """(step_fn, state, batch): the flagship training step at the kernel
+    operating point (bf16, K1-K4, recurrent encode, coordinate-major
+    diagonal pipeline), weights from seed 0, a synthetic `batch_size`-ray
+    batch on the device and step_fn(state, batch) -> (state, stats). The
+    step is randomized with a gray background and no density noise, as the
+    flagship config sets; object-ray compaction stays off
+    (`bench.py --obj_capacity 0`). `constant_lr` replaces the delayed
+    log-lerp schedule by a constant rate (as __graft_entry__.py:142-144
+    does for a short run). Runs on the card unless the caller asks for the
+    CPU; raises when there is no card."""
+    device = resolve_device(device)
+    config = kernel_operating_point(flagship_config())
+    config.batch_size = batch_size
+    if constant_lr is not None:
+        config.lr_init = config.lr_final = constant_lr
+        config.lr_delay_steps = 0
+    host_batch = example_ray_batch(batch_size=batch_size)
+    model = construct_model(config.model, host_batch, device)
+    optimizer = make_optimizer(config, model)
+    state = create_train_state(config, model, optimizer)
+    step_fn = make_train_step(model, config, optimizer)
+    return step_fn, state, batch_to(host_batch, device)

@@ -1,19 +1,20 @@
 """The dynamic scene-graph Mip-NeRF: a background field plus per-object
 fields inside oriented boxes (reference obbpose_model.py:42-261).
 
-Counterpart of the JAX package's `models/mipnerf.py` for the eval forward of
-the coordinate-major diagonal pipeline. Per level:
+Counterpart of the JAX package's `models/mipnerf.py` for the
+coordinate-major diagonal pipeline, eval and training forward. Per level:
   stratified / inverse-CDF samples -> conical-frustum Gaussians ->
   (dynamic) windowed IPE + object MLPs on the composite rays ->
   background mask, contraction, IPE, background MLP -> additive raw merge ->
-  activations -> compositing.
-With `use_pallas_mlp` the background MLP runs K1 and the object MLPs K3
-(ops/kernels/); without it both run the plain path in `compute_dtype`.
+  density noise -> activations -> compositing.
+With `use_pallas_mlp` the background MLP runs K1/K2 and the object MLPs
+K3/K4 (ops/kernels/, forward and backward); without it both run the plain
+path in `compute_dtype`. A randomized (training) forward draws all its
+randomness from one `torch.Generator`, threaded through the levels.
 
 Not ported yet, and refused with NotImplementedError: proposal levels,
-occupancy-grid sampling, object-ray compaction, the row-major and
-full-covariance pipelines, randomized (training) sampling with density
-noise, and the random background.
+occupancy-grid sampling, object-ray compaction, the object-centering
+readout, the row-major and full-covariance pipelines.
 """
 
 from __future__ import annotations
@@ -87,22 +88,24 @@ class MipNerf(nn.Module):
         background: str = "gray",
         alpha=10.0,
         randomized: bool = False,
+        generator: torch.Generator | None = None,
     ) -> List[Dict[str, Any]]:
         """Render a batch of rays (tensors [B, ...]).
 
         Args:
           ext: [N_obj, 3] box half-extents (dynamic model).
           ts: the timestep of this batch (index into the pose table).
-          background: 'white' | 'gray' | 'black'.
+          background: 'white' | 'gray' | 'black' | 'random'.
           alpha: BARF frequency-annealing scalar.
+          randomized: stratified jitter and density noise (training).
+          generator: the source of every random draw (randomized, or the
+            random background), on the rays' device.
 
         Returns one dict per level: rgb [B,3], depth [B], acc [B],
         weights [B,S], t_vals [B,S+1], t_mids [B,S], t_dists [B,S],
         pose [N_obj,3], rot [N_obj,3], dyn_mask [B,1], z_out [B], and for the
         dynamic model obj_hit_rays (rays hitting any box).
         """
-        if randomized:
-            raise NotImplementedError("randomized (training) sampling is not ported yet")
         cfg = self.config
         dtype = self.background_mlp.compute_dtype
         origins, dirs = rays.origins, rays.directions
@@ -114,6 +117,10 @@ class MipNerf(nn.Module):
             t = int(ts)
             box_pose = self.box_centers[t, :, :3]  # [N_obj, 3]
             box_rot = self.box_centers[t, :, 3:]
+            if cfg.no_pose_opt:
+                box_pose = box_pose.detach()
+            if cfg.no_yaw_opt:
+                box_rot = box_rot.detach()
             n_obj = box_pose.shape[0]
             box_mat = ops.axis_angle_to_matrix(box_rot)
             origins_o, dirs_o = ops.world_to_box_frames(
@@ -124,6 +131,7 @@ class MipNerf(nn.Module):
             )
             box_dims = ext.expand(batch, n_obj, 3)
             z_in, z_out, hit = ops.ray_box_intersection(origins_o, dirs_o, -box_dims, box_dims)
+            hit = hit.detach()  # [B, N_obj]
             miss_all = (hit.sum(dim=-1) == 0).to(origins.dtype)  # [B]
             # Composite rays: object-frame rays where a box is hit (boxes are
             # assumed not to overlap along a ray), world rays elsewhere.
@@ -143,8 +151,8 @@ class MipNerf(nn.Module):
             m = cfg.box_nearfar_margin
             near = (hit * (z_in - m)).sum(-1, keepdim=True) + miss_all[..., None] * rays.near
             far = (hit * (z_out + m)).sum(-1, keepdim=True) + miss_all[..., None] * rays.far
-            near = torch.maximum(near, rays.near)
-            far = torch.minimum(torch.maximum(far, near + 1e-3), rays.far)
+            near = torch.maximum(near, rays.near).detach()
+            far = torch.minimum(torch.maximum(far, near + 1e-3), rays.far).detach()
 
         viewdirs_enc = (
             ops.pos_enc(rays.viewdirs, 0, cfg.deg_view, append_identity=True)
@@ -158,7 +166,8 @@ class MipNerf(nn.Module):
             n_level = cfg.level_samples(i_level)
             if i_level == 0:
                 t_vals, samples = ops.sample_along_rays(
-                    origins_s, dirs_s, rays.radii, n_level, near, far, cfg.lindisp, cfg.ray_shape
+                    origins_s, dirs_s, rays.radii, n_level, near, far, cfg.lindisp,
+                    cfg.ray_shape, randomized, generator,
                 )
             else:
                 t_vals, samples = ops.resample_along_rays(
@@ -170,6 +179,9 @@ class MipNerf(nn.Module):
                     cfg.ray_shape,
                     cfg.resample_padding,
                     num_samples=n_level,
+                    randomized=randomized,
+                    stop_grad=cfg.stop_level_grad,
+                    generator=generator,
                 )
             mean, cov = samples  # [3, B, S] each
             if cfg.disable_integration:
@@ -182,7 +194,7 @@ class MipNerf(nn.Module):
                 # The background sees the complement mask, clamped at 0: a ray
                 # hitting two boxes would otherwise flip the covariance
                 # negative (reference obbpose_model.py:205).
-                bkgd = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0)[None, :, None]
+                bkgd = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0).detach()[None, :, None]
                 mean, cov = bkgd * mean, bkgd * cov
 
             if cfg.contraction:
@@ -201,11 +213,16 @@ class MipNerf(nn.Module):
             if self.dynamic:
                 raw_rgb = raw_rgb + obj_rgbs
                 raw_density = raw_density + obj_densities
+            if randomized and cfg.density_noise > 0:
+                raw_density = raw_density + cfg.density_noise * torch.randn(
+                    raw_density.shape, generator=generator, dtype=raw_density.dtype,
+                    device=raw_density.device,
+                )
 
             rgb = get_activation(cfg.rgb_activation)(raw_rgb)
             density = get_activation(cfg.density_activation)(raw_density + cfg.density_bias)
             comp_rgb, depth, acc, weights, t_vals, t_mids, t_dists = ops.volumetric_rendering_cm(
-                rgb, density[0], t_vals, dirs_s, background=background
+                rgb, density[0], t_vals, dirs_s, background=background, generator=generator
             )
             ret.append(
                 dict(
@@ -259,7 +276,8 @@ def construct_model(config: ModelConfig, example_batch: dict, device="cuda", see
     glorot-uniform kernels and zero biases from a CPU torch.Generator, and
     the pose table from example_batch['init'] (a [T, N_obj, 6] array, or
     None for the static model). Runs on the card unless the caller asks
-    for the CPU."""
+    for the CPU. Returned in eval mode; the train step switches it to
+    train mode."""
     device = resolve_device(device)
     init = example_batch.get("init")
     n_obj, timesteps = (0, 0) if init is None else (init.shape[1], init.shape[0])

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's `models/mlp.py` (reference
 obbpose_model.py:293-418). One parameter layout, two execution paths:
   * the plain path: the split-matmul formulation in `compute_dtype`
-    (operands rounded, float32 accumulation);
-  * the kernel path (`use_kernel=True`): K1, the fused CUDA kernel
+    (operands rounded, float32 accumulation), differentiable by autograd;
+  * the kernel path (`use_kernel=True`): K1 forward and K2 backward, the
+    fused CUDA kernels behind one autograd Function
     (ops/kernels/fused_mlp.py), for a single MLP with a view condition.
 A stacked module (`num_stack=N_obj`) holds every object MLP with a leading
 object axis on each leaf, like the JAX package's nn.vmap'd `object_mlps`.

@@ -1,23 +1,27 @@
-"""K1: the fused background NeRF-MLP forward, its plain version and the
-split-matmul math they share.
+"""K1 and K2: the fused background NeRF-MLP forward and backward, their
+plain versions, the autograd Function that joins them, and the split-matmul
+math and workspace layouts they share with K3/K4.
 
-Kernel: `csrc/fused_mlp.cu` (CUDA C++ for sm_90a, built by `build.py`).
-It replaces durf_tpu/ops/pallas/fused_mlp.py:fused_nerf_mlp (the
-`_fused_forward` pallas_call). Bound on the H100: operations, 1.18 MFLOP of
-bf16 products per sample at the flagship width (8x256 trunk, head 128)
-against ~256 bytes moved, so the kernel keeps the tile's activations in
-shared memory through all layers and runs the wide layers on the tensor
-cores with fp32 accumulation (see csrc/mlp_tile.cuh).
+Kernels: `csrc/fused_mlp.cu` (K1) and `csrc/fused_mlp_bwd.cu` (K2), CUDA
+C++ for sm_90a built by `build.py`. They replace durf_tpu/ops/pallas/
+fused_mlp.py:fused_nerf_mlp (the `_fused_forward` pallas_call and its
+custom-vjp backward `_fused_bwd`). Bound on the H100: operations, 1.18 MFLOP
+of bf16 products per sample forward and twice that backward at the flagship
+width (8x256 trunk, head 128), so the forward keeps the tile's activations
+in shared memory through all layers and runs the wide layers on the tensor
+cores with fp32 accumulation (see csrc/mlp_tile.cuh, csrc/mlp_bwd.cuh).
 
 Layouts: x arrives feature-major [F, N] in float32, the coordinate-major
 encode's native layout (N = rays x samples, ray-major); outputs are
 feature-major rgb [3, N] and density [1, N] in float32. The view condition
-arrives per RAY, [B, F_c]: its head_0 product `cond @ head_0_kernel[width:]`
-is computed once per ray (bf16 operands, fp32 accumulation, as the JAX
-kernel computes it per sample) and added to every sample of the ray.
+enters per RAY: `cond_lin = cond @ head_0_kernel[width:]` is computed once
+per ray (bf16 operands, fp32 accumulation, as the JAX kernel computes it per
+sample) outside the kernel, by autograd-visible PyTorch, and added to every
+sample of the ray; its gradient is the per-ray sum of head_0's cotangent.
 
-On a CPU tensor `fused_nerf_mlp` computes `fused_nerf_mlp_reference`; on a
-CUDA tensor it launches the kernel or raises.
+`FusedNerfMlpFn` runs K1 forward (saving the bf16 activations K2 reads) and
+K2 backward on CUDA tensors, and the plain versions on CPU tensors. On a
+CUDA tensor every wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,20 +34,24 @@ from durf_tpu_torch.ops.kernels import build
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 _KERNEL_WIDTHS = (128, 256)
+HEAD_COLS = 8  # padded width of the density / rgb head cotangent rows
+DW_TILE = 128  # output tile of the weight-gradient kernel (csrc/mlp_bwd.cuh)
+DW_CHUNK = 16384  # samples per split of the weight-gradient reduction
+JOB_FIELDS = 11
 
 
 def layer_dims(config, in_dim: int) -> list:
     """Input dim of every trunk layer (the skip concat folded in): layer i
     re-reads the input when (i - 1) % skip_layer == 0 and i > 1."""
-    dims = []
-    for i in range(config.net_depth):
-        if i == 0:
-            dims.append(in_dim)
-        elif (i - 1) % config.skip_layer == 0 and (i - 1) > 0:
-            dims.append(config.net_width + in_dim)
-        else:
-            dims.append(config.net_width)
-    return dims
+    return [
+        in_dim if i == 0 else config.net_width + in_dim if reads_x(config, i) else config.net_width
+        for i in range(config.net_depth)
+    ]
+
+
+def reads_x(config, i: int) -> bool:
+    """Whether trunk layer i takes the input x (layer 0 and skip layers)."""
+    return i == 0 or ((i - 1) % config.skip_layer == 0 and (i - 1) > 0)
 
 
 def mlp_params(layers, config, has_condition: bool = True) -> list:
@@ -72,13 +80,30 @@ def head0_index(config) -> int:
     return 2 * config.net_depth + 4
 
 
+class _RoundBf16(torch.autograd.Function):
+    """Round to bf16 and back; the gradient passes through unrounded, as the
+    JAX package's `_dot` returns float32 operand gradients."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _round(t: torch.Tensor, dtype) -> torch.Tensor:
+    """t rounded to `dtype` and back to float32 (identity for float32)."""
+    if dtype != torch.bfloat16:
+        return t.float()
+    return _RoundBf16.apply(t) if t.requires_grad else t.to(torch.bfloat16).float()
+
+
 def dot(a: torch.Tensor, w: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """a @ w with operands rounded to `dtype` and float32 accumulation (the
     JAX package's `_dot`); float32 operands run at full precision."""
-    if dtype == torch.bfloat16:
-        a = a.to(torch.bfloat16).float()
-        w = w.to(torch.bfloat16).float()
-    return torch.matmul(a.float(), w.float())
+    return torch.matmul(_round(a, dtype), _round(w, dtype))
 
 
 def cond_linear(cond: torch.Tensor, head0_kernel: torch.Tensor, config, dtype=torch.bfloat16):
@@ -103,7 +128,7 @@ def split_matmul_forward(config, x, cond_rows, weights, dtype=torch.bfloat16):
         k, b = next(it), next(it)
         if i == 0:
             h = dot(x, k, dtype) + b
-        elif (i - 1) % config.skip_layer == 0 and (i - 1) > 0:
+        elif reads_x(config, i):
             # concat(h, x) @ k == h @ k[:W] + x @ k[W:]
             h = dot(h, k[:width], dtype) + dot(x, k[width:], dtype) + b
         else:
@@ -127,6 +152,103 @@ def split_matmul_forward(config, x, cond_rows, weights, dtype=torch.bfloat16):
     return raw_rgb, raw_density
 
 
+def stored_activations(config, x, cond_rows, weights, dtype=torch.bfloat16):
+    """The forward's activations as the kernels store them (rounded to
+    `dtype`): (x, [trunk_0 .. trunk_{depth-1}], bottleneck, [head_0 ..]),
+    each [N, width]."""
+    r = lambda t: _round(t, dtype)  # noqa: E731
+    width = config.net_width
+    pairs = [(weights[2 * i], weights[2 * i + 1]) for i in range(len(weights) // 2)]
+    xr = r(x)
+    trunk, h = [], None
+    for i in range(config.net_depth):
+        k, b = pairs[i]
+        if i == 0:
+            pre = xr @ r(k) + b
+        elif reads_x(config, i):
+            pre = h @ r(k[:width]) + xr @ r(k[width:]) + b
+        else:
+            pre = h @ r(k) + b
+        h = r(torch.relu(pre))
+        trunk.append(h)
+    bk, bb = pairs[config.net_depth + 1]
+    bneck = r(h @ r(bk) + bb)
+    heads, g = [], bneck
+    for i in range(config.net_depth_condition):
+        hk, hb = pairs[config.net_depth + 2 + i]
+        pre = g @ r(hk[:width]) + cond_rows + hb if i == 0 else g @ r(hk) + hb
+        g = r(torch.relu(pre))
+        heads.append(g)
+    return xr, trunk, bneck, heads
+
+
+def split_matmul_backward(config, x, cond_rows, weights, g_rgb, g_den, dtype=torch.bfloat16):
+    """The explicit vjp of `split_matmul_forward` (with a view condition) at
+    the kernels' rounding points: activations stored in `dtype`, every
+    cotangent rounded to `dtype` before a product, float32 sums, relu masks
+    from the stored activations (durf_tpu/ops/pallas/fused_mlp.py:58-77 with
+    act_dtype=bf16). In float32 it equals autograd of the forward.
+
+    x: [N, F]; cond_rows: [N, W_c]; g_rgb: [N, C_rgb]; g_den: [N, C_den].
+    Returns (dx [N, F], d cond_rows [N, W_c], weight grads in operand order;
+    head_0's condition rows get zero, their gradient flows through
+    cond_rows).
+    """
+    r = lambda t: _round(t, dtype)  # noqa: E731
+    width, depth, dc = config.net_width, config.net_depth, config.net_depth_condition
+    pairs = [(weights[2 * i], weights[2 * i + 1]) for i in range(len(weights) // 2)]
+    xr, trunk, bneck, heads = stored_activations(config, x, cond_rows, weights, dtype)
+    bk = pairs[depth + 1][0]
+
+    grads = [None] * len(weights)
+    rk = pairs[depth + 2 + dc][0]
+    gr = r(g_rgb)
+    grads[-2], grads[-1] = heads[-1].T @ gr, gr.sum(0)
+    dg = gr @ r(rk).T
+    d_rows = None
+    for i in reversed(range(dc)):
+        hk = pairs[depth + 2 + i][0]
+        gi = r(dg * (heads[i] > 0))
+        li = depth + 2 + i
+        if i == 0:
+            dk = bneck.T @ gi
+            grads[2 * li] = torch.cat([dk, dk.new_zeros((hk.shape[0] - width, dk.shape[1]))])
+            d_rows = gi
+            dg = gi @ r(hk[:width]).T
+        else:
+            grads[2 * li] = heads[i - 1].T @ gi
+            dg = gi @ r(hk).T
+        grads[2 * li + 1] = gi.sum(0)
+    g_bn = r(dg)
+    grads[2 * depth + 2], grads[2 * depth + 3] = trunk[-1].T @ g_bn, g_bn.sum(0)
+    gd = r(g_den)
+    grads[2 * depth], grads[2 * depth + 1] = trunk[-1].T @ gd, gd.sum(0)
+    dh = g_bn @ r(bk).T + gd @ r(pairs[depth][0]).T
+    dx = torch.zeros_like(x)
+    for i in reversed(range(depth)):
+        k = pairs[i][0]
+        gi = r(dh * (trunk[i] > 0))
+        grads[2 * i + 1] = gi.sum(0)
+        if i == 0:
+            grads[0] = xr.T @ gi
+            dx = dx + gi @ r(k).T
+        elif reads_x(config, i):
+            grads[2 * i] = torch.cat([trunk[i - 1].T @ gi, xr.T @ gi])
+            dx = dx + gi @ r(k[width:]).T
+            dh = gi @ r(k[:width]).T
+        else:
+            grads[2 * i] = trunk[i - 1].T @ gi
+            dh = gi @ r(k).T
+    return dx, d_rows, grads
+
+
+def _plain_forward(x, cond_lin, weights, config, s_per_ray: int):
+    """Plain version of K1 on per-ray condition rows cond_lin [B, W_c]."""
+    rows = cond_lin.repeat_interleave(s_per_ray, dim=0)
+    rgb, den = split_matmul_forward(config, x.T, rows, weights, torch.bfloat16)
+    return rgb.T.contiguous(), den.T.contiguous()
+
+
 def fused_nerf_mlp_reference(x, cond, weights, config, s_per_ray: int):
     """Plain PyTorch version of K1: the same split-matmul math with
     bf16-rounded operands and float32 accumulation.
@@ -135,9 +257,26 @@ def fused_nerf_mlp_reference(x, cond, weights, config, s_per_ray: int):
     N = B * s_per_ray. Returns (rgb [C_rgb, N], density [C_den, N]) float32.
     """
     cond_lin = cond_linear(cond, weights[head0_index(config)], config)
+    return _plain_forward(x, cond_lin, weights, config, s_per_ray)
+
+
+def fused_nerf_mlp_bwd_reference(
+    x, cond_lin, weights, config, s_per_ray: int, g_rgb, g_den, dtype=torch.bfloat16
+):
+    """Plain PyTorch version of K2: the vjp of K1 with the kernel's rounding
+    points (split_matmul_backward), on feature-major tensors.
+
+    x: [F, N]; cond_lin: [B, W_c] per-ray rows; g_rgb: [C_rgb, N]; g_den:
+    [C_den, N]. Returns (dx [F, N], d cond_lin [B, W_c], weight grads in
+    operand order with zero rows for head_0's condition rows).
+    """
+    b = cond_lin.shape[0]
     rows = cond_lin.repeat_interleave(s_per_ray, dim=0)
-    rgb, den = split_matmul_forward(config, x.T, rows, weights, torch.bfloat16)
-    return rgb.T.contiguous(), den.T.contiguous()
+    dx, d_rows, grads = split_matmul_backward(
+        config, x.T, rows, weights, g_rgb.T, g_den.T, dtype
+    )
+    dcond = d_rows.reshape(b, s_per_ray, -1).sum(1)
+    return dx.T.contiguous(), dcond, grads
 
 
 def kernel_layers(weights, config) -> list:
@@ -170,15 +309,166 @@ def pack_weights(weights, config, device):
     wbuf = torch.zeros((n_obj, wo), dtype=torch.bfloat16, device=device)
     bbuf = torch.zeros((n_obj, bo), dtype=torch.float32, device=device)
     for (k, b), w0, b0 in zip(pairs, w_offs, b_offs):
-        kk = k.reshape(n_obj, -1)
-        bb = b.reshape(n_obj, -1)
+        kk = k.detach().reshape(n_obj, -1)
+        bb = b.detach().reshape(n_obj, -1)
         wbuf[:, w0 : w0 + kk.shape[1]] = kk.to(torch.bfloat16)
         bbuf[:, b0 : b0 + bb.shape[1]] = bb.float()
     return wbuf.reshape(-1), bbuf.reshape(-1), w_offs, b_offs, wo, bo
 
 
+def pack_weights_t(weights, config, in_dim: int, device):
+    """Pack the transposed weights K2/K4 multiply cotangents with (layout in
+    csrc/mlp_bwd.cuh BwdDesc): per kernel layer l with a wide product, the
+    h-part W_l[:K]^T as [J][K] bf16 (K = width, or the head width for head_i
+    with i >= 1) and, for layer 0 and the skip layers, the x-part
+    W_l[x rows]^T as ceil(in_dim / 64) matrices [J][64], zero past in_dim.
+    Returns (buffer, wt_offsets, wtx_offsets, stride); -1 marks no part."""
+    w = config.net_width
+    depth, dc = config.net_depth, config.net_depth_condition
+    stacked = weights[0].dim() == 3
+    n_obj = weights[0].shape[0] if stacked else 1
+    x_chunks = -(-in_dim // 64)
+    parts, wt_offs, wtx_offs, off = [], [], [], 0
+
+    def add(mat):  # mat: [n_obj, J, K] float
+        nonlocal off
+        parts.append((off, mat))
+        start = off
+        off += _round8(mat.shape[1] * mat.shape[2])
+        return start
+
+    for l in range(depth + dc + 3):
+        k = weights[2 * l].detach().reshape((n_obj,) + weights[2 * l].shape[-2:])
+        kt = k.transpose(1, 2)  # [n_obj, J, rows]
+        wt_offs.append(-1)
+        wtx_offs.append(-1)
+        if l < depth:
+            if l > 0:
+                wt_offs[l] = add(kt[:, :, :w])
+            if reads_x(config, l):
+                xs = kt[:, :, w:] if l > 0 else kt
+                pad = torch.zeros((n_obj, xs.shape[1], 64 * x_chunks), dtype=xs.dtype, device=xs.device)
+                pad[:, :, :in_dim] = xs
+                first = None
+                for c in range(x_chunks):
+                    o = add(pad[:, :, 64 * c : 64 * (c + 1)])
+                    first = o if first is None else first
+                wtx_offs[l] = first
+        elif l == depth + 1 or l == depth + 2:  # bottleneck; head_0's first width rows
+            wt_offs[l] = add(kt[:, :, :w])
+        elif depth + 2 < l < depth + 2 + dc:  # head_i, i >= 1
+            wt_offs[l] = add(kt)
+    buf = torch.zeros((n_obj, off), dtype=torch.bfloat16, device=device)
+    for start, mat in parts:
+        buf[:, start : start + mat.shape[1] * mat.shape[2]] = (
+            mat.reshape(n_obj, -1).to(device=device, dtype=torch.bfloat16)
+        )
+    return buf.reshape(-1), wt_offs, wtx_offs, off
+
+
+def act_layout(config, n: int):
+    """Saved-activation segments of one MLP on n samples (elements of a bf16
+    buffer): trunk_0..trunk_{depth-1} and the bottleneck [n, width], then
+    head_0.. [n, head width]. Returns (offsets, per-object stride)."""
+    w, wc = config.net_width, config.net_width_condition
+    d, dc = config.net_depth, config.net_depth_condition
+    offs = [i * w * n for i in range(d + 1)] + [(d + 1) * w * n + i * wc * n for i in range(dc)]
+    return offs, ((d + 1) * w + dc * wc) * n
+
+
+def g_widths(config) -> list:
+    """Row width of each kernel layer's cotangent G_l in the workspace."""
+    w, wc = config.net_width, config.net_width_condition
+    d, dc = config.net_depth, config.net_depth_condition
+    return [w] * d + [HEAD_COLS, w] + [wc] * dc + [HEAD_COLS]
+
+
+def g_layout(config, n: int):
+    """Offsets of G_l [n, g_widths[l]] (bf16 elements) and the per-object
+    stride of the cotangent workspace."""
+    offs, o = [], 0
+    for gw in g_widths(config):
+        offs.append(o)
+        o += gw * n
+    return offs, o
+
+
+def grad_layout(config, in_dim: int):
+    """Flat fp32 layout of one object's weight gradients, as the dW
+    reduction writes them: per kernel layer a [(K + 1), J] block, K = the
+    kernel rows the backward forms (head_0: width), the last row the bias.
+    Returns ([(offset, K, J)], per-object total)."""
+    w, wc = config.net_width, config.net_width_condition
+    d, dc = config.net_depth, config.net_depth_condition
+    rows = layer_dims(config, in_dim) + [w, w, w] + [wc] * (dc - 1) + [wc]
+    cols = [w] * d + [config.num_density_channels, w] + [wc] * dc + [config.num_rgb_channels]
+    out, o = [], 0
+    for k, j in zip(rows, cols):
+        out.append((o, k, j))
+        o += (k + 1) * j
+    return out, o
+
+
+def dw_jobs(config, in_dim, n_obj, x_save, act, act_offs, act_stride, g, g_offs, g_stride, device):
+    """The weight-gradient products as the dW kernel's job table (int64
+    [n_jobs, JOB_FIELDS] on `device`, fields in csrc/mlp_bwd.cuh) and the
+    number of output tiles. Each job is dW = A^T G over all samples, A a
+    saved activation (or the saved input), G a cotangent workspace block."""
+    w, wc = config.net_width, config.net_width_condition
+    d, dc = config.net_depth, config.net_depth_condition
+    in_pad = -(-in_dim // 32) * 32
+    layout, per_obj = grad_layout(config, in_dim)
+    gws = g_widths(config)
+    a_ptr = lambda o, seg: act.data_ptr() + 2 * (o * act_stride + act_offs[seg])  # noqa: E731
+    g_ptr = lambda o, l: g.data_ptr() + 2 * (o * g_stride + g_offs[l])  # noqa: E731
+    rows, tiles = [], 0
+
+    def job(a, lda, k, gp, ldg, j, out, bias):
+        nonlocal tiles
+        mt, nt = -(-k // DW_TILE), -(-j // DW_TILE)
+        rows.append([a, gp, lda, ldg, k, j, out, bias, tiles, mt, nt])
+        tiles += mt * nt
+
+    for o in range(n_obj):
+        base = o * per_obj
+        for l, (off, k, j) in enumerate(layout):
+            out, bias = base + off, base + off + k * j
+            gp, ldg = g_ptr(o, l), gws[l]
+            if l == 0:
+                job(x_save.data_ptr(), in_pad, in_dim, gp, ldg, j, out, bias)
+            elif l < d:
+                job(a_ptr(o, l - 1), w, w, gp, ldg, j, out, bias)
+                if reads_x(config, l):
+                    job(x_save.data_ptr(), in_pad, in_dim, gp, ldg, j, out + w * j, -1)
+            elif l in (d, d + 1):  # density head, bottleneck: A = trunk_{d-1}
+                job(a_ptr(o, d - 1), w, w, gp, ldg, j, out, bias)
+            elif l == d + 2:  # head_0: A = bottleneck
+                job(a_ptr(o, d), w, w, gp, ldg, j, out, bias)
+            else:  # head_i (i >= 1) and rgb: A = head_{i-1}
+                job(a_ptr(o, l - 2), wc, wc, gp, ldg, j, out, bias)
+    return torch.tensor(rows, dtype=torch.int64).to(device), tiles
+
+
+def unpack_grads(flat, weights, config, in_dim: int, stacked: bool):
+    """Weight grads in operand order from the flat dW output ([n_obj *
+    per-object total] fp32); head_0's condition rows get zeros."""
+    layout, per_obj = grad_layout(config, in_dim)
+    n_obj = flat.numel() // per_obj
+    flat = flat.reshape(n_obj, per_obj)
+    grads = []
+    for l, (off, k, j) in enumerate(layout):
+        dk = flat[:, off : off + k * j].reshape(n_obj, k, j)
+        db = flat[:, off + k * j : off + (k + 1) * j]
+        full = weights[2 * l].shape[-2]
+        if full > k:  # head_0: rows [width:] come from the per-ray product
+            dk = torch.cat([dk, dk.new_zeros((n_obj, full - k, j))], dim=1)
+        grads += [dk, db] if stacked else [dk[0], db[0]]
+    return grads
+
+
 def kernel_smem_bytes(config, in_dim: int) -> int:
-    """Shared memory of one CTA (mirrors smem_bytes in csrc/mlp_tile.cuh)."""
+    """Shared memory of one forward CTA (mirrors smem_bytes in
+    csrc/mlp_tile.cuh); the backward CTA needs less (no input tile)."""
     in_pad = (in_dim + 31) // 32 * 32
     hmax = max(config.net_width, config.net_width_condition)
     return 2 * (128 * (in_pad + 8) + 128 * (hmax + 8) + 2 * 32 * (hmax + 8))
@@ -203,6 +493,22 @@ def check_kernel_config(config, in_dim: int) -> None:
         raise ValueError(f"in_dim {in_dim} needs more shared memory than a block has")
 
 
+# (net_width, net_width_condition) each backward kernel is built for: the
+# flagship background MLP (K2) and object MLPs (K4); see mlp_bwd_launch.
+BWD_WIDTHS = {"fused_mlp_bwd": (256, 128), "obj_mlp_bwd": (128, 128)}
+
+
+def check_bwd_config(config, what: str) -> None:
+    """Raise if the backward kernel of csrc/<what>.cu is not built for this
+    MLP's widths."""
+    widths = (config.net_width, config.net_width_condition)
+    if widths != BWD_WIDTHS[what]:
+        raise ValueError(
+            f"{what} is built for (net_width, net_width_condition) = {BWD_WIDTHS[what]}; "
+            f"got {widths}"
+        )
+
+
 def check_cuda_operand(t: torch.Tensor, name: str, device, shape=None) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -214,10 +520,29 @@ def check_cuda_operand(t: torch.Tensor, name: str, device, shape=None) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def stream_of(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def save_buffers(config, in_dim: int, n: int, n_obj: int, device):
+    """(x_save [n, in_pad] bf16, act [n_obj * stride] bf16, act offsets,
+    stride): the residuals the forward kernels write for the backward."""
+    in_pad = -(-in_dim // 32) * 32
+    offs, stride = act_layout(config, n)
+    x_save = torch.empty((n, in_pad), dtype=torch.bfloat16, device=device)
+    act = torch.empty((n_obj * stride,), dtype=torch.bfloat16, device=device)
+    return x_save, act, offs, stride
+
+
 _c = ctypes
-_K1_ARGTYPES = [_c.c_void_p] * 6 + [_c.c_longlong] + [_c.c_int] * 9 + [
-    _c.POINTER(_c.c_longlong), _c.POINTER(_c.c_longlong), _c.c_int, _c.c_void_p,
-]
+_P, _I, _L = _c.c_void_p, _c.c_int, _c.c_longlong
+_OFFS = _c.POINTER(_c.c_longlong)
+_K1_ARGTYPES = [_P] * 6 + [_L] + [_I] * 9 + [_OFFS, _OFFS, _I, _P, _P, _OFFS, _I, _P]
+# The K2 / K4 entry point (DURF_DEFINE_BWD_ENTRY in csrc/mlp_bwd.cuh).
+BWD_ARGTYPES = (
+    [_P, _P, _P, _L] + [_P] * 7 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 10
+    + [_OFFS] * 5 + [_I, _L, _L, _L, _L, _P]
+)
 
 
 def _k1_function():
@@ -227,8 +552,155 @@ def _k1_function():
     return fn
 
 
+def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
+    """Launch K1. Returns (rgb, den, residuals) with residuals = (x_save,
+    act, act offsets, stride, forward weight pack, in_dim) when `save`, else
+    None."""
+    in_dim, n = x.shape
+    check_kernel_config(config, in_dim)
+    check_cuda_operand(x, "x", x.device)
+    check_cuda_operand(cond_lin, "cond_lin", x.device, (n // s_per_ray, config.net_width_condition))
+    w, b, w_offs, b_offs, w_stride, _ = pack_weights(weights, config, x.device)
+    rgb = torch.empty((config.num_rgb_channels, n), dtype=torch.float32, device=x.device)
+    den = torch.empty((config.num_density_channels, n), dtype=torch.float32, device=x.device)
+    res, ptrs = None, (None, None, None, 0)
+    if save:
+        x_save, act, act_offs, act_stride = save_buffers(config, in_dim, n, 1, x.device)
+        res = (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim)
+        ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs))
+    fn = _k1_function()
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), cond_lin.data_ptr(), w.data_ptr(), b.data_ptr(),
+            rgb.data_ptr(), den.data_ptr(), n, s_per_ray, in_dim,
+            config.net_width, config.net_depth, config.skip_layer,
+            config.net_width_condition, config.net_depth_condition,
+            config.num_rgb_channels, config.num_density_channels,
+            build.offsets(w_offs), build.offsets(b_offs), len(w_offs), *ptrs,
+            stream_of(x.device),
+        )
+    build.check(err, "fused_nerf_mlp")
+    fused_nerf_mlp.launches += 1
+    return rgb, den, res
+
+
+def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_ray, need_dx):
+    """Allocate the backward's workspace and launch K2 or K4 (the C entry
+    point `name` of csrc/<what>.cu) on the residuals the forward saved.
+    Returns (dx [F, N] or None, d cond_lin [N_obj, B, W_c], flat weight
+    grads [N_obj * per-object total])."""
+    check_bwd_config(config, what)
+    x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim = residuals
+    dev = x_save.device
+    n = x_save.shape[0]
+    n_obj = 1 if hit is None else hit.shape[0]
+    n_rays = n // s_per_ray
+    g_rgb = g_rgb.contiguous() if g_rgb is not None else torch.zeros(
+        (config.num_rgb_channels, n), dtype=torch.float32, device=dev)
+    g_den = g_den.contiguous() if g_den is not None else torch.zeros(
+        (config.num_density_channels, n), dtype=torch.float32, device=dev)
+    check_cuda_operand(g_rgb, "g_rgb", dev, (config.num_rgb_channels, n))
+    check_cuda_operand(g_den, "g_den", dev, (config.num_density_channels, n))
+    wt, wt_offs, wtx_offs, wt_stride = pack_weights_t(weights, config, in_dim, dev)
+    g_offs, g_stride = g_layout(config, n)
+    g = torch.empty((n_obj * g_stride,), dtype=torch.bfloat16, device=dev)
+    jobs, n_tiles = dw_jobs(
+        config, in_dim, n_obj, x_save, act, act_offs, act_stride, g, g_offs, g_stride, dev
+    )
+    _, per_obj = grad_layout(config, in_dim)
+    total = n_obj * per_obj
+    n_splits = max(1, -(-n // DW_CHUNK))
+    part = torch.empty((n_splits, total), dtype=torch.float32, device=dev)
+    flat = torch.empty((total,), dtype=torch.float32, device=dev)
+    dx = torch.zeros((in_dim, n), dtype=torch.float32, device=dev) if need_dx else None
+    dcond = torch.empty((n_obj, n_rays, config.net_width_condition), dtype=torch.float32, device=dev)
+    fn = getattr(build.load(what), name)
+    fn.argtypes = BWD_ARGTYPES
+    fn.restype = _c.c_int
+    with torch.cuda.device(dev):
+        err = fn(
+            g_rgb.data_ptr(), g_den.data_ptr(), None if hit is None else hit.data_ptr(), n_rays,
+            w.data_ptr(), wt.data_ptr(), act.data_ptr(), g.data_ptr(),
+            None if dx is None else dx.data_ptr(), dcond.data_ptr(),
+            jobs.data_ptr(), jobs.shape[0], n_tiles, n_splits, DW_CHUNK,
+            part.data_ptr(), flat.data_ptr(), total, n, s_per_ray, n_obj, in_dim,
+            config.net_width, config.net_depth, config.skip_layer,
+            config.net_width_condition, config.net_depth_condition,
+            config.num_rgb_channels, config.num_density_channels,
+            build.offsets(w_offs), build.offsets(act_offs), build.offsets(wt_offs),
+            build.offsets(wtx_offs), build.offsets(g_offs), len(w_offs),
+            w_stride, act_stride, wt_stride, g_stride, stream_of(dev),
+        )
+    build.check(err, what)
+    return dx, dcond, flat
+
+
+def fused_nerf_mlp_bwd(residuals, g_rgb, g_den, weights, config, s_per_ray: int, need_dx=True):
+    """K2: the backward of K1 from the residuals its forward saved.
+
+    Returns (dx [F, N] float32 or None when not `need_dx`, d cond_lin
+    [B, W_c], weight grads in operand order)."""
+    dx, dcond, flat = launch_bwd(
+        "durf_fused_nerf_mlp_bwd", "fused_mlp_bwd", residuals, None, g_rgb, g_den,
+        weights, config, s_per_ray, need_dx,
+    )
+    fused_nerf_mlp_bwd.launches += 1
+    return dx, dcond[0], unpack_grads(flat, weights, config, residuals[5], stacked=False)
+
+
+fused_nerf_mlp_bwd.launches = 0
+
+
+def take_residuals(ctx, what: str):
+    """The workspace a kernel forward saved on `ctx`, released as it is
+    taken: it is gigabytes at the flagship step, so it lives for one
+    backward only. A second backward through the same graph raises."""
+    residuals = getattr(ctx, "residuals", None)
+    if residuals is None:
+        raise RuntimeError(
+            f"{what}: the backward kernel's saved workspace was already used by an earlier "
+            "backward; backward through this op twice (retain_graph=True) is not supported"
+        )
+    ctx.residuals = None
+    return residuals
+
+
+class FusedNerfMlpFn(torch.autograd.Function):
+    """K1 forward and K2 backward as one differentiable op of
+    (x [F, N], cond_lin [B, W_c], *weights); the plain versions for CPU
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, x, cond_lin, config, s_per_ray, *weights):
+        ctx.config, ctx.s_per_ray = config, s_per_ray
+        ctx.save_for_backward(x, cond_lin, *weights)
+        if x.device.type == "cpu":
+            return _plain_forward(x, cond_lin, weights, config, s_per_ray)
+        check_bwd_config(config, "fused_mlp_bwd")
+        rgb, den, ctx.residuals = _k1_launch(x, cond_lin, weights, config, s_per_ray, save=True)
+        return rgb, den
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_den):
+        x, cond_lin, *weights = ctx.saved_tensors
+        config, s = ctx.config, ctx.s_per_ray
+        if x.device.type == "cpu":
+            g_rgb = torch.zeros_like(x[: config.num_rgb_channels]) if g_rgb is None else g_rgb
+            g_den = torch.zeros_like(x[: config.num_density_channels]) if g_den is None else g_den
+            dx, dcond, grads = fused_nerf_mlp_bwd_reference(
+                x, cond_lin, weights, config, s, g_rgb, g_den
+            )
+        else:
+            residuals = take_residuals(ctx, "fused_nerf_mlp")
+            dx, dcond, grads = fused_nerf_mlp_bwd(
+                residuals, g_rgb, g_den, weights, config, s, ctx.needs_input_grad[0]
+            )
+        return (dx, dcond, None, None, *grads)
+
+
 def fused_nerf_mlp(x, cond, weights, config, s_per_ray: int):
-    """K1 forward: (raw_rgb [C_rgb, N], raw_density [C_den, N]) float32.
+    """K1 forward, differentiable through K2: (raw_rgb [C_rgb, N],
+    raw_density [C_den, N]) float32.
 
     Args:
       x: [F, N] float32 feature-major encoded samples, N = B * s_per_ray.
@@ -240,30 +712,15 @@ def fused_nerf_mlp(x, cond, weights, config, s_per_ray: int):
     in_dim, n = x.shape
     if n != cond.shape[0] * s_per_ray:
         raise ValueError(f"x has {n} samples, cond has {cond.shape[0]} rays x {s_per_ray}")
-    if x.device.type == "cpu":
-        return fused_nerf_mlp_reference(x, cond, weights, config, s_per_ray)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_nerf_mlp runs on CUDA or CPU tensors, got {x.device}")
-    check_kernel_config(config, in_dim)
-    check_cuda_operand(x, "x", x.device)
     cond_lin = cond_linear(cond, weights[head0_index(config)], config).contiguous()
-    check_cuda_operand(cond_lin, "cond_lin", x.device, (cond.shape[0], config.net_width_condition))
-    w, b, w_offs, b_offs, _, _ = pack_weights(weights, config, x.device)
-    rgb = torch.empty((config.num_rgb_channels, n), dtype=torch.float32, device=x.device)
-    den = torch.empty((config.num_density_channels, n), dtype=torch.float32, device=x.device)
-    fn = _k1_function()
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), cond_lin.data_ptr(), w.data_ptr(), b.data_ptr(),
-            rgb.data_ptr(), den.data_ptr(), n, s_per_ray, in_dim,
-            config.net_width, config.net_depth, config.skip_layer,
-            config.net_width_condition, config.net_depth_condition,
-            config.num_rgb_channels, config.num_density_channels,
-            build.offsets(w_offs), build.offsets(b_offs), len(w_offs),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(err, "fused_nerf_mlp")
-    fused_nerf_mlp.launches += 1
+    operands = (x, cond_lin, *weights)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return FusedNerfMlpFn.apply(x, cond_lin, config, s_per_ray, *weights)
+    if x.device.type == "cpu":
+        return _plain_forward(x, cond_lin, weights, config, s_per_ray)
+    rgb, den, _ = _k1_launch(x, cond_lin, weights, config, s_per_ray, save=False)
     return rgb, den
 
 

@@ -1,14 +1,19 @@
-"""K3: the objects-in-grid MLP forward, its plain version, and
-`obj_mlps_apply`, the scene graph's object pass.
+"""K3 and K4: the objects-in-grid MLP forward and backward, their plain
+versions, the autograd Function that joins them, and `obj_mlps_apply`, the
+scene graph's object pass.
 
-Kernel: `csrc/obj_mlp.cu` (CUDA C++ for sm_90a, built by `build.py`). It
-replaces durf_tpu/ops/pallas/obj_mlp.py:fused_obj_mlp (the `_obj_forward`
-pallas_call). It computes sum_o hit_o * MLP_o(x) for every sample: one CTA
-loads a tile of shared features once, runs every object's MLP on it and
-keeps the gated sums in registers, so per-object outputs never reach device
-memory and no cross-CTA reduction is needed. Bound on the H100: operations,
-0.33 MFLOP of bf16 products per sample per object at the flagship width
-(8x128, F_in 63, head 128).
+Kernels: `csrc/obj_mlp.cu` (K3) and `csrc/obj_mlp_bwd.cu` (K4), CUDA C++
+for sm_90a built by `build.py`. They replace durf_tpu/ops/pallas/
+obj_mlp.py:fused_obj_mlp (the `_obj_forward` pallas_call and its custom-vjp
+backward `_obj_bwd`). K3 computes sum_o hit_o * MLP_o(x) for every sample:
+one CTA loads a tile of shared features once, runs every object's MLP on it
+and keeps the gated sums in registers, so per-object outputs never reach
+device memory and no cross-CTA reduction is needed. K4 is its vjp: per
+object the cotangents scaled by hit_o, dx summed over objects, d cond_lin
+per object and ray, stacked weight grads, no gradient for the 0/1 mask.
+Bound on the H100: operations, 0.33 MFLOP of bf16 products per sample per
+object forward (twice that backward) at the flagship width (8x128, F_in 63,
+head 128).
 
 For a 0/1 hit mask, hit * MLP(hit*x + (1-hit)*c0) == hit * MLP(x), so the
 masked-encode blend of the batched path disappears. The per-ray condition
@@ -16,8 +21,9 @@ masked-encode blend of the batched path disappears. The per-ray condition
 per ray and object, and rounded to the compute dtype before it enters (as
 durf_tpu/ops/pallas/obj_mlp.py:391-410 does).
 
-On a CPU tensor `fused_obj_mlp` computes `fused_obj_mlp_reference`; on a
-CUDA tensor it launches the kernel or raises.
+`FusedObjMlpFn` runs K3 (saving the activations K4 reads) and K4 on CUDA
+tensors, the plain versions on CPU tensors; on a CUDA tensor every wrapper
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,12 +34,19 @@ import torch
 
 from durf_tpu_torch.ops.kernels import build
 from durf_tpu_torch.ops.kernels.fused_mlp import (
+    check_bwd_config,
     check_cuda_operand,
     check_kernel_config,
     dot,
     head0_index,
+    launch_bwd,
     pack_weights,
+    save_buffers,
+    split_matmul_backward,
     split_matmul_forward,
+    stream_of,
+    take_residuals,
+    unpack_grads,
 )
 
 
@@ -61,10 +74,38 @@ def fused_obj_mlp_reference(x, hit, cond_lin, weights, config, s_per_ray: int):
     return rgb_acc.T.contiguous(), den_acc.T.contiguous()
 
 
+def fused_obj_mlp_bwd_reference(
+    x, hit, cond_lin, weights, config, s_per_ray: int, g_rgb, g_den, dtype=torch.bfloat16
+):
+    """Plain PyTorch version of K4: per object the explicit vjp of the
+    split-matmul MLP (fused_mlp.split_matmul_backward, the kernels' rounding
+    points) on the cotangents scaled by hit_o.
+
+    x: [F, N]; hit: [N_obj, B]; cond_lin: [N_obj, B, W_c]; g_rgb: [C_rgb, N];
+    g_den: [C_den, N]. Returns (dx [F, N] summed over objects, d cond_lin
+    [N_obj, B, W_c], stacked weight grads in operand order).
+    """
+    n_obj, b = hit.shape
+    dx = torch.zeros_like(x.T)
+    dconds, grads = [], []
+    for o in range(n_obj):
+        gate = hit[o].repeat_interleave(s_per_ray)[:, None]
+        rows = cond_lin[o].repeat_interleave(s_per_ray, dim=0)
+        dx_o, d_rows, g_o = split_matmul_backward(
+            config, x.T, rows, [w[o] for w in weights], gate * g_rgb.T, gate * g_den.T, dtype
+        )
+        dx = dx + dx_o
+        dconds.append(d_rows.reshape(b, s_per_ray, -1).sum(1))
+        grads.append(g_o)
+    stacked = [torch.stack([g[i] for g in grads]) for i in range(len(weights))]
+    return dx.T.contiguous(), torch.stack(dconds), stacked
+
+
 _c = ctypes
-_K3_ARGTYPES = [_c.c_void_p] * 7 + [_c.c_longlong, _c.c_longlong] + [_c.c_int] * 10 + [
-    _c.POINTER(_c.c_longlong), _c.POINTER(_c.c_longlong), _c.c_int,
-    _c.c_longlong, _c.c_longlong, _c.c_void_p,
+_P, _I, _L = _c.c_void_p, _c.c_int, _c.c_longlong
+_OFFS = _c.POINTER(_c.c_longlong)
+_K3_ARGTYPES = [_P] * 7 + [_L, _L] + [_I] * 10 + [_OFFS, _OFFS, _I, _L, _L] + [
+    _P, _P, _OFFS, _I, _L, _P,
 ]
 
 
@@ -75,9 +116,99 @@ def _k3_function():
     return fn
 
 
+def _k3_launch(x, hit, cond_lin, weights, config, s_per_ray: int, save: bool):
+    """Launch K3. Returns (rgb, den, residuals) with residuals = (x_save,
+    act, act offsets, stride, forward weight pack, in_dim) when `save`, else
+    None."""
+    in_dim, n = x.shape
+    n_obj, n_rays = hit.shape
+    check_kernel_config(config, in_dim)
+    check_cuda_operand(x, "x", x.device)
+    check_cuda_operand(hit, "hit", x.device)
+    check_cuda_operand(cond_lin, "cond_lin", x.device, (n_obj, n_rays, config.net_width_condition))
+    if weights[0].dim() != 3 or weights[0].shape[0] != n_obj:
+        raise ValueError(f"weights must be stacked over {n_obj} objects")
+    w, b, w_offs, b_offs, w_stride, b_stride = pack_weights(weights, config, x.device)
+    rgb = torch.empty((config.num_rgb_channels, n), dtype=torch.float32, device=x.device)
+    den = torch.empty((config.num_density_channels, n), dtype=torch.float32, device=x.device)
+    res, ptrs = None, (None, None, None, 0, 0)
+    if save:
+        x_save, act, act_offs, act_stride = save_buffers(config, in_dim, n, n_obj, x.device)
+        res = (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim)
+        ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs), act_stride)
+    fn = _k3_function()
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), hit.data_ptr(), cond_lin.data_ptr(), w.data_ptr(), b.data_ptr(),
+            rgb.data_ptr(), den.data_ptr(), n, n_rays, s_per_ray, n_obj, in_dim,
+            config.net_width, config.net_depth, config.skip_layer,
+            config.net_width_condition, config.net_depth_condition,
+            config.num_rgb_channels, config.num_density_channels,
+            build.offsets(w_offs), build.offsets(b_offs), len(w_offs), w_stride, b_stride,
+            *ptrs, stream_of(x.device),
+        )
+    build.check(err, "fused_obj_mlp")
+    fused_obj_mlp.launches += 1
+    return rgb, den, res
+
+
+def fused_obj_mlp_bwd(residuals, hit, g_rgb, g_den, weights, config, s_per_ray: int, need_dx=True):
+    """K4: the backward of K3 from the residuals its forward saved.
+
+    Returns (dx [F, N] float32 or None when not `need_dx`, d cond_lin
+    [N_obj, B, W_c], stacked weight grads in operand order)."""
+    check_cuda_operand(hit, "hit", residuals[0].device)
+    dx, dcond, flat = launch_bwd(
+        "durf_fused_obj_mlp_bwd", "obj_mlp_bwd", residuals, hit, g_rgb, g_den,
+        weights, config, s_per_ray, need_dx,
+    )
+    fused_obj_mlp_bwd.launches += 1
+    return dx, dcond, unpack_grads(flat, weights, config, residuals[5], stacked=True)
+
+
+fused_obj_mlp_bwd.launches = 0
+
+
+class FusedObjMlpFn(torch.autograd.Function):
+    """K3 forward and K4 backward as one differentiable op of (x [F, N],
+    hit [N_obj, B], cond_lin [N_obj, B, W_c], *stacked weights); the plain
+    versions for CPU tensors. The hit mask gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x, hit, cond_lin, config, s_per_ray, *weights):
+        ctx.config, ctx.s_per_ray = config, s_per_ray
+        ctx.save_for_backward(x, hit, cond_lin, *weights)
+        if x.device.type == "cpu":
+            return fused_obj_mlp_reference(x, hit, cond_lin, weights, config, s_per_ray)
+        check_bwd_config(config, "obj_mlp_bwd")
+        rgb, den, ctx.residuals = _k3_launch(
+            x, hit, cond_lin, weights, config, s_per_ray, save=True
+        )
+        return rgb, den
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_den):
+        x, hit, cond_lin, *weights = ctx.saved_tensors
+        config, s = ctx.config, ctx.s_per_ray
+        if x.device.type == "cpu":
+            g_rgb = torch.zeros_like(x[: config.num_rgb_channels]) if g_rgb is None else g_rgb
+            g_den = torch.zeros_like(x[: config.num_density_channels]) if g_den is None else g_den
+            dx, dcond, grads = fused_obj_mlp_bwd_reference(
+                x, hit, cond_lin, weights, config, s, g_rgb, g_den
+            )
+        else:
+            residuals = take_residuals(ctx, "fused_obj_mlp")
+            dx, dcond, grads = fused_obj_mlp_bwd(
+                residuals, hit, g_rgb, g_den, weights, config, s, ctx.needs_input_grad[0]
+            )
+        dhit = torch.zeros_like(hit) if ctx.needs_input_grad[1] else None
+        return (dx, dhit, dcond, None, None, *grads)
+
+
 def fused_obj_mlp(x, hit, cond_lin, weights, config, s_per_ray: int):
-    """K3 forward: (rgb [C_rgb, N], density [C_den, N]) float32, the
-    hit-gated sum over objects of every object MLP's raw outputs.
+    """K3 forward, differentiable through K4: (rgb [C_rgb, N], density
+    [C_den, N]) float32, the hit-gated sum over objects of every object
+    MLP's raw outputs.
 
     Args:
       x: [F, N] float32 feature-major shared features, N = B * s_per_ray.
@@ -89,32 +220,14 @@ def fused_obj_mlp(x, hit, cond_lin, weights, config, s_per_ray: int):
     n_obj, n_rays = hit.shape
     if n != n_rays * s_per_ray:
         raise ValueError(f"x has {n} samples, hit has {n_rays} rays x {s_per_ray}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_obj_mlp runs on CUDA or CPU tensors, got {x.device}")
+    operands = (x, hit, cond_lin, *weights)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return FusedObjMlpFn.apply(x, hit, cond_lin, config, s_per_ray, *weights)
     if x.device.type == "cpu":
         return fused_obj_mlp_reference(x, hit, cond_lin, weights, config, s_per_ray)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_obj_mlp runs on CUDA or CPU tensors, got {x.device}")
-    check_kernel_config(config, in_dim)
-    check_cuda_operand(x, "x", x.device)
-    check_cuda_operand(hit, "hit", x.device)
-    check_cuda_operand(cond_lin, "cond_lin", x.device, (n_obj, n_rays, config.net_width_condition))
-    if weights[0].dim() != 3 or weights[0].shape[0] != n_obj:
-        raise ValueError(f"weights must be stacked over {n_obj} objects")
-    w, b, w_offs, b_offs, w_stride, b_stride = pack_weights(weights, config, x.device)
-    rgb = torch.empty((config.num_rgb_channels, n), dtype=torch.float32, device=x.device)
-    den = torch.empty((config.num_density_channels, n), dtype=torch.float32, device=x.device)
-    fn = _k3_function()
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), hit.data_ptr(), cond_lin.data_ptr(), w.data_ptr(), b.data_ptr(),
-            rgb.data_ptr(), den.data_ptr(), n, n_rays, s_per_ray, n_obj, in_dim,
-            config.net_width, config.net_depth, config.skip_layer,
-            config.net_width_condition, config.net_depth_condition,
-            config.num_rgb_channels, config.num_density_channels,
-            build.offsets(w_offs), build.offsets(b_offs), len(w_offs), w_stride, b_stride,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(err, "fused_obj_mlp")
-    fused_obj_mlp.launches += 1
+    rgb, den, _ = _k3_launch(x, hit, cond_lin, weights, config, s_per_ray, save=False)
     return rgb, den
 
 

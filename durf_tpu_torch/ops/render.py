@@ -1,8 +1,8 @@
 """Alpha compositing along rays (reference mip.py:285-327).
 
-Counterpart of the JAX package's `ops/render.py` for the eval render: the
-backgrounds are white, gray or black (the random background is a training
-option and is not ported yet).
+Counterpart of the JAX package's `ops/render.py`: white, gray, black or
+random backgrounds; the random one (a training option) composites one
+uniform color per batch, drawn from a `torch.Generator` or handed in.
 """
 
 from __future__ import annotations
@@ -45,8 +45,14 @@ def volumetric_rendering_cm(
     t_vals: torch.Tensor,
     dirs: torch.Tensor,
     background: str = "gray",
+    generator: torch.Generator | None = None,
+    bg_color: torch.Tensor | None = None,
 ):
     """Composite rgb planes [3, B, S] and a density plane [B, S].
+
+    background: 'white' | 'gray' | 'black' | 'random'; 'random' adds
+    bg_color [1, 3] (drawn uniform from `generator` when None) behind the
+    residual transmittance (durf_tpu/ops/render.py:80-83).
 
     Returns (comp_rgb [B, 3], depth [B], acc [B], weights [B, S], t_vals,
     t_mids, t_dists); depth is the unclipped Σ w·t_mid.
@@ -63,7 +69,11 @@ def volumetric_rendering_cm(
     elif background == "gray":
         comp_rgb = comp_rgb + 0.5 * residual
     elif background == "random":
-        raise NotImplementedError("the random background is a training option, not ported yet")
+        if bg_color is None:
+            bg_color = torch.rand(
+                (1, 3), generator=generator, dtype=comp_rgb.dtype, device=comp_rgb.device
+            )
+        comp_rgb = comp_rgb + bg_color * residual
     elif background != "black":
         raise ValueError(f"unknown background {background!r}")
     return comp_rgb, depth, acc, weights, t_vals, t_mids, t_dists

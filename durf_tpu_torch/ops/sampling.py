@@ -1,9 +1,10 @@
 """Stratified and hierarchical (inverse-CDF) sampling along rays.
 
 Counterpart of the JAX package's `ops/sampling.py` (reference
-mip.py:330-416) for the coordinate-major diagonal pipeline, deterministic
-(the eval render draws no randomness; the stratified jitter is a training
-option, not ported yet).
+mip.py:330-416) for the coordinate-major diagonal pipeline. Training draws
+its jitter from a `torch.Generator`; a caller may hand the draws in instead
+(`t_rand`, `jitter`), which is how the tests feed both packages the same
+random numbers.
 """
 
 from __future__ import annotations
@@ -23,9 +24,18 @@ def sample_along_rays(
     far: torch.Tensor,
     lindisp: bool,
     ray_shape: str,
+    randomized: bool = False,
+    generator: torch.Generator | None = None,
+    t_rand: torch.Tensor | None = None,
 ):
-    """num_samples+1 evenly spaced fenceposts in [near, far] and their
-    Gaussians.
+    """num_samples+1 stratified fenceposts in [near, far] and their
+    Gaussians: evenly spaced, or with randomized each jittered uniformly
+    inside its stratum (reference mip.py:361-367).
+
+    Args:
+      generator: draws t_rand when randomized and `t_rand` is None.
+      t_rand: [B, S+1] uniform [0, 1) draws (JAX's `jax.random.uniform(key,
+        [B, S+1])`).
 
     Returns (t_vals [B, S+1], ([3, B, S] means, [3, B, S] covs)).
     Reference mip.py:330-370 (lindisp at 354-358).
@@ -39,6 +49,16 @@ def sample_along_rays(
     else:
         t_vals = near * (1.0 - t_vals) + far * t_vals
     t_vals = t_vals.expand(batch_size, num_samples + 1)
+    if randomized:
+        mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
+        upper = torch.cat([mids, t_vals[..., -1:]], dim=-1)
+        lower = torch.cat([t_vals[..., :1], mids], dim=-1)
+        if t_rand is None:
+            t_rand = torch.rand(
+                (batch_size, num_samples + 1), generator=generator,
+                dtype=origins.dtype, device=origins.device,
+            )
+        t_vals = lower + (upper - lower) * t_rand
     return t_vals, cast_rays_cm(t_vals, origins, directions, radii, ray_shape)
 
 
@@ -51,6 +71,10 @@ def resample_along_rays(
     ray_shape: str,
     resample_padding: float,
     num_samples: int | None = None,
+    randomized: bool = False,
+    stop_grad: bool = True,
+    generator: torch.Generator | None = None,
+    jitter: torch.Tensor | None = None,
 ):
     """Blurpool the previous level's weights, then inverse-CDF sample.
 
@@ -58,6 +82,10 @@ def resample_along_rays(
       t_vals: [B, S+1] previous fenceposts (the CDF bins).
       weights: [B, S] rendering weights from the previous level.
       num_samples: fenceposts drawn = num_samples + 1 (default: keep S).
+      randomized, generator, jitter: the stratified draw of
+        mathx.sorted_piecewise_constant_pdf.
+      stop_grad: block gradients into the previous level through the new
+        fenceposts (ModelConfig.stop_level_grad).
 
     Reference mip.py:373-416 (blurpool at 394-401, padding at 404).
     """
@@ -67,5 +95,9 @@ def resample_along_rays(
     weights = weights_blur + resample_padding
 
     n_out = t_vals.shape[-1] if num_samples is None else num_samples + 1
-    new_t_vals = mathx.sorted_piecewise_constant_pdf(t_vals, weights, n_out).detach()
+    new_t_vals = mathx.sorted_piecewise_constant_pdf(
+        t_vals, weights, n_out, randomized, generator, jitter
+    )
+    if stop_grad:
+        new_t_vals = new_t_vals.detach()
     return new_t_vals, cast_rays_cm(new_t_vals, origins, directions, radii, ray_shape)
