@@ -19,21 +19,43 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
   5. K3 (objects-in-grid MLP forward) like K1 at N_obj = 2, 4, 8;
   6. K4 (its backward) like K2 at N_obj = 2, 4, 8 (hit density 0.5), and
      its Function against autograd of the plain forward at N_obj = 2;
-  7. the render slice: the flagship model at the kernel operating point
+  7. K5 (gated MLP forward, the input blended in the tile) and K6 (its
+     backward) against their plain versions at the object width (8x128,
+     F_in 63) on row-major features with a 3% hit gate, at N = 4096 x 128
+     and 1000 x 77; their Function against autograd of the plain forward;
+     K2 at 128/128 (the per-object route's build) like K2;
+  8. the gated stacked object MLPs: NerfMLP(num_stack=2,
+     pallas_gate_in_kernel=True) on row-major flagship features through
+     forward and backward, against the same module on the plain path; K5
+     and K6 must each launch N_obj = 2 times;
+  9. the render slice: the flagship model at the kernel operating point
      renders two 128x128 frames through make_render_fn + render_image in
      chunks of 8192 rays; K1 and K3 must each launch levels x chunks = 8
      times; the images must be finite with rgb and acc in [0, 1]; one chunk
-     is held against the same model on the plain versions (atol 2e-2);
-  8. the training slice: entry.train_entry() (batch 4096, seed 0), 2
-     warm-up then 10 timed steps; K1-K4 must each launch levels x steps =
-     20 times and every stat be finite; ms per step, rays/s, ray-samples/s;
-  9. descent: 20 steps at a constant lr of 5e-3, the last loss below the
+     is held against the same model on the plain versions (atol 2e-2), and
+     against the per-object route (K1 per object, levels x 3 launches);
+ 10. the training slice, the main path: entry.train_entry() (batch 4096,
+     seed 0, bench.py's object-ray compaction at capacity 0.0625, k = 256),
+     2 warm-up then 10 timed steps; K1-K4 must each launch levels x steps =
+     20 times, every stat be finite and obj/overflow_rays 0; ms per step,
+     rays/s, ray-samples/s; then the same without compaction (the earlier main path)
+     for comparison;
+ 11. compaction is exact: one step's loss and raw gradients with and
+     without compaction on the same weights and random stream (loss within
+     relative 1e-5, every gradient leaf within relative L2 1e-3);
+ 12. the per-object route (fused_objects=False): one step's loss and raw
+     gradients against the fused route (relative 1e-2 and L2 5e-2), K1 and
+     K2 launching levels x (1 + N_obj) = 6 times, K3 and K4 none; timed;
+ 13. one step with the centering prior on (centering_loss_mult 0.1): the
+     loss and loss/centering_* finite;
+ 14. descent: 20 steps at a constant lr of 5e-3, the last loss below the
      first;
- 10. one step's loss and raw gradients on the kernel path against the
+ 15. one step's loss and raw gradients on the kernel path against the
      plain path with the same weights and random stream (batch 1024): loss
      within relative 1e-2, every gradient leaf within relative L2 5e-2;
- 11. a JSON line with every kernel's numbers (launches from the training
-     slice), then the card's name and power limit, and as the last line
+ 16. a JSON line with every kernel's numbers (launches from the path that
+     runs the kernel: K1-K4 the main path, K5/K6 phase 8, K2 at 128/128
+     phase 12), then the card's name and power limit, and as the last line
      {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when CUDA is not available, or
@@ -42,7 +64,9 @@ when run outside a checkout of the repository.
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -67,6 +91,13 @@ BWD_TOL = 2e-2
 # batch of the kernel-vs-plain step comparison.
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, DESCENT_STEPS = 4096, 2, 10, 20
 COMPARE_BATCH = 1024
+# bench.py's object-ray compaction fraction (bench.py:59-67).
+OBJ_CAPACITY = 0.0625
+# K5/K6: the share of rays whose gate is 1 (the flagship batch hits ~3%).
+GATE_HIT = 0.03
+# Compaction permutes the object pipeline's rays: the same values, float32
+# sums over samples in another order.
+EXACT_LOSS_TOL, EXACT_GRAD_TOL = 1e-5, 1e-3
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -350,6 +381,186 @@ def check_k4(dev, gen):
     return result
 
 
+def check_k2_object_width(dev, gen):
+    """K2 at 128/128, the build the per-object route runs, like check_k2 at
+    N = 4096 x 128."""
+    import torch
+
+    from durf_tpu_torch.configs import MLPConfig
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+
+    cfg, f_in, f_c = MLPConfig(net_width=128), 63, 27
+    w = random_mlp(cfg, f_in, f_c, None, gen, dev)
+    per_sample, _, params = mlp_macs(cfg, f_in, f_c)
+    b, s = BWD_SHAPES[0]
+    n = b * s
+    x = (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)
+    cond = (2 * torch.rand((b, f_c), generator=gen) - 1).to(dev)
+    cond_lin = k1.cond_linear(cond, w[k1.head0_index(cfg)], cfg).contiguous()
+    g_rgb = torch.randn((3, n), generator=gen).to(dev)
+    g_den = torch.randn((1, n), generator=gen).to(dev)
+    _, _, res = k1._k1_launch(x, cond_lin, w, cfg, s, save=True)
+    dx, dcond, grads = k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s)
+    torch.cuda.synchronize()
+    ref = k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den)
+    err = compare_grads(f"K2 at 128/128 N={n} (B={b}, S={s})", [dx, dcond, *grads],
+                        [ref[0], ref[1], *ref[2]])
+    del ref, dx, dcond, grads
+    ms = time_ms(lambda: k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s), iters=10)
+    plain_ms = time_ms(
+        lambda: k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den), 3, 1
+    )
+    flops = 4.0 * per_sample * n
+    nbytes = 4.0 * (2 * f_in * n + 2 * cfg.net_width_condition * b + 2 * params + 4 * n)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"K2 128/128 N={n}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    del x, cond, cond_lin, g_rgb, g_den, res
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def gate_inputs(b, s, f_in, gen, dev):
+    """Row-major features x [N, F] in [-1, 1], a per-ray 0/1 gate with
+    GATE_HIT ones, and a fill row."""
+    import torch
+
+    x = (2 * torch.rand((b * s, f_in), generator=gen) - 1).to(dev)
+    gate = (torch.rand((b,), generator=gen) < GATE_HIT).float().to(dev)
+    fill = (2 * torch.rand((f_in,), generator=gen) - 1).to(dev)
+    return x, gate, fill
+
+
+def check_k5_k6(dev, gen):
+    """K5 and K6 against their plain versions at the object width; K6's
+    Function against autograd of the plain forward; times at N = 4096 x
+    128. Returns the K5 and K6 result entries."""
+    import torch
+
+    from durf_tpu_torch.configs import MLPConfig
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+
+    cfg, f_in, f_c = MLPConfig(net_width=128), 63, 27
+    w = random_mlp(cfg, f_in, f_c, None, gen, dev)
+    per_sample, per_ray, params = mlp_macs(cfg, f_in, f_c)
+    k5 = k6 = None
+    for i, (b, s) in enumerate(BWD_SHAPES):
+        n = b * s
+        x, gate, fill = gate_inputs(b, s, f_in, gen, dev)
+        cond = (2 * torch.rand((b, f_c), generator=gen) - 1).to(dev)
+        cond_lin = k1.cond_linear(cond, w[k1.head0_index(cfg)], cfg).contiguous()
+        out = k1.fused_nerf_mlp_gated(x, gate, fill, cond, w, cfg, s)
+        torch.cuda.synchronize()
+        ref = k1.fused_nerf_mlp_gated_reference(x, gate, fill, cond, w, cfg, s)
+        err5 = max_err(out, ref)
+        finite = all(bool(torch.isfinite(t).all()) for t in out)
+        print(f"K5 fused_nerf_mlp_gated_fwd N={n} (B={b}, S={s}): max_abs_err {err5:.3e} "
+              f"finite={finite}, {int(gate.sum())} of {b} rays gated in")
+        if not finite or err5 > TOL:
+            raise SystemExit(f"K5 disagrees with its plain version: {err5} > {TOL}")
+        g_rgb = torch.randn((n, 3), generator=gen).to(dev)
+        g_den = torch.randn((n, 1), generator=gen).to(dev)
+        _, _, res = k1._k5_launch(x, gate, fill, cond_lin, w, cfg, s, save=True)
+        got = k1.fused_nerf_mlp_gated_bwd(res, g_rgb, g_den, w, cfg, s)
+        torch.cuda.synchronize()
+        ref = k1.fused_nerf_mlp_gated_bwd_reference(x, gate, fill, cond_lin, w, cfg, s, g_rgb, g_den)
+        err6 = compare_grads(
+            f"K6 fused_nerf_mlp_gated_bwd N={n} (B={b}, S={s})",
+            [got[0], got[1], got[2], got[3], *got[4]], [ref[0], ref[1], ref[2], ref[3], *ref[4]],
+            names=("dx", "dgate", "dfill", "dcond_lin"),
+        )
+        del got, ref
+        if i == 0:
+            check_function(
+                f"K6 through FusedNerfMlpGatedFn vs autograd of the plain forward N={n}",
+                lambda x_, g_, f_, c_, *w_: k1.fused_nerf_mlp_gated(x_, g_, f_, c_, w_, cfg, s),
+                lambda x_, g_, f_, c_, *w_: k1.fused_nerf_mlp_gated_reference(x_, g_, f_, c_, w_, cfg, s),
+                [x, gate, fill, cond, *w], ("dx", "dgate", "dfill", "dcond"), g_rgb, g_den,
+            )
+            ms5 = time_ms(lambda: k1.fused_nerf_mlp_gated(x, gate, fill, cond, w, cfg, s), iters=10)
+            plain5 = time_ms(
+                lambda: k1.fused_nerf_mlp_gated_reference(x, gate, fill, cond, w, cfg, s), 3, 1
+            )
+            flops = 2.0 * (per_sample * n + per_ray * b)
+            nbytes = 2.0 * f_in * n + 4.0 * (b + f_in + f_c * b + params + 4 * n)
+            bound5, by5 = bound(flops, nbytes)
+            ms6 = time_ms(lambda: k1.fused_nerf_mlp_gated_bwd(res, g_rgb, g_den, w, cfg, s), iters=10)
+            plain6 = time_ms(
+                lambda: k1.fused_nerf_mlp_gated_bwd_reference(
+                    x, gate, fill, cond_lin, w, cfg, s, g_rgb, g_den), 3, 1,
+            )
+            flops6 = 4.0 * per_sample * n
+            nbytes6 = (2.0 * 2 * f_in * n + 4.0 * (f_in * n + 4 * n + n + b + 2 * f_in
+                       + 2 * cfg.net_width_condition * b + 2 * params))
+            bound6, by6 = bound(flops6, nbytes6)
+            print(
+                f"K5 N={n}: kernel {ms5:.3f} ms ({flops / ms5 / 1e9:.1f} TFLOP/s), plain "
+                f"{plain5:.3f} ms, bound {bound5:.3f} ms ({by5}); K6: kernel {ms6:.3f} ms "
+                f"({flops6 / ms6 / 1e9:.1f} TFLOP/s), plain {plain6:.3f} ms, bound {bound6:.3f} ms "
+                f"({by6})"
+            )
+            k5 = dict(max_abs_err=err5, ms=ms5, plain_ms=plain5, bound_ms=bound5, bound_by=by5)
+            k6 = dict(max_abs_err=err6, ms=ms6, plain_ms=plain6, bound_ms=bound6, bound_by=by6)
+        del x, gate, fill, cond, cond_lin, g_rgb, g_den, res, out
+        torch.cuda.empty_cache()
+    return k5, k6
+
+
+def check_gated_stack(dev, gen):
+    """The gated stacked object MLPs (the nn.vmap'd NerfMLP with the gate
+    blended in the kernel) through forward and backward on row-major
+    flagship features, against the same weights on the plain path. Returns
+    the K5/K6 launch counts of the kernel run."""
+    import torch
+
+    from durf_tpu_torch.configs import MLPConfig
+    from durf_tpu_torch.models.mlp import NerfMLP
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+
+    cfg, f_in, f_c, n_obj = MLPConfig(net_width=128), 63, 27, 2
+    b, s = BWD_SHAPES[0]
+    x = (2 * torch.rand((b, s, f_in), generator=gen) - 1).to(dev)
+    vd = (2 * torch.rand((b, f_c), generator=gen) - 1).to(dev)
+    gate = (torch.rand((n_obj, b, 1), generator=gen) < GATE_HIT).float().to(dev)
+    fill = (2 * torch.rand((1, 1, f_in), generator=gen) - 1).to(dev)
+    g_rgb = torch.randn((n_obj, b, s, 3), generator=gen).to(dev)
+    g_den = torch.randn((n_obj, b, s, 1), generator=gen).to(dev)
+    mlps = []
+    for use_kernel in (True, False):
+        m = NerfMLP(cfg, f_in, f_c, "bfloat16", use_kernel, n_obj, pallas_gate_in_kernel=True)
+        if not mlps:
+            m.reset_parameters(torch.Generator().manual_seed(3))
+        else:
+            m.load_state_dict(mlps[0].state_dict())
+        mlps.append(m.to(dev))
+    results = []
+    for m in mlps:
+        xi = x.detach().requires_grad_(True)
+        if m.use_kernel:
+            reset_launches()
+        rgb, den = m(xi, vd, gate, fill, x_feature_major=False, out_feature_major=False)
+        loss = (rgb * g_rgb).sum() + (den * g_den).sum()
+        grads = torch.autograd.grad(loss, [xi, *m.parameters()])
+        torch.cuda.synchronize()
+        if m.use_kernel:
+            launches = {"K5": k1.fused_nerf_mlp_gated.launches,
+                        "K6": k1.fused_nerf_mlp_gated_bwd.launches}
+        results.append((rgb.detach(), den.detach(), grads))
+    (rk, dk, gk), (rp, dp, gp) = results
+    err = max(float((rk - rp).abs().max()), float((dk - dp).abs().max()))
+    worst = max(rel_err(a, c) for a, c in zip(gk, gp))
+    print(f"gated stack N_obj={n_obj} N={b * s}: launches {launches} (expected {n_obj} each); "
+          f"outputs vs plain path max_abs_err {err:.3e}, worst gradient rel L2 {worst:.3e} over "
+          f"{len(gk)} leaves")
+    if launches != {"K5": n_obj, "K6": n_obj}:
+        raise SystemExit(f"the gated object MLPs did not go through K5/K6: {launches}")
+    if err > TOL or worst > 5e-2:
+        raise SystemExit("the gated object MLPs disagree with the plain path")
+    del mlps, results, x, g_rgb, g_den
+    torch.cuda.empty_cache()
+    return launches
+
+
 def check_slice(dev, card):
     import copy
 
@@ -421,6 +632,23 @@ def check_slice(dev, card):
     if err > TOL:
         raise SystemExit(f"slice chunk disagrees with the plain path: {err} > {TOL}")
 
+    # The same chunk on the per-object route: K1 once per object per level.
+    per_cfg = copy.deepcopy(config)
+    per_cfg.model.fused_objects = False
+    per_obj = MipNerf(per_cfg.model, init.shape[1], init.shape[0]).to(dev)
+    per_obj.load_state_dict(model.state_dict())
+    per_render = make_render_fn(per_obj, per_cfg, dev)
+    reset_launches()
+    with_o = per_render(first, batch["ext"], frames[0], 10.0)
+    torch.cuda.synchronize()
+    got = training_launches()
+    expect_o = config.model.num_levels * (1 + init.shape[1])
+    err_o = float((with_o["rgb"] - with_k["rgb"]).abs().max())
+    print(f"slice: chunk on the per-object route: K1 launches {got['K1']} (expected {expect_o}), "
+          f"K3 {got['K3']}; rgb vs the fused route max_abs_err {err_o:.3e}")
+    if got["K1"] != expect_o or got["K3"] != 0 or err_o > TOL:
+        raise SystemExit("the per-object render route disagrees with the fused route")
+
     n_rays = len(frames) * size * size
     samples = config.model.samples_per_ray()
     ms_chunk = 1e3 * dt / n_chunks
@@ -432,36 +660,36 @@ def check_slice(dev, card):
     return launches, ms_chunk
 
 
-def training_launches():
+def _counted():
     from durf_tpu_torch.ops.kernels import fused_mlp as k1
     from durf_tpu_torch.ops.kernels import obj_mlp as k3
 
     return {
-        "K1": k1.fused_nerf_mlp.launches,
-        "K2": k1.fused_nerf_mlp_bwd.launches,
-        "K3": k3.fused_obj_mlp.launches,
-        "K4": k3.fused_obj_mlp_bwd.launches,
+        "K1": k1.fused_nerf_mlp,
+        "K2": k1.fused_nerf_mlp_bwd,
+        "K3": k3.fused_obj_mlp,
+        "K4": k3.fused_obj_mlp_bwd,
+        "K5": k1.fused_nerf_mlp_gated,
+        "K6": k1.fused_nerf_mlp_gated_bwd,
     }
 
 
-def reset_launches():
-    from durf_tpu_torch.ops.kernels import fused_mlp as k1
-    from durf_tpu_torch.ops.kernels import obj_mlp as k3
+def training_launches():
+    """Launch counts of K1-K4, the kernels of the training step."""
+    return {k: fn.launches for k, fn in _counted().items() if k in ("K1", "K2", "K3", "K4")}
 
-    for fn in (k1.fused_nerf_mlp, k1.fused_nerf_mlp_bwd, k3.fused_obj_mlp, k3.fused_obj_mlp_bwd):
+
+def reset_launches():
+    for fn in _counted().values():
         fn.launches = 0
 
 
-def check_train(dev, card):
-    """The training slice: the flagship step at batch TRAIN_BATCH through
-    entry.train_entry, WARMUP_STEPS then TIMED_STEPS on the host clock."""
-    import math
-
+def time_steps(step_fn, state, batch):
+    """WARMUP_STEPS, then TIMED_STEPS on the host clock with the launch
+    counts set to 0 just before. Returns (state, stats, seconds, launches,
+    peak memory GiB)."""
     import torch
 
-    from durf_tpu_torch.entry import train_entry
-
-    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH)
     for _ in range(WARMUP_STEPS):
         state, stats = step_fn(state, batch)
     torch.cuda.synchronize()
@@ -472,28 +700,146 @@ def check_train(dev, card):
         state, stats = step_fn(state, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = training_launches()
-    levels = state.config.model.num_levels
-    expect = levels * TIMED_STEPS
-    print(f"train: launches {launches} (expected {expect} each)")
-    if any(v != expect for v in launches.values()):
-        raise SystemExit(f"the training step did not go through the kernels: {launches}")
-    bad = [k for k, v in stats.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
-    if bad:
-        raise SystemExit(f"training stats not finite: {bad}")
-    samples = state.config.model.samples_per_ray()
+    return state, stats, dt, training_launches(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_train(dev, card):
+    """The training slice, the main path: the flagship step at batch
+    TRAIN_BATCH through entry.train_entry with bench.py's compaction, then
+    the same without compaction (the earlier main path), each WARMUP_STEPS then
+    TIMED_STEPS on the host clock. Returns (main-path launches, ms)."""
+    import math
+
+    import torch
+
+    from durf_tpu_torch.entry import train_entry
+    from durf_tpu_torch.models.mipnerf import obj_capacity_k
+
+    result = None
+    for cap in (OBJ_CAPACITY, 0.0):
+        step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, obj_capacity=cap)
+        state, stats, dt, launches, peak = time_steps(step_fn, state, batch)
+        what = (f"compaction k={obj_capacity_k(TRAIN_BATCH, cap)}" if cap > 0 else
+                "no compaction")
+        expect = state.config.model.num_levels * TIMED_STEPS
+        print(f"train ({what}): launches {launches} (expected {expect} each)")
+        if any(v != expect for v in launches.values()):
+            raise SystemExit(f"the training step did not go through the kernels: {launches}")
+        bad = [k for k, v in stats.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+        if bad:
+            raise SystemExit(f"training stats not finite: {bad}")
+        if cap > 0 and float(stats["obj/overflow_rays"]) != 0.0:
+            raise SystemExit(f"compaction overflowed: {float(stats['obj/overflow_rays'])} rays")
+        samples = state.config.model.samples_per_ray()
+        ms = 1e3 * dt / TIMED_STEPS
+        rays_s = TIMED_STEPS * TRAIN_BATCH / dt
+        print(
+            f"train ({what}): batch {TRAIN_BATCH}, {TIMED_STEPS} steps in {dt:.4f} s: "
+            f"{ms:.3f} ms/step, {rays_s:.1f} rays/s, {rays_s * samples:.1f} ray-samples/s "
+            f"(ray-samples as bench.py:191-192, {samples} per ray); peak memory {peak:.2f} GiB; "
+            f"loss {float(stats['train/loss']):.5f}, psnr {float(stats['train/psnr']):.3f}, "
+            f"obj/hit_frac {float(stats['obj/hit_frac']):.4f} ({card})"
+        )
+        if not math.isfinite(ms):
+            raise SystemExit("train: no time measured")
+        if result is None:
+            result = (launches, ms)
+        del step_fn, state, batch, stats
+        torch.cuda.empty_cache()
+    return result
+
+
+def grads_of(dev, batch_size, **kw):
+    """One step's (loss, aux, raw gradients) of train_entry(**kw) at step 0
+    with the launch counts set to 0 just before; returns them and the
+    counts."""
+    from durf_tpu_torch.entry import train_entry
+    from durf_tpu_torch.train import make_grad_fn
+
+    _, state, batch = train_entry(dev, batch_size=batch_size, **kw)
+    grad_fn = make_grad_fn(state.model, state.config)
+    reset_launches()
+    loss, aux, grads = grad_fn(0, batch)
+    import torch
+
+    torch.cuda.synchronize()
+    return loss, aux, grads, training_launches()
+
+
+def compare_steps(what, a, b, loss_tol, grad_tol):
+    """Loss within relative loss_tol and every gradient leaf within relative
+    L2 grad_tol of the second step."""
+    loss_rel = abs(float(a[0]) - float(b[0])) / abs(float(b[0]))
+    worst = max(((rel_err(a[2][n], b[2][n]), n) for n in b[2]), key=lambda t: t[0])
+    print(f"{what}: loss {float(a[0]):.7f} vs {float(b[0]):.7f} (rel {loss_rel:.3e}); worst "
+          f"gradient leaf {worst[1]} rel L2 {worst[0]:.3e} over {len(b[2])} leaves")
+    if loss_rel > loss_tol or worst[0] > grad_tol:
+        raise SystemExit(f"{what}: the two steps disagree")
+
+
+def check_compaction_exact(dev):
+    """One step with and without compaction on the same weights and random
+    stream agree to float32 summation order."""
+    import torch
+
+    comp = grads_of(dev, TRAIN_BATCH, obj_capacity=OBJ_CAPACITY)
+    full = grads_of(dev, TRAIN_BATCH, obj_capacity=0.0)
+    compare_steps(f"compacted vs uncompacted step (batch {TRAIN_BATCH})", comp, full,
+                  EXACT_LOSS_TOL, EXACT_GRAD_TOL)
+    del comp, full
+    torch.cuda.empty_cache()
+
+
+def check_per_object(dev, card):
+    """The per-object route (fused_objects=False): one step against the
+    fused route on the same weights and stream, K1/K2 per object; then
+    timed. Returns the launches of K2 at 128/128 in its step (one per
+    object and level; the other K2 launches are the background MLP's)."""
+    import torch
+
+    from durf_tpu_torch.entry import train_entry
+
+    per = grads_of(dev, TRAIN_BATCH, fused_objects=False)
+    fused = grads_of(dev, TRAIN_BATCH)
+    launches = per[3]
+    expect = 2 * (1 + 2)  # levels x (background + 2 objects)
+    print(f"per-object route step: launches {launches} (K1, K2 expected {expect}, K3, K4 none)")
+    if launches != {"K1": expect, "K2": expect, "K3": 0, "K4": 0}:
+        raise SystemExit(f"the per-object route did not go through K1/K2: {launches}")
+    compare_steps(f"per-object vs fused route step (batch {TRAIN_BATCH})", per, fused, 1e-2, 5e-2)
+    del per, fused
+    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, fused_objects=False)
+    state, stats, dt, _, _ = time_steps(step_fn, state, batch)
     ms = 1e3 * dt / TIMED_STEPS
-    rays_s = TIMED_STEPS * TRAIN_BATCH / dt
-    print(
-        f"train: batch {TRAIN_BATCH}, {TIMED_STEPS} steps in {dt:.4f} s: {ms:.3f} ms/step, "
-        f"{rays_s:.1f} rays/s, {rays_s * samples:.1f} ray-samples/s "
-        f"(ray-samples as bench.py:191-192, {samples} per ray); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss {float(stats['train/loss']):.5f}, "
-        f"psnr {float(stats['train/psnr']):.3f} ({card})"
-    )
-    if not math.isfinite(ms):
-        raise SystemExit("train: no time measured")
-    return launches, ms
+    print(f"per-object route: {ms:.3f} ms/step at batch {TRAIN_BATCH} with compaction "
+          f"({TIMED_STEPS * TRAIN_BATCH / dt:.1f} rays/s; {card})")
+    del step_fn, state, batch, stats
+    torch.cuda.empty_cache()
+    return launches["K2"] - 2
+
+
+def check_centering(dev):
+    """One step with the object-centering prior on (centering_loss_mult
+    0.1): finite loss and loss/centering_* stats."""
+    import copy
+
+    import torch
+
+    from durf_tpu_torch.entry import train_entry
+    from durf_tpu_torch.train import make_train_step
+
+    _, state, batch = train_entry(dev, batch_size=TRAIN_BATCH)
+    config = copy.deepcopy(state.config)
+    config.centering_loss_mult = 0.1
+    state.config = config
+    state, stats = make_train_step(state.model, config, state.optimizer)(state, batch)
+    keys = [k for k in stats if k.startswith("loss/centering")]
+    vals = {k: float(stats[k]) for k in keys}
+    print(f"centering step: loss {float(stats['train/loss']):.5f}, {vals}")
+    if len(keys) != 2 or not all(map(math.isfinite, [float(stats["train/loss"]), *vals.values()])):
+        raise SystemExit("the centering step is not finite")
+    del state, batch, stats
+    torch.cuda.empty_cache()
 
 
 def check_descent(dev):
@@ -545,7 +891,17 @@ def check_step_vs_plain(dev):
         raise SystemExit("the kernel step disagrees with the plain step")
 
 
-def main() -> int:
+PHASES = ("kernels", "gated", "slice", "train", "exact", "per_object", "centering", "descent",
+          "plain")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
+    p.add_argument("--only", default=",".join(PHASES),
+                   help=f"comma-separated phases to run (default all: {','.join(PHASES)}); "
+                        "a partial run prints no result line")
+    args = p.parse_args(argv)
+    only = set(args.only.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -568,21 +924,40 @@ def main() -> int:
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {list(build.SOURCES)}")
     for name, (secs, log) in build.build_log.items():
+        print(f"  nvcc {name}: {secs:.1f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(0)
-    nums = {
-        "K1": check_k1(dev, gen),
-        "K2": check_k2(dev, gen),
-        "K3": check_k3(dev, gen),
-        "K4": check_k4(dev, gen),
-    }
-    check_slice(dev, smi)
-    launches, _ = check_train(dev, smi)
-    check_descent(dev)
-    check_step_vs_plain(dev)
+    nums, launches = {}, {}
+    if "kernels" in only:
+        nums["K1"] = check_k1(dev, gen)
+        nums["K2"] = check_k2(dev, gen)
+        nums["K3"] = check_k3(dev, gen)
+        nums["K4"] = check_k4(dev, gen)
+        nums["K2-128"] = check_k2_object_width(dev, gen)
+        nums["K5"], nums["K6"] = check_k5_k6(dev, gen)
+    if "gated" in only:
+        launches.update(check_gated_stack(dev, gen))
+    if "slice" in only:
+        check_slice(dev, smi)
+    if "train" in only:
+        main_launches, _ = check_train(dev, smi)
+        launches.update(main_launches)
+    if "exact" in only:
+        check_compaction_exact(dev)
+    if "per_object" in only:
+        launches["K2-128"] = check_per_object(dev, smi)
+    if "centering" in only:
+        check_centering(dev)
+    if "descent" in only:
+        check_descent(dev)
+    if "plain" in only:
+        check_step_vs_plain(dev)
+    if only != set(PHASES):
+        print(f"chip_smoke: partial run ({sorted(only)}), no result line")
+        return 0
 
     meta = {
         "K1": ("K1 fused_nerf_mlp_fwd", "durf_tpu_torch/csrc/fused_mlp.cu",
@@ -593,6 +968,12 @@ def main() -> int:
                "durf_tpu/ops/pallas/obj_mlp.py:193"),
         "K4": ("K4 fused_obj_mlp_bwd", "durf_tpu_torch/csrc/obj_mlp_bwd.cu",
                "durf_tpu/ops/pallas/obj_mlp.py:299"),
+        "K5": ("K5 fused_nerf_mlp_gated_fwd", "durf_tpu_torch/csrc/fused_mlp_gated.cu",
+               "durf_tpu/ops/pallas/fused_mlp.py:389"),
+        "K6": ("K6 fused_nerf_mlp_gated_bwd", "durf_tpu_torch/csrc/fused_mlp_gated_bwd.cu",
+               "durf_tpu/ops/pallas/fused_mlp.py:562"),
+        "K2-128": ("K2 fused_nerf_mlp_bwd at 128/128 (per-object route)",
+                   "durf_tpu_torch/csrc/fused_mlp_bwd.cu", "durf_tpu/ops/pallas/fused_mlp.py:562"),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=site, launches=launches[k],

@@ -75,23 +75,10 @@ extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const 
                                        const long long* w_off, const long long* b_off,
                                        int n_layers, void* save_x, void* save_act,
                                        const long long* act_off, int n_act, void* stream) {
-  if (n_layers > durf::MAX_LAYERS || n_layers != depth + depth_cond + 3) return -1;
-  MlpDesc d = {};
-  d.in_dim = in_dim;
-  d.in_pad = (in_dim + durf::BK - 1) / durf::BK * durf::BK;
-  d.width = width;
-  d.depth = depth;
-  d.skip = skip;
-  d.wc = wc;
-  d.depth_cond = depth_cond;
-  d.n_rgb = n_rgb;
-  d.n_den = n_den;
-  for (int l = 0; l < n_layers; ++l) {
-    d.w_off[l] = w_off[l];
-    d.b_off[l] = b_off[l];
-  }
-  if (save_act != nullptr && n_act != depth + 1 + depth_cond) return -1;
-  for (int a = 0; save_act != nullptr && a < n_act; ++a) d.act_off[a] = act_off[a];
+  MlpDesc d;
+  if (durf::make_fwd_desc(d, in_dim, width, depth, skip, wc, depth_cond, n_rgb, n_den, w_off, b_off,
+                          n_layers, save_act != nullptr, act_off, n_act) != 0)
+    return -1;
   auto wb = static_cast<const durf::bf16*>(w);
   auto sx = static_cast<durf::bf16*>(save_x);
   auto sa = static_cast<durf::bf16*>(save_act);

@@ -27,6 +27,9 @@
 //    ray_sum_kernel over the head_0 cotangent rows for any samples-per-ray.
 // The products themselves are mma.sync m16n8k16 on bf16 fragments with fp32
 // accumulation (mlp_tile.cuh / mlp_bwd.cuh); wgmma and TMA are later work.
+// Two tile-kernel instantiations of the one template: the 8x256 background
+// MLP and, for the per-object route, the 8x128 object MLPs (the widths K4
+// and K6 instantiate).
 
 #include "mlp_bwd.cuh"
 

@@ -1,7 +1,8 @@
 // Building blocks of the fused NeRF-MLP backward kernels (Hopper, sm_90a),
-// shared by K2 (fused_mlp_bwd.cu) and K4 (obj_mlp_bwd.cu).
+// shared by K2 (fused_mlp_bwd.cu), K4 (obj_mlp_bwd.cu) and K6
+// (fused_mlp_gated_bwd.cu).
 //
-// The backward of one MLP on N samples runs as four launches:
+// The backward of one MLP on N samples runs as four launches (K6: five):
 //  1. mlp_bwd_kernel: one CTA per 128-sample tile walks the layers in
 //     reverse. The tile's cotangent G_l (bf16 [TILE_M][width] rows in shared
 //     memory) is the A operand of the transposed product G_l . W_l^T (the
@@ -17,6 +18,8 @@
 //     the gradients are deterministic.
 //  4. ray_sum_kernel: d cond_lin[ray] = sum over the ray's samples of
 //     head_0's cotangent (the view condition enters per ray).
+//  5. (K6 only) feature_sum_kernel: d fill = the sum, in a fixed order, of
+//     the per-tile partials the tile kernel's gate epilogue wrote.
 //
 // Rounding points follow the TPU kernel's backward (durf_tpu/ops/pallas/
 // fused_mlp.py:58-77 with act_dtype=bf16): activations are stored in bf16,
@@ -119,6 +122,53 @@ __device__ void dx_accumulate(const float (&acc)[4][NT][4], float* dx, int col0,
         if (f + 1 < in_dim) dx[(f + 1) * n + sample] += acc[mi][nj][half * 2 + 1];
       }
     }
+  }
+}
+
+// K6's in-tile gate: the MLP ran on xe = bf16(g * x + (1 - g) * fill), g
+// the per-ray gate, x [n][in_dim] and fill [in_dim] the bf16 input rows.
+// All null for K2 and K4.
+struct GateArgs {
+  const bf16* x;
+  const float* gate;   // [n_rays]
+  const bf16* fill;
+  float* dgate;        // [n] per sample
+  float* dfill_part;   // [in_dim][tiles] per-tile partial sums
+  float* dfill;        // [in_dim]
+};
+
+// The gate's vjp on the tile, once the reverse walk has summed the blend's
+// cotangent dxe into dx (fp32 [in_dim][n]; only this CTA writes these rows):
+// dgate[s] = sum_f (x[s][f] - fill[f]) dxe[f][s]; dfill_part[f][tile] =
+// sum_s (1 - g) dxe[f][s] (a fixed shuffle order); then dx = g * dxe.
+__device__ void gate_epilogue(const GateArgs& ga, float* dx, int in_dim, long long tile0,
+                              long long n, int s_per_ray) {
+  __syncthreads();  // the tile's dx rows are final and visible to the CTA
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t < TILE_M && tile0 + t < n) {
+    const long long s = tile0 + t;
+    const bf16* xr = ga.x + s * in_dim;
+    float acc = 0.f;
+    for (int f = 0; f < in_dim; ++f)
+      acc = fmaf(__bfloat162float(xr[f]) - __bfloat162float(ga.fill[f]), dx[(long long)f * n + s],
+                 acc);
+    ga.dgate[s] = acc;
+  }
+  for (int f = warp; f < in_dim; f += THREADS / 32) {
+    float acc = 0.f;
+    for (int r = lane; r < TILE_M; r += 32) {
+      const long long s = tile0 + r;
+      if (s < n) acc = fmaf(1.f - ga.gate[s / s_per_ray], dx[(long long)f * n + s], acc);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) ga.dfill_part[(long long)f * gridDim.x + blockIdx.x] = acc;
+  }
+  __syncthreads();
+  for (int i = t; i < in_dim * TILE_M; i += THREADS) {
+    const int f = i / TILE_M, r = i - f * TILE_M;
+    const long long s = tile0 + r;
+    if (s < n) dx[(long long)f * n + s] *= ga.gate[s / s_per_ray];
   }
 }
 
@@ -230,15 +280,15 @@ __host__ inline size_t bwd_smem_bytes(const MlpDesc& d) {
   return ((size_t)TILE_M * ld_of(hmax) + (size_t)STAGES * BK * ld_of(hmax)) * sizeof(bf16);
 }
 
-// TAG (2 for K2, 4 for K4) only names the instantiation, so that a profile
-// tells the two kernels' launches apart.
+// TAG (2 for K2, 4 for K4, 6 for K6) names the instantiation, so that a
+// profile tells the kernels' launches apart; K6's adds the gate epilogue.
 template <int TAG, int NTW, int NTC>
 __global__ void __launch_bounds__(THREADS)
     mlp_bwd_kernel(const float* __restrict__ g_rgb, const float* __restrict__ g_den,
                    const float* __restrict__ hit, long long n_rays, const bf16* __restrict__ w,
                    const bf16* __restrict__ wt, const bf16* __restrict__ act, bf16* __restrict__ g,
                    float* __restrict__ dx, long long n, int s_per_ray, int n_obj, MlpDesc d,
-                   BwdDesc e) {
+                   BwdDesc e, GateArgs ga) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hmax = d.width > d.wc ? d.width : d.wc;
   bf16* gs = reinterpret_cast<bf16*>(smem);
@@ -250,6 +300,9 @@ __global__ void __launch_bounds__(THREADS)
                           hit == nullptr ? nullptr : hit + o * n_rays, dx, gs, ws, tile0, n,
                           s_per_ray);
   }
+  // Only K6's instantiation carries the gate epilogue: in K2's and K4's it
+  // would cost registers (the 8x256 tile kernel spills with it).
+  if constexpr (TAG == 6) gate_epilogue(ga, dx, d.in_dim, tile0, n, s_per_ray);
 }
 
 // ---- weight gradients: split-K products over the sample axis ----
@@ -397,23 +450,26 @@ __global__ void ray_sum_kernel(const bf16* __restrict__ g, long long g_obj_strid
   dcond[((long long)o * n_rays + r) * wc + c] = s;
 }
 
-template <int TAG, int NTW, int NTC>
-static int launch_bwd_tiles(const float* g_rgb, const float* g_den, const float* hit,
-                            long long n_rays, const bf16* w, const bf16* wt, const bf16* act,
-                            bf16* g, float* dx, long long n, int s_per_ray, int n_obj,
-                            const MlpDesc& d, const BwdDesc& e, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(d);
-  auto kern = mlp_bwd_kernel<TAG, NTW, NTC>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long grid = (n + TILE_M - 1) / TILE_M;
-  kern<<<(unsigned)grid, THREADS, smem, stream>>>(g_rgb, g_den, hit, n_rays, w, wt, act, g, dx, n,
-                                                  s_per_ray, n_obj, d, e);
-  return (int)cudaGetLastError();
+// out[f] = sum over tiles of part[f][tile]: one block per feature, each
+// thread a fixed strided subset, then a fixed shared-memory tree.
+template <int TAG>
+__global__ void __launch_bounds__(THREADS)
+    feature_sum_kernel(const float* __restrict__ part, int tiles, float* __restrict__ out) {
+  __shared__ float red[THREADS];
+  const float* row = part + (long long)blockIdx.x * tiles;
+  float s = 0.f;
+  for (int t = threadIdx.x; t < tiles; t += THREADS) s += row[t];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = THREADS / 2; w > 0; w >>= 1) {
+    if ((int)threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = red[0];
 }
 
-// Arguments shared by the K2 and K4 entry points (see their extern "C"
-// functions): the four launches of one MLP backward on `stream`.
+// Arguments shared by the K2, K4 and K6 entry points (see
+// DURF_DEFINE_BWD_ENTRY): the launches of one MLP backward on `stream`.
 struct BwdArgs {
   const float* g_rgb;
   const float* g_den;
@@ -435,17 +491,33 @@ struct BwdArgs {
   int s_per_ray, n_obj;
 };
 
-// One tile-kernel instantiation per kernel, at the widths of the flagship
-// configuration that runs it (fused_mlp.BWD_WIDTHS): K2 the 8x256
-// background MLP, K4 the 8x128 object MLPs, both with 128-wide heads.
-// Other widths return -2.
+template <int TAG, int NTW, int NTC>
+static int launch_bwd_tiles(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e,
+                            const GateArgs& ga, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(d);
+  auto kern = mlp_bwd_kernel<TAG, NTW, NTC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = (a.n + TILE_M - 1) / TILE_M;
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(a.g_rgb, a.g_den, a.hit, a.n_rays, a.w, a.wt,
+                                                  a.act, a.g, a.dx, a.n, a.s_per_ray, a.n_obj, d,
+                                                  e, ga);
+  return (int)cudaGetLastError();
+}
+
+// Tile-kernel instantiations at the widths of the flagship MLPs that run
+// each kernel (fused_mlp.BWD_WIDTHS): 128-wide trunk and heads for every
+// kernel (the object MLPs: K4, K6, and K2 on the per-object route), and the
+// 8x256 background MLP for K2 alone. Other widths return -2.
 template <int TAG>
-int mlp_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e,
-                          cudaStream_t stream) {
-  constexpr int NTW = TAG == 2 ? 8 : 4;
-  if (d.width != 32 * NTW || d.wc != 128) return -2;
-  int err = launch_bwd_tiles<TAG, NTW, 4>(a.g_rgb, a.g_den, a.hit, a.n_rays, a.w, a.wt, a.act, a.g,
-                                          a.dx, a.n, a.s_per_ray, a.n_obj, d, e, stream);
+int mlp_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const GateArgs& ga,
+                   cudaStream_t stream) {
+  if ((ga.gate != nullptr) != (TAG == 6) || (TAG == 6 && a.dx == nullptr)) return -1;
+  int err = -2;
+  if constexpr (TAG == 2) {
+    if (d.width == 256 && d.wc == 128) err = launch_bwd_tiles<TAG, 8, 4>(a, d, e, ga, stream);
+  }
+  if (d.width == 128 && d.wc == 128) err = launch_bwd_tiles<TAG, 4, 4>(a, d, e, ga, stream);
   if (err != 0) return err;
   dw_kernel<TAG><<<dim3((unsigned)a.n_tiles, (unsigned)a.n_splits), THREADS, 0, stream>>>(
       a.jobs, a.n_jobs, a.n, a.chunk, a.part, a.total);
@@ -456,7 +528,13 @@ int mlp_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e,
   if ((err = (int)cudaGetLastError()) != 0) return err;
   ray_sum_kernel<TAG><<<dim3((unsigned)a.n_rays, (unsigned)a.n_obj), d.wc, 0, stream>>>(
       a.g, e.g_obj_stride, e.g_off[d.depth + 2], d.wc, a.s_per_ray, a.n_rays, a.dcond);
-  return (int)cudaGetLastError();
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  if constexpr (TAG == 6) {
+    const int tiles = (int)((a.n + TILE_M - 1) / TILE_M);
+    feature_sum_kernel<TAG><<<(unsigned)d.in_dim, THREADS, 0, stream>>>(ga.dfill_part, tiles, ga.dfill);
+    err = (int)cudaGetLastError();
+  }
+  return err;
 }
 
 // Descriptors from the flat arrays the Python wrappers pass.
@@ -495,9 +573,9 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
 
 }  // namespace durf
 
-// The C entry point NAME of K2 (TAG 2) and K4 (TAG 4); each .cu expands it
-// once.
-#define DURF_DEFINE_BWD_ENTRY(NAME, TAG)                                                              \
+// The C entry point NAME of K2 (TAG 2), K4 (TAG 4) and K6 (TAG 6); each .cu
+// expands it once. The gate pointers (gx .. dfill) are null except for K6.
+#define DURF_DEFINE_BWD_ENTRY(NAME, TAG)                                                         \
   extern "C" int NAME(                                                                           \
       const float* g_rgb, const float* g_den, const float* hit, long long n_rays, const void* w, \
       const void* wt, const void* act, void* g, float* dx, float* dcond, const long long* jobs,  \
@@ -506,7 +584,8 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
       int skip, int wc, int depth_cond, int n_rgb, int n_den, const long long* w_off,            \
       const long long* act_off, const long long* wt_off, const long long* wtx_off,               \
       const long long* g_off, int n_layers, long long w_obj_stride, long long act_obj_stride,    \
-      long long wt_obj_stride, long long g_obj_stride, void* stream) {                           \
+      long long wt_obj_stride, long long g_obj_stride, const void* gx, const float* gate,        \
+      const void* gfill, float* dgate, float* dfill_part, float* dfill, void* stream) {          \
     durf::MlpDesc d;                                                                             \
     durf::BwdDesc e;                                                                             \
     int err = durf::make_bwd_descs(d, e, in_dim, width, depth, skip, wc, depth_cond, n_rgb,      \
@@ -534,5 +613,7 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
                     n,                                                                           \
                     s_per_ray,                                                                   \
                     n_obj};                                                                      \
-    return durf::mlp_bwd_launch<TAG>(a, d, e, static_cast<cudaStream_t>(stream));                     \
+    durf::GateArgs ga{static_cast<const durf::bf16*>(gx), gate,                                  \
+                      static_cast<const durf::bf16*>(gfill), dgate, dfill_part, dfill};          \
+    return durf::mlp_bwd_launch<TAG>(a, d, e, ga, static_cast<cudaStream_t>(stream));            \
   }

@@ -246,6 +246,33 @@ __device__ void load_x_tile(bf16* xs, const float* x, const MlpDesc& d, long lon
   __syncthreads();
 }
 
+// The forward kernels' descriptor from the flat arrays the Python wrappers
+// pass (K1, K5; K3 adds its object strides). Returns 0, or -1 when the layer
+// or activation-segment counts do not fit.
+__host__ inline int make_fwd_desc(MlpDesc& d, int in_dim, int width, int depth, int skip, int wc,
+                                  int depth_cond, int n_rgb, int n_den, const long long* w_off,
+                                  const long long* b_off, int n_layers, bool save,
+                                  const long long* act_off, int n_act) {
+  if (n_layers > MAX_LAYERS || n_layers != depth + depth_cond + 3) return -1;
+  d = MlpDesc{};
+  d.in_dim = in_dim;
+  d.in_pad = (in_dim + BK - 1) / BK * BK;
+  d.width = width;
+  d.depth = depth;
+  d.skip = skip;
+  d.wc = wc;
+  d.depth_cond = depth_cond;
+  d.n_rgb = n_rgb;
+  d.n_den = n_den;
+  for (int l = 0; l < n_layers; ++l) {
+    d.w_off[l] = w_off[l];
+    d.b_off[l] = b_off[l];
+  }
+  if (save && n_act != depth + 1 + depth_cond) return -1;
+  for (int a = 0; save && a < n_act; ++a) d.act_off[a] = act_off[a];
+  return 0;
+}
+
 // Copy the tile's bf16 rows s[0:TILE_M][0:cols] (row stride lds) to rows
 // [tile0, tile0 + TILE_M) of a [n][cols] row-major buffer in 16-byte chunks,
 // skipping rows at or past n. cols is a multiple of 8.

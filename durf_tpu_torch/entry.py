@@ -1,6 +1,6 @@
 """Entry points: the flagship eval forward, like the JAX package's
 `__graft_entry__.entry()`, and the flagship training step that bench.py
-builds (bench.py:147-172), without object-ray compaction."""
+builds (bench.py:147-172), with bench.py's object-ray compaction."""
 
 from __future__ import annotations
 
@@ -105,20 +105,30 @@ def entry(device="cuda"):
     return forward, example_args
 
 
-def train_entry(device="cuda", batch_size: int = 4096, constant_lr: float | None = None):
+def train_entry(
+    device="cuda",
+    batch_size: int = 4096,
+    constant_lr: float | None = None,
+    obj_capacity: float = 0.0625,
+    fused_objects: bool = True,
+):
     """(step_fn, state, batch): the flagship training step at the kernel
     operating point (bf16, K1-K4, recurrent encode, coordinate-major
     diagonal pipeline), weights from seed 0, a synthetic `batch_size`-ray
     batch on the device and step_fn(state, batch) -> (state, stats). The
     step is randomized with a gray background and no density noise, as the
-    flagship config sets; object-ray compaction stays off
-    (`bench.py --obj_capacity 0`). `constant_lr` replaces the delayed
-    log-lerp schedule by a constant rate (as __graft_entry__.py:142-144
-    does for a short run). Runs on the card unless the caller asks for the
-    CPU; raises when there is no card."""
+    flagship config sets. `obj_capacity` is bench.py's object-ray compaction
+    fraction (bench.py:59-67; 0 turns compaction off); `fused_objects=False`
+    takes the per-object route (K1/K2 once per object; `bench.py
+    --no-fused_objects`). `constant_lr` replaces the delayed log-lerp schedule by a
+    constant rate (as __graft_entry__.py:142-144 does for a short run).
+    Runs on the card unless the caller asks for the CPU; raises when there
+    is no card."""
     device = resolve_device(device)
     config = kernel_operating_point(flagship_config())
     config.batch_size = batch_size
+    config.model.obj_ray_capacity = obj_capacity
+    config.model.fused_objects = fused_objects
     if constant_lr is not None:
         config.lr_init = config.lr_final = constant_lr
         config.lr_delay_steps = 0

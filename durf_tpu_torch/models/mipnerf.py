@@ -7,18 +7,23 @@ coordinate-major diagonal pipeline, eval and training forward. Per level:
   (dynamic) windowed IPE + object MLPs on the composite rays ->
   background mask, contraction, IPE, background MLP -> additive raw merge ->
   density noise -> activations -> compositing.
-With `use_pallas_mlp` the background MLP runs K1/K2 and the object MLPs
-K3/K4 (ops/kernels/, forward and backward); without it both run the plain
-path in `compute_dtype`. A randomized (training) forward draws all its
+With `use_pallas_mlp` the background MLP runs K1/K2, and the object MLPs
+run K3/K4 (`fused_objects`, all objects in one launch) or, on the
+per-object route, K1/K2 once per object on the blended input
+(ops/kernels/, forward and backward); without it everything runs the plain
+path in `compute_dtype`. With `obj_ray_capacity > 0` the object pipeline
+runs on the k rays of the batch that hit a box first (object-ray
+compaction), and every dynamic level reads out `obj_centroid`, the
+object-centering prior. A randomized (training) forward draws all its
 randomness from one `torch.Generator`, threaded through the levels.
 
 Not ported yet, and refused with NotImplementedError: proposal levels,
-occupancy-grid sampling, object-ray compaction, the object-centering
-readout, the row-major and full-covariance pipelines.
+occupancy-grid sampling, the row-major and full-covariance pipelines.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List
 
 import numpy as np
@@ -33,19 +38,25 @@ from durf_tpu_torch.ops.kernels import obj_mlp as k3
 from durf_tpu_torch.rays import Rays
 
 
+def obj_capacity_k(batch: int, capacity: float) -> int:
+    """Compacted ray count for ModelConfig.obj_ray_capacity
+    (durf_tpu/models/mipnerf.py:38-47): ceil(capacity * batch) rounded up
+    to a multiple of 128, at least 128, at most the batch; capacity <= 0
+    (the -1 of auto-sizing included) disables compaction (k == batch)."""
+    if capacity <= 0.0:
+        return batch
+    return min(batch, max(128, int(math.ceil(batch * capacity / 128)) * 128))
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config that asks for a path the port
     does not have yet."""
     unported = {
         "use_proposal": cfg.use_proposal and cfg.num_levels > 1,
         "grid_sampling": cfg.grid_sampling,
-        "obj_ray_capacity > 0 (object-ray compaction)": cfg.obj_ray_capacity > 0.0,
         "diag_covariance=False (full covariance)": not cfg.diag_covariance,
         "coord_major=False (row-major samples)": not cfg.coord_major,
         "remat_mlp (a training option)": cfg.remat_mlp,
-        "use_pallas_mlp without fused_objects (per-object K1 on blended inputs)": (
-            cfg.use_pallas_mlp and cfg.dynamics and not cfg.fused_objects
-        ),
         "use_pallas_mlp without use_viewdirs": cfg.use_pallas_mlp and not cfg.use_viewdirs,
     }
     asked = [name for name, on in unported.items() if on]
@@ -74,9 +85,11 @@ class MipNerf(nn.Module):
         )
         self.dynamic = config.dynamics and num_objects > 0
         if self.dynamic:
-            # The object MLPs take the kernel path through K3, not K1.
+            # With fused_objects the kernel path bypasses this module for K3;
+            # the per-object route runs it, K1 once per object.
             self.object_mlps = NerfMLP(
-                config.box_mlp, obj_in, cond_dim, config.compute_dtype, False, num_objects
+                config.box_mlp, obj_in, cond_dim, config.compute_dtype, config.use_pallas_mlp,
+                num_objects,
             )
             self.box_centers = nn.Parameter(torch.zeros((timesteps, num_objects, 6)))
 
@@ -104,7 +117,8 @@ class MipNerf(nn.Module):
         Returns one dict per level: rgb [B,3], depth [B], acc [B],
         weights [B,S], t_vals [B,S+1], t_mids [B,S], t_dists [B,S],
         pose [N_obj,3], rot [N_obj,3], dyn_mask [B,1], z_out [B], and for the
-        dynamic model obj_hit_rays (rays hitting any box).
+        dynamic model obj_hit_rays (rays hitting any box) and obj_centroid
+        [N_obj,3] (the object-centering readout).
         """
         cfg = self.config
         dtype = self.background_mlp.compute_dtype
@@ -189,8 +203,18 @@ class MipNerf(nn.Module):
 
             level_out: Dict[str, Any] = {}
             if self.dynamic:
-                obj_rgbs, obj_densities = self._objects(mean, cov, viewdirs_enc, hit, alpha, dtype)
-                level_out["obj_hit_rays"] = (hit.sum(dim=-1) > 0).sum().to(torch.float32)
+                anyhit = hit.sum(dim=-1) > 0  # [B]
+                k = obj_capacity_k(batch, cfg.obj_ray_capacity)
+                if k < batch:
+                    obj_rgbs, obj_densities = self._compacted_objects(
+                        mean, cov, viewdirs_enc, hit, anyhit, k, alpha, dtype
+                    )
+                else:
+                    obj_rgbs, obj_densities = self._objects(
+                        mean, cov, viewdirs_enc, hit, alpha, dtype
+                    )
+                level_out["obj_centroid"] = self._centroid(mean, obj_densities, hit, ext)
+                level_out["obj_hit_rays"] = anyhit.sum().to(torch.float32)
                 # The background sees the complement mask, clamped at 0: a ray
                 # hitting two boxes would otherwise flip the covariance
                 # negative (reference obbpose_model.py:205).
@@ -242,6 +266,28 @@ class MipNerf(nn.Module):
             )
         return ret
 
+    def _compacted_objects(self, mean, cov, viewdirs_enc, hit, anyhit, k, alpha, dtype):
+        """Object-ray compaction (durf_tpu/models/mipnerf.py:394-446): the
+        object pipeline on the k rays that come first when the rays hitting
+        a box are sorted before the others, scattered back into zeros.
+        Exact while the batch's hit count fits k (the other rays hit
+        nothing); past it, the highest-indexed hit rays lose their object
+        contribution. The sort is stable, so ties keep ray order, as
+        lax.top_k puts the lower index first."""
+        idx = torch.sort(anyhit.to(torch.int32), descending=True, stable=True).indices[:k]
+        rgb_c, den_c = self._objects(
+            mean.index_select(1, idx),
+            cov.index_select(1, idx),
+            None if viewdirs_enc is None else viewdirs_enc.index_select(0, idx),
+            hit.index_select(0, idx),
+            alpha,
+            dtype,
+        )
+        # Out-of-place scatters into zeros, so autograd reaches the
+        # compacted outputs.
+        full = lambda t: t.new_zeros((t.shape[0], mean.shape[1], t.shape[2])).index_copy(1, idx, t)  # noqa: E731
+        return full(rgb_c), full(den_c)
+
     def _objects(self, mean, cov, viewdirs_enc, hit, alpha, dtype):
         """Hit-masked sum over the object MLPs: ([3, B, S], [1, B, S]).
 
@@ -249,6 +295,14 @@ class MipNerf(nn.Module):
         object: for a 0/1 mask, windowed_ipe(hit*m, hit*cov) ==
         hit*windowed_ipe(m, cov) + (1-hit)*windowed_ipe(0, 0), so the masked
         input is a blend with the constant zero-sample encoding c0.
+
+        With the kernels the objects run K3/K4 (`fused_objects`) or the
+        per-object route: each object's blended input through K1/K2. The
+        JAX package also takes the per-object route when the stacked weights
+        would overflow its fused kernel's VMEM budget (fused_obj_vmem_ok);
+        K3/K4 keep only one object's weight slices in shared memory at a
+        time and put the weight gradients in device memory, so they have no
+        such limit and the port takes the route only when asked.
         """
         cfg = self.config
         enc_kwargs = dict(
@@ -259,16 +313,51 @@ class MipNerf(nn.Module):
             recurrent=cfg.recurrent_encode,
         )
         enc = ops.windowed_ipe_cm(mean, cov, **enc_kwargs)
-        if cfg.use_pallas_mlp:
+        if cfg.use_pallas_mlp and cfg.fused_objects:
             return k3.obj_mlps_apply(
                 self.object_mlps.operands(), cfg.box_mlp, enc, viewdirs_enc, hit, dtype
             )
         zero = torch.zeros((3, 1, 1), dtype=mean.dtype, device=mean.device)
         c0 = ops.windowed_ipe_cm(zero, zero, **enc_kwargs)  # [F, 1, 1]
         gate = hit.T[..., None]  # [N_obj, B, 1]
-        obj_rgb, obj_density = self.object_mlps.forward_objects(enc, viewdirs_enc, gate, c0)
+        obj_rgb, obj_density = self.object_mlps(enc, viewdirs_enc, gate, c0)
         hit_fm = hit.T[:, None, :, None]  # [N_obj, 1, B, 1]
         return (hit_fm * obj_rgb).sum(dim=0), (hit_fm * obj_density).sum(dim=0)
+
+    def _centroid(self, mean, obj_densities, hit, ext):
+        """The object-centering readout [N_obj, 3] (durf_tpu/models/
+        mipnerf.py:448-524): per object, the centre of its occupied
+        canonical samples. Box-hitting rays sample in the object frame, so
+        their raw means are canonical coordinates; only in-slab samples (|x|
+        <= ext) of the object's hit rays count. The weights are detached, so
+        the centering loss moves the pose, never the field. 'mean': the
+        density-weighted mean. 'midrange': the midpoint of a smooth max and
+        min per axis over occupancy saturated at centering_tau, 0 for an
+        object with no occupied sample in the batch."""
+        cfg = self.config
+        x32 = mean.float()  # [3, B, S]
+        n_obj = hit.shape[1]
+        sigma = get_activation(cfg.density_activation)(obj_densities[0].float() + cfg.density_bias)
+        in_slab = (x32.abs()[None] <= ext[:, :, None, None]).all(dim=1).float()  # [N_obj, B, S]
+        mask = hit.T[:, :, None].float() * in_slab
+        if cfg.centering_mode == "mean":
+            w = sigma.detach()[None] * mask
+            num = torch.einsum("obs,cbs->oc", w, x32)
+            return num / (w.sum(dim=(1, 2))[:, None] + 1e-6)
+        if cfg.centering_mode == "midrange":
+            beta, tau = cfg.centering_beta, cfg.centering_tau
+            w_occ = (torch.clamp(sigma, max=tau) / tau).detach()[None] * mask
+            logw = torch.where(w_occ > 0.0, torch.log(torch.clamp(w_occ, min=1e-30)), -1e9)
+            logw = logw.reshape(n_obj, 1, -1)
+            xo = x32.reshape(1, 3, -1)
+            hi = torch.logsumexp(beta * xo + logw, dim=-1)
+            lo = torch.logsumexp(-beta * xo + logw, dim=-1)
+            mid = (hi - lo) / (2.0 * beta)
+            # An object with no occupied sample: every logw is -1e9 and mid
+            # would be the midrange of all its canonical samples.
+            occupied = w_occ.sum(dim=(1, 2)) > 0.0
+            return torch.where(occupied[:, None], mid, torch.zeros_like(mid))
+        raise ValueError(f"unknown centering_mode {cfg.centering_mode!r}")
 
 
 def construct_model(config: ModelConfig, example_batch: dict, device="cuda", seed: int = 0):

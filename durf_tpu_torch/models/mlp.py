@@ -1,17 +1,24 @@
 """The NeRF trunk MLP with skip connections and a view-conditioned head.
 
 Counterpart of the JAX package's `models/mlp.py` (reference
-obbpose_model.py:293-418). One parameter layout, two execution paths:
+obbpose_model.py:293-418). One parameter layout, three execution paths:
   * the plain path: the split-matmul formulation in `compute_dtype`
     (operands rounded, float32 accumulation), differentiable by autograd;
-  * the kernel path (`use_kernel=True`): K1 forward and K2 backward, the
-    fused CUDA kernels behind one autograd Function
-    (ops/kernels/fused_mlp.py), for a single MLP with a view condition.
+  * the kernel path (`use_kernel=True`, with a view condition): K1 forward
+    and K2 backward behind one autograd Function (ops/kernels/fused_mlp.py);
+  * with `pallas_gate_in_kernel` as well, a gated call on row-major input
+    and output runs K5 forward and K6 backward, which blend
+    gate * x + (1 - gate) * fill inside the kernel (mlp.py:166-181 of the
+    JAX package). Every other gated call blends in PyTorch first.
 A stacked module (`num_stack=N_obj`) holds every object MLP with a leading
-object axis on each leaf, like the JAX package's nn.vmap'd `object_mlps`.
+object axis on each leaf, like the JAX package's nn.vmap'd `object_mlps`
+(shared input, condition and fill; one gate per object); it runs the same
+routes one object's weights at a time, so the kernels launch once per
+object and autograd sums the objects' input gradients.
 
-Inputs are feature-major [F, B, S] (the coordinate-major encode's layout);
-outputs are feature-major [C, B, S] float32.
+Inputs are feature-major [F, ..., S] (the coordinate-major encode's layout)
+or row-major [..., S, F]; outputs feature-major [C, ..., S] or row-major
+[..., S, C], float32.
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ class NerfMLP(nn.Module):
         compute_dtype: str = "float32",
         use_kernel: bool = False,
         num_stack: int | None = None,
+        pallas_gate_in_kernel: bool = False,
     ):
         super().__init__()
         if config.net_activation != "relu":
@@ -91,6 +99,10 @@ class NerfMLP(nn.Module):
         self.compute_dtype = get_dtype(compute_dtype)
         self.use_kernel = use_kernel
         self.num_stack = num_stack
+        # Blend a gated call's input inside K5/K6 (row-major in and out only)
+        # instead of in PyTorch before K1/K2; nothing in MipNerf sets it, as
+        # in the JAX package.
+        self.pallas_gate_in_kernel = pallas_gate_in_kernel
         cfg = config
         layers = {}
         for i, d in enumerate(k1.layer_dims(cfg, in_dim)):
@@ -115,53 +127,73 @@ class NerfMLP(nn.Module):
         num_stack is set)."""
         return k1.mlp_params(self.layers, self.config, self.cond_dim > 0)
 
-    def _plain(self, x_fm, condition, weights):
-        """Plain path on [F, B, S] features -> ([C, B, S], [C, B, S])."""
-        cfg = self.config
-        f, b, s = x_fm.shape
-        rows = None
-        if condition is not None:
-            cond_lin = k1.cond_linear(
-                condition, weights[k1.head0_index(cfg)], cfg, self.compute_dtype
-            )
-            rows = cond_lin.repeat_interleave(s, dim=0)
-        rgb, den = k1.split_matmul_forward(
-            cfg, x_fm.reshape(f, b * s).T, rows, weights, self.compute_dtype
-        )
-        return rgb.T.reshape(-1, b, s), den.T.reshape(-1, b, s)
+    def forward(
+        self,
+        x: torch.Tensor,
+        condition: torch.Tensor | None = None,
+        gate: torch.Tensor | None = None,
+        fill: torch.Tensor | None = None,
+        x_feature_major: bool = True,
+        out_feature_major: bool = True,
+    ):
+        """Args:
+          x: [F, ..., S] encoded samples (x_feature_major) or [..., S, F].
+          condition: [..., F_c] per-ray encoded view directions (no sample
+            axis; broadcast over the samples).
+          gate: optional per-ray [..., 1] (a stacked module: [N_obj, ..., 1],
+            one per object); the input is gate * x + (1 - gate) * fill.
+          fill: the constant input row (F elements) where the gate is 0.
+          out_feature_major: return [C, ..., S] planes, else [..., S, C].
 
-    def forward(self, x_fm: torch.Tensor, condition: torch.Tensor | None = None):
-        """x_fm: [F, B, S] encoded samples; condition: [B, F_c] per-ray
-        encoded view directions. Returns (raw_rgb [C_rgb, B, S],
-        raw_density [C_den, B, S]) float32."""
-        if self.num_stack is not None:
-            raise ValueError("a stacked NerfMLP runs through forward_objects")
+        Returns (raw_rgb, raw_density) float32, with a leading N_obj axis
+        for a stacked module.
+        """
         if (condition is None) != (self.cond_dim == 0):
             raise ValueError("condition must be given exactly when cond_dim > 0")
-        if not self.use_kernel:
-            return self._plain(x_fm, condition, self.operands())
-        if condition is None:
-            raise NotImplementedError("the MLP kernel needs a view condition")
-        f, b, s = x_fm.shape
-        rgb, den = k1.fused_nerf_mlp(
-            x_fm.reshape(f, b * s), condition, self.operands(), self.config, s
-        )
-        return rgb.reshape(-1, b, s), den.reshape(-1, b, s)
-
-    def forward_objects(self, x_fm, condition, gate, fill):
-        """Plain path of a stacked module: object o runs on the masked
-        features gate_o * x + (1 - gate_o) * fill.
-
-        x_fm: [F, B, S]; condition: [B, F_c] or None; gate: [N_obj, B, 1]
-        0/1; fill: [F, 1, 1] (the zero-sample encoding). Returns
-        (raw_rgb [N_obj, C_rgb, B, S], raw_density [N_obj, C_den, B, S]).
-        """
+        if (gate is None) != (fill is None):
+            raise ValueError("gate and fill go together")
         weights = self.operands()
-        rgbs, dens = [], []
-        for o in range(self.num_stack):
-            g = gate[o][None]  # [1, B, 1]
-            x_o = g * x_fm + (1.0 - g) * fill
-            rgb, den = self._plain(x_o, condition, [w[o] for w in weights])
-            rgbs.append(rgb)
-            dens.append(den)
-        return torch.stack(rgbs), torch.stack(dens)
+        args = (x, condition, fill, x_feature_major, out_feature_major)
+        if self.num_stack is None:
+            return self._route(weights, gate, *args)
+        outs = [
+            self._route([w[o] for w in weights], None if gate is None else gate[o], *args)
+            for o in range(self.num_stack)
+        ]
+        return torch.stack([r for r, _ in outs]), torch.stack([d for _, d in outs])
+
+    def _route(self, weights, gate, x, condition, fill, fm, out_fm):
+        """One MLP's route (see the module docstring)."""
+        cfg = self.config
+        in_dim = x.shape[0] if fm else x.shape[-1]
+        batch_shape = x.shape[1:] if fm else x.shape[:-1]
+        s = batch_shape[-1]
+        n = math.prod(batch_shape)
+        flat = x.reshape(in_dim, n) if fm else x.reshape(n, in_dim)
+        cond = None if condition is None else condition.reshape(n // s, -1)
+        g = None if gate is None else gate.reshape(n // s)
+        if self.use_kernel and cond is None:
+            raise NotImplementedError("the MLP kernels need a view condition")
+        if self.use_kernel and g is not None and self.pallas_gate_in_kernel and not fm and not out_fm:
+            rgb, den = k1.fused_nerf_mlp_gated(flat, g, fill, cond, weights, cfg, s)
+        else:
+            if g is not None:  # blend in the input's own layout
+                gs = g.repeat_interleave(s)
+                gs, fr = (gs[None], fill.reshape(in_dim, 1)) if fm else (gs[:, None], fill.reshape(1, in_dim))
+                flat = gs * flat + (1.0 - gs) * fr
+            if self.use_kernel:
+                rgb, den = k1.fused_nerf_mlp(flat if fm else flat.T.contiguous(), cond, weights, cfg, s)
+                rgb, den = rgb.T, den.T
+            else:
+                cond_rows = None
+                if cond is not None:
+                    cond_lin = k1.cond_linear(
+                        cond, weights[k1.head0_index(cfg)], cfg, self.compute_dtype
+                    )
+                    cond_rows = cond_lin.repeat_interleave(s, dim=0)
+                rgb, den = k1.split_matmul_forward(
+                    cfg, flat.T if fm else flat, cond_rows, weights, self.compute_dtype
+                )
+        if out_fm:
+            return rgb.T.reshape((-1,) + batch_shape), den.T.reshape((-1,) + batch_shape)
+        return rgb.reshape(batch_shape + (-1,)), den.reshape(batch_shape + (-1,))

@@ -24,7 +24,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "durf_tpu_torch_kernels"
-SOURCES = ("fused_mlp", "obj_mlp", "fused_mlp_bwd", "obj_mlp_bwd")
+SOURCES = (
+    "fused_mlp", "obj_mlp", "fused_mlp_gated", "fused_mlp_bwd", "obj_mlp_bwd",
+    "fused_mlp_gated_bwd",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

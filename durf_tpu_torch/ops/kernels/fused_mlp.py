@@ -1,6 +1,7 @@
-"""K1 and K2: the fused background NeRF-MLP forward and backward, their
-plain versions, the autograd Function that joins them, and the split-matmul
-math and workspace layouts they share with K3/K4.
+"""K1 and K2: the fused NeRF-MLP forward and backward; K5 and K6: the same
+MLP with its input gated in the kernel; their plain versions, the autograd
+Functions that join each pair, and the split-matmul math and workspace
+layouts they share with K3/K4.
 
 Kernels: `csrc/fused_mlp.cu` (K1) and `csrc/fused_mlp_bwd.cu` (K2), CUDA
 C++ for sm_90a built by `build.py`. They replace durf_tpu/ops/pallas/
@@ -22,6 +23,13 @@ sample of the ray; its gradient is the per-ray sum of head_0's cotangent.
 `FusedNerfMlpFn` runs K1 forward (saving the bf16 activations K2 reads) and
 K2 backward on CUDA tensors, and the plain versions on CPU tensors. On a
 CUDA tensor every wrapper launches its kernel or raises.
+
+K5 (`csrc/fused_mlp_gated.cu`) and K6 (`csrc/fused_mlp_gated_bwd.cu`)
+replace durf_tpu/ops/pallas/fused_mlp.py:fused_nerf_mlp_gated (the same
+pallas_calls with a gate and a fill row): the MLP on bf16(g * x + (1 - g) *
+fill) blended in the tile from row-major bf16 rows x [N, F], a per-ray gate
+g and one fill row; K6 adds dgate and dfill to K2's outputs.
+`FusedNerfMlpGatedFn` joins them as FusedNerfMlpFn joins K1 and K2.
 """
 
 from __future__ import annotations
@@ -493,18 +501,23 @@ def check_kernel_config(config, in_dim: int) -> None:
         raise ValueError(f"in_dim {in_dim} needs more shared memory than a block has")
 
 
-# (net_width, net_width_condition) each backward kernel is built for: the
-# flagship background MLP (K2) and object MLPs (K4); see mlp_bwd_launch.
-BWD_WIDTHS = {"fused_mlp_bwd": (256, 128), "obj_mlp_bwd": (128, 128)}
+# The (net_width, net_width_condition) pairs each backward kernel is built
+# for (mlp_bwd_launch in csrc/mlp_bwd.cuh): K2 the flagship background MLP
+# and, on the per-object route, the object MLPs; K4 and K6 the object MLPs.
+BWD_WIDTHS = {
+    "fused_mlp_bwd": ((256, 128), (128, 128)),
+    "obj_mlp_bwd": ((128, 128),),
+    "fused_mlp_gated_bwd": ((128, 128),),
+}
 
 
 def check_bwd_config(config, what: str) -> None:
     """Raise if the backward kernel of csrc/<what>.cu is not built for this
     MLP's widths."""
     widths = (config.net_width, config.net_width_condition)
-    if widths != BWD_WIDTHS[what]:
+    if widths not in BWD_WIDTHS[what]:
         raise ValueError(
-            f"{what} is built for (net_width, net_width_condition) = {BWD_WIDTHS[what]}; "
+            f"{what} is built for (net_width, net_width_condition) in {BWD_WIDTHS[what]}; "
             f"got {widths}"
         )
 
@@ -538,10 +551,10 @@ _c = ctypes
 _P, _I, _L = _c.c_void_p, _c.c_int, _c.c_longlong
 _OFFS = _c.POINTER(_c.c_longlong)
 _K1_ARGTYPES = [_P] * 6 + [_L] + [_I] * 9 + [_OFFS, _OFFS, _I, _P, _P, _OFFS, _I, _P]
-# The K2 / K4 entry point (DURF_DEFINE_BWD_ENTRY in csrc/mlp_bwd.cuh).
+# The K2 / K4 / K6 entry point (DURF_DEFINE_BWD_ENTRY in csrc/mlp_bwd.cuh).
 BWD_ARGTYPES = (
     [_P, _P, _P, _L] + [_P] * 7 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 10
-    + [_OFFS] * 5 + [_I, _L, _L, _L, _L, _P]
+    + [_OFFS] * 5 + [_I, _L, _L, _L, _L] + [_P] * 7
 )
 
 
@@ -584,11 +597,14 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
     return rgb, den, res
 
 
-def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_ray, need_dx):
-    """Allocate the backward's workspace and launch K2 or K4 (the C entry
+def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_ray, need_dx,
+               gate=None):
+    """Allocate the backward's workspace and launch K2, K4 or K6 (the C entry
     point `name` of csrc/<what>.cu) on the residuals the forward saved.
-    Returns (dx [F, N] or None, d cond_lin [N_obj, B, W_c], flat weight
-    grads [N_obj * per-object total])."""
+    `gate` = (x rows [N, F] bf16, gate [B] fp32, fill [F] bf16) for K6, whose
+    dx is then always formed. Returns (dx [F, N] or None, d cond_lin
+    [N_obj, B, W_c], flat weight grads [N_obj * per-object total], and for K6
+    (dgate [N] per sample, dfill [F]))."""
     check_bwd_config(config, what)
     x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim = residuals
     dev = x_save.device
@@ -612,8 +628,17 @@ def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_
     n_splits = max(1, -(-n // DW_CHUNK))
     part = torch.empty((n_splits, total), dtype=torch.float32, device=dev)
     flat = torch.empty((total,), dtype=torch.float32, device=dev)
+    need_dx = need_dx or gate is not None
     dx = torch.zeros((in_dim, n), dtype=torch.float32, device=dev) if need_dx else None
     dcond = torch.empty((n_obj, n_rays, config.net_width_condition), dtype=torch.float32, device=dev)
+    gate_ptrs, gate_out = [None] * 6, ()
+    if gate is not None:
+        x_rows, gate_ray, fill_row = gate
+        dgate = torch.empty((n,), dtype=torch.float32, device=dev)
+        dfill_part = torch.empty((in_dim, -(-n // 128)), dtype=torch.float32, device=dev)
+        dfill = torch.empty((in_dim,), dtype=torch.float32, device=dev)
+        gate_ptrs = [t.data_ptr() for t in (x_rows, gate_ray, fill_row, dgate, dfill_part, dfill)]
+        gate_out = (dgate, dfill)
     fn = getattr(build.load(what), name)
     fn.argtypes = BWD_ARGTYPES
     fn.restype = _c.c_int
@@ -629,10 +654,10 @@ def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_
             config.num_rgb_channels, config.num_density_channels,
             build.offsets(w_offs), build.offsets(act_offs), build.offsets(wt_offs),
             build.offsets(wtx_offs), build.offsets(g_offs), len(w_offs),
-            w_stride, act_stride, wt_stride, g_stride, stream_of(dev),
+            w_stride, act_stride, wt_stride, g_stride, *gate_ptrs, stream_of(dev),
         )
     build.check(err, what)
-    return dx, dcond, flat
+    return (dx, dcond, flat) + gate_out
 
 
 def fused_nerf_mlp_bwd(residuals, g_rgb, g_den, weights, config, s_per_ray: int, need_dx=True):
@@ -725,3 +750,208 @@ def fused_nerf_mlp(x, cond, weights, config, s_per_ray: int):
 
 
 fused_nerf_mlp.launches = 0
+
+
+# ---- K5 / K6: the MLP on an input gated in the tile ----
+
+
+def gated_blend(x, gate, fill, s_per_ray: int):
+    """K5's prologue in float32: bf16(g * x' + (1 - g) * fill'), x' and fill'
+    the row-major input x [N, F] and the fill row (F elements) rounded to
+    bf16 (as the JAX package's NerfMLP feeds its gated kernel), g the per-ray
+    gate [B] repeated over the ray's samples. Rounding passes the gradient
+    through unrounded."""
+    g = gate.repeat_interleave(s_per_ray)[:, None]
+    xr, fr = _round(x, torch.bfloat16), _round(fill.reshape(1, -1), torch.bfloat16)
+    return _round(g * xr + (1.0 - g) * fr, torch.bfloat16)
+
+
+def _gated_plain_forward(x, gate, fill, cond_lin, weights, config, s_per_ray: int):
+    rows = cond_lin.repeat_interleave(s_per_ray, dim=0)
+    return split_matmul_forward(
+        config, gated_blend(x, gate, fill, s_per_ray), rows, weights, torch.bfloat16
+    )
+
+
+def fused_nerf_mlp_gated_reference(x, gate, fill, cond, weights, config, s_per_ray: int = 1):
+    """Plain PyTorch version of K5: the split-matmul MLP (bf16 operands,
+    float32 sums) on gated_blend(x, gate, fill).
+
+    x: [N, F] row-major; gate: [B] or [B, 1] per ray; fill: F elements;
+    cond: [B, F_c] per ray, N = B * s_per_ray (s_per_ray = 1: per sample, as
+    the JAX package's function takes them). Returns row-major (rgb
+    [N, C_rgb], density [N, C_den]) float32.
+    """
+    cond_lin = cond_linear(cond, weights[head0_index(config)], config)
+    return _gated_plain_forward(
+        x, gate.reshape(-1), fill, cond_lin, weights, config, s_per_ray
+    )
+
+
+def fused_nerf_mlp_gated_bwd_reference(
+    x, gate, fill, cond_lin, weights, config, s_per_ray: int, g_rgb, g_den
+):
+    """Plain PyTorch version of K6: K2's explicit vjp (split_matmul_backward)
+    on the blended input, then the gate's vjp on the blend's cotangent dxe.
+
+    x: [N, F]; gate: [B]; fill: F elements; cond_lin: [B, W_c]; g_rgb:
+    [N, C_rgb]; g_den: [N, C_den]. Returns (dx [N, F] = g * dxe, dgate [B]
+    = sum over the ray's samples and features of (x' - fill') * dxe, dfill
+    [F] = sum_n (1 - g) * dxe, d cond_lin [B, W_c], weight grads in operand
+    order with zero rows for head_0's condition rows).
+    """
+    b = cond_lin.shape[0]
+    xe = gated_blend(x, gate, fill, s_per_ray)
+    rows = cond_lin.repeat_interleave(s_per_ray, dim=0)
+    dxe, d_rows, grads = split_matmul_backward(config, xe, rows, weights, g_rgb, g_den)
+    g = gate.repeat_interleave(s_per_ray)[:, None]
+    xr, fr = _round(x, torch.bfloat16), _round(fill.reshape(1, -1), torch.bfloat16)
+    dgate = ((xr - fr) * dxe).sum(-1).reshape(b, s_per_ray).sum(1)
+    dfill = ((1.0 - g) * dxe).sum(0)
+    dcond = d_rows.reshape(b, s_per_ray, -1).sum(1)
+    return g * dxe, dgate, dfill, dcond, grads
+
+
+_K5_ARGTYPES = [_P, _P] + _K1_ARGTYPES
+
+
+def _k5_launch(x, gate, fill, cond_lin, weights, config, s_per_ray: int, save: bool):
+    """Launch K5 on x [N, F] (rounded to bf16 here), gate [B] and the fill
+    row. Returns (rgb [N, C_rgb], den [N, C_den], residuals) with residuals
+    = (K2-style residuals of the blended input, (x rows bf16, gate, fill
+    bf16)) when `save`, else None."""
+    n, in_dim = x.shape
+    check_kernel_config(config, in_dim)
+    dev = x.device
+    x_rows = x.detach().to(torch.bfloat16).contiguous()
+    fill_row = fill.detach().reshape(-1).to(torch.bfloat16).contiguous()
+    gate = gate.detach().float().contiguous()
+    check_cuda_operand(gate, "gate", dev, (n // s_per_ray,))
+    check_cuda_operand(cond_lin, "cond_lin", dev, (n // s_per_ray, config.net_width_condition))
+    if fill_row.numel() != in_dim or x_rows.device != dev or fill_row.device != dev:
+        raise ValueError(f"fill must hold {in_dim} values on {dev}")
+    w, b, w_offs, b_offs, w_stride, _ = pack_weights(weights, config, dev)
+    rgb = torch.empty((n, config.num_rgb_channels), dtype=torch.float32, device=dev)
+    den = torch.empty((n, config.num_density_channels), dtype=torch.float32, device=dev)
+    res, ptrs = None, (None, None, None, 0)
+    if save:
+        x_save, act, act_offs, act_stride = save_buffers(config, in_dim, n, 1, dev)
+        res = (
+            (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim),
+            (x_rows, gate, fill_row),
+        )
+        ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs))
+    fn = build.load("fused_mlp_gated").durf_fused_nerf_mlp_gated_fwd
+    fn.argtypes = _K5_ARGTYPES
+    fn.restype = _c.c_int
+    with torch.cuda.device(dev):
+        err = fn(
+            x_rows.data_ptr(), gate.data_ptr(), fill_row.data_ptr(), cond_lin.data_ptr(),
+            w.data_ptr(), b.data_ptr(), rgb.data_ptr(), den.data_ptr(), n, s_per_ray, in_dim,
+            config.net_width, config.net_depth, config.skip_layer,
+            config.net_width_condition, config.net_depth_condition,
+            config.num_rgb_channels, config.num_density_channels,
+            build.offsets(w_offs), build.offsets(b_offs), len(w_offs), *ptrs,
+            stream_of(dev),
+        )
+    build.check(err, "fused_nerf_mlp_gated")
+    fused_nerf_mlp_gated.launches += 1
+    return rgb, den, res
+
+
+def fused_nerf_mlp_gated_bwd(residuals, g_rgb, g_den, weights, config, s_per_ray: int):
+    """K6: the backward of K5 from the residuals its forward saved; g_rgb
+    [N, C_rgb] and g_den [N, C_den] row-major (None: zeros).
+
+    Returns (dx [N, F] float32, a transposed view of the kernel's
+    feature-major rows; dgate [B]; dfill [F]; d cond_lin [B, W_c]; weight
+    grads in operand order)."""
+    mlp_res, gate_res = residuals
+    t = lambda g: None if g is None else g.T  # noqa: E731  the kernel reads [C, N]
+    dx, dcond, flat, dgate, dfill = launch_bwd(
+        "durf_fused_nerf_mlp_gated_bwd", "fused_mlp_gated_bwd", mlp_res, None, t(g_rgb),
+        t(g_den), weights, config, s_per_ray, True, gate=gate_res,
+    )
+    fused_nerf_mlp_gated_bwd.launches += 1
+    n_rays = dcond.shape[1]
+    return (
+        dx.T, dgate.reshape(n_rays, s_per_ray).sum(1), dfill, dcond[0],
+        unpack_grads(flat, weights, config, mlp_res[5], stacked=False),
+    )
+
+
+fused_nerf_mlp_gated_bwd.launches = 0
+
+
+class FusedNerfMlpGatedFn(torch.autograd.Function):
+    """K5 forward and K6 backward as one differentiable op of (x [N, F],
+    gate [B], fill, cond_lin [B, W_c], *weights); the plain versions for
+    CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, gate, fill, cond_lin, config, s_per_ray, *weights):
+        ctx.config, ctx.s_per_ray = config, s_per_ray
+        ctx.save_for_backward(x, gate, fill, cond_lin, *weights)
+        if x.device.type == "cpu":
+            return _gated_plain_forward(x, gate, fill, cond_lin, weights, config, s_per_ray)
+        check_bwd_config(config, "fused_mlp_gated_bwd")
+        rgb, den, ctx.residuals = _k5_launch(
+            x, gate, fill, cond_lin, weights, config, s_per_ray, save=True
+        )
+        return rgb, den
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_den):
+        x, gate, fill, cond_lin, *weights = ctx.saved_tensors
+        config, s = ctx.config, ctx.s_per_ray
+        if x.device.type == "cpu":
+            n = x.shape[0]
+            g_rgb = x.new_zeros((n, config.num_rgb_channels)) if g_rgb is None else g_rgb
+            g_den = x.new_zeros((n, config.num_density_channels)) if g_den is None else g_den
+            dx, dgate, dfill, dcond, grads = fused_nerf_mlp_gated_bwd_reference(
+                x, gate, fill, cond_lin, weights, config, s, g_rgb, g_den
+            )
+        else:
+            residuals = take_residuals(ctx, "fused_nerf_mlp_gated")
+            dx, dgate, dfill, dcond, grads = fused_nerf_mlp_gated_bwd(
+                residuals, g_rgb, g_den, weights, config, s
+            )
+        return (dx, dgate, dfill.reshape(fill.shape), dcond, None, None, *grads)
+
+
+def fused_nerf_mlp_gated(x, gate, fill, cond, weights, config, s_per_ray: int = 1):
+    """K5 forward, differentiable through K6: the MLP on the input gated in
+    the tile, bf16(g * x' + (1 - g) * fill') with x' and fill' rounded to
+    bf16 (see gated_blend). Returns row-major (raw_rgb [N, C_rgb],
+    raw_density [N, C_den]) float32.
+
+    Args:
+      x: [N, F] row-major encoded samples, N = B * s_per_ray.
+      gate: [B] or [B, 1] per-ray gate (0/1 for the scene graph's hit mask).
+      fill: the constant row (F elements) used where the gate is 0.
+      cond: [B, F_c] per-ray encoded view directions.
+      weights: operand list (mlp_params order), float32.
+      config: MLPConfig.
+      s_per_ray: samples per ray; 1 gives the JAX package's per-sample gate
+        and condition.
+    """
+    n, in_dim = x.shape
+    b = cond.shape[0]
+    if n != b * s_per_ray:
+        raise ValueError(f"x has {n} samples, cond has {b} rays x {s_per_ray}")
+    gate = gate.reshape(-1)
+    if gate.shape[0] != b or fill.numel() != in_dim:
+        raise ValueError(f"gate needs {b} values and fill {in_dim}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_nerf_mlp_gated runs on CUDA or CPU tensors, got {x.device}")
+    cond_lin = cond_linear(cond, weights[head0_index(config)], config).contiguous()
+    operands = (x, gate, fill, cond_lin, *weights)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return FusedNerfMlpGatedFn.apply(x, gate, fill, cond_lin, config, s_per_ray, *weights)
+    if x.device.type == "cpu":
+        return _gated_plain_forward(x, gate, fill, cond_lin, weights, config, s_per_ray)
+    rgb, den, _ = _k5_launch(x, gate, fill, cond_lin, weights, config, s_per_ray, save=False)
+    return rgb, den
+
+
+fused_nerf_mlp_gated.launches = 0

@@ -1,18 +1,21 @@
 """Where the time of one render chunk, or of one training step, goes on the
 card.
 
-    python -m durf_tpu_torch.profile [--chunks 3] [--top 25]
+    python -m durf_tpu_torch.profile [--chunks 3] [--top 25] [--no-fused_objects]
     python -m durf_tpu_torch.profile --train [--steps 3] [--top 25]
+        [--obj_capacity 0.0625] [--no-fused_objects]
 
 Render mode renders 8192-ray chunks of the flagship model at the kernel
 operating point (the chip_smoke.py slice: random weights from seed 0, a
 128x128 camera at the origin). Train mode runs the flagship training step of
-`entry.train_entry()` (batch 4096, seed 0) after two warm-up steps. Either
+`entry.train_entry()` (batch 4096, seed 0, bench.py's object-ray compaction
+at --obj_capacity, 0 for none) after two warm-up steps. --no-fused_objects
+takes the per-object route (K1/K2 once per object instead of K3/K4). Either
 runs under torch.profiler, then prints the device-time table by kernel and
 one JSON line: ms per unit (host clock, synchronized), device busy ms per
-unit, the idle share, device ms per unit of each kernel (K1, K3; K2 and K4
-in train mode) and of everything else, and the device operations (kernels,
-copies) per unit. A unit is a chunk or a step.
+unit, the idle share, device ms per unit of each hand-written kernel and of
+everything else, the device operations (kernels, copies) and the host's
+synchronizations with the card per unit. A unit is a chunk or a step.
 """
 
 from __future__ import annotations
@@ -21,14 +24,18 @@ import argparse
 import json
 import time
 
-# Kernel symbols of each hand-written kernel. K2 and K4 run four launches
-# each (the tile kernel, the weight-gradient products, their reduction and
-# the per-ray sums), instantiated with the tag 2 or 4.
+# Kernel symbols of each hand-written kernel. K2, K4 and K6 run four
+# launches each (the tile kernel, the weight-gradient products, their
+# reduction and the per-ray sums; K6 a fifth, the d fill sum), instantiated
+# with the tag 2, 4 or 6.
 GROUPS = (
     ("K1", ("fused_nerf_mlp_fwd_kernel",)),
     ("K3", ("fused_obj_mlp_fwd_kernel",)),
-    ("K2", ("mlp_bwd_kernel<2,", "dw_kernel<2>", "reduce_kernel<2>", "ray_sum_kernel<2>")),
-    ("K4", ("mlp_bwd_kernel<4,", "dw_kernel<4>", "reduce_kernel<4>", "ray_sum_kernel<4>")),
+    ("K5", ("fused_nerf_mlp_gated_fwd_kernel",)),
+) + tuple(
+    (f"K{t}", tuple(f"{k}<{t}" for k in ("mlp_bwd_kernel", "dw_kernel", "reduce_kernel",
+                                          "ray_sum_kernel", "feature_sum_kernel")))
+    for t in (2, 4, 6)
 )
 
 
@@ -45,7 +52,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _render_unit(dev):
+def _render_unit(dev, fused_objects):
     import numpy as np
 
     from durf_tpu_torch.data.synthetic import example_ray_batch
@@ -55,6 +62,7 @@ def _render_unit(dev):
     from durf_tpu_torch.train import make_render_fn
 
     config = kernel_operating_point(flagship_config())
+    config.model.fused_objects = fused_objects
     batch = example_ray_batch(batch_size=config.batch_size)
     model = construct_model(config.model, batch, dev, seed=0)
     render = make_render_fn(model, config, dev)
@@ -69,10 +77,10 @@ def _render_unit(dev):
     return one
 
 
-def _train_unit(dev):
+def _train_unit(dev, obj_capacity, fused_objects):
     from durf_tpu_torch.entry import train_entry
 
-    step_fn, state, batch = train_entry(dev)
+    step_fn, state, batch = train_entry(dev, obj_capacity=obj_capacity, fused_objects=fused_objects)
     box = {"state": state}
 
     def one():
@@ -92,10 +100,17 @@ def main(argv=None) -> None:
     p.add_argument("--chunks", type=int, default=3, help="render chunks profiled")
     p.add_argument("--steps", type=int, default=3, help="training steps profiled")
     p.add_argument("--top", type=int, default=25)
+    p.add_argument("--obj_capacity", type=float, default=0.0625,
+                   help="object-ray compaction fraction of the training step (0: off)")
+    p.add_argument("--fused_objects", action=argparse.BooleanOptionalAction, default=True,
+                   help="objects-in-grid kernels K3/K4 (--no-fused_objects: K1/K2 per object)")
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
-    one = _train_unit(dev) if args.train else _render_unit(dev)
+    if args.train:
+        one = _train_unit(dev, args.obj_capacity, args.fused_objects)
+    else:
+        one = _render_unit(dev, args.fused_objects)
     units = args.steps if args.train else args.chunks
     for _ in range(2):
         one()
@@ -109,14 +124,16 @@ def main(argv=None) -> None:
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=args.top))
 
-    names = ["K1", "K2", "K3", "K4"] if args.train else ["K1", "K3"]
-    groups = {k: 0.0 for k in names + ["other"]}
-    n_device = 0
+    groups = {g: 0.0 for g, _ in GROUPS}
+    groups["other"] = 0.0
+    n_device = n_sync = 0
     for evt in events:
         us = _device_us(evt)
         n_device += evt.count if us > 0 else 0
+        if us == 0 and evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            n_sync += evt.count
         group = next((g for g, keys in GROUPS if any(k in evt.key for k in keys)), "other")
-        groups[group if group in groups else "other"] += us
+        groups[group] += us
     unit = "step" if args.train else "chunk"
     busy_ms = sum(groups.values()) / 1e3 / units
     wall_ms = 1e3 * wall / units
@@ -125,10 +142,15 @@ def main(argv=None) -> None:
             {
                 "device": torch.cuda.get_device_name(0),
                 "mode": "train" if args.train else "render",
+                "obj_capacity": args.obj_capacity if args.train else 0.0,
+                "fused_objects": args.fused_objects,
                 f"ms_per_{unit}": wall_ms,
                 f"device_busy_ms_per_{unit}": busy_ms,
                 "idle_share": 1.0 - busy_ms / wall_ms,
                 f"device_ops_per_{unit}": n_device / units,
+                # Host waits for the card (copies from pageable memory, and
+                # the synchronize that ends the timed window).
+                f"host_syncs_per_{unit}": n_sync / units,
                 f"device_ms_per_{unit}": {k: v / 1e3 / units for k, v in groups.items()},
             }
         )

@@ -9,10 +9,9 @@ log-lerp learning rate lr(count + 1). The schedules run on the host from the
 step count. The step's randomness comes from a `torch.Generator` seeded
 from (seed, step), where the JAX package folds the step into a key.
 
-Not ported yet: the object-centering readout (`centering_loss_mult > 0` is
-refused, and the stats carry no `loss/centering_*` keys), object-ray
-compaction, proposal levels, the occupancy grid, checkpoints and the
-training CLI.
+Not ported yet: proposal levels, the occupancy grid, checkpoints and the
+training CLI, with `resolve_obj_capacity` (the auto-sizing of object-ray
+compaction from scene statistics, which needs the scene data layer).
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ from durf_tpu_torch import mathx
 from durf_tpu_torch.configs import Config
 from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.losses import compute_losses, weight_l2
-from durf_tpu_torch.models.mipnerf import MipNerf
+from durf_tpu_torch.models.mipnerf import MipNerf, obj_capacity_k
 from durf_tpu_torch.rays import Rays
 
 POSE_PARAM = "box_centers"
@@ -177,8 +176,6 @@ def make_grad_fn(model: MipNerf, config: Config, seed: int = 1):
     """fn(step, batch) -> (loss, aux, grads): the loss of the step's
     randomized forward and the raw gradient of every named parameter (zeros
     where the loss does not reach it), before any hygiene."""
-    if config.centering_loss_mult > 0:
-        raise NotImplementedError("the object-centering readout is not ported yet")
     eps_fn, alpha_fn = make_eps_schedule(config), make_alpha_schedule(config)
     dynamic = config.model.dynamics and model.dynamic
     background = background_mode(config)
@@ -261,7 +258,9 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
         }
         for i in range(config.model.num_levels):
             stats[f"train/psnr_level{i}"] = psnrs[i]
-            for k in ("rgb", "depth", "near", "empty", "sky", "distortion", "tv", "obj_rgb"):
+            for k in (
+                "rgb", "depth", "near", "empty", "sky", "distortion", "tv", "centering", "obj_rgb",
+            ):
                 stats[f"loss/{k}_{i}"] = aux[k][i]
             stats[f"pose/offset_{i}"] = aux["offset"][i]
             stats[f"pose/offset_yaw_{i}"] = aux["offset_yaw"][i]
@@ -269,10 +268,31 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
             stats[f"viz/weights_{i}"] = aux["viz_weights"][i]
         stats["loss/box_surface"] = aux["box_surface"]
         if "obj_hit_rays" in aux:
+            # Compaction safety: rays over the obj_ray_capacity budget (> 0
+            # means object content was dropped this batch).
             stats["obj/hit_frac"] = aux["obj_hit_rays"] / config.batch_size
+            if config.model.obj_ray_capacity > 0.0:
+                k = obj_capacity_k(config.batch_size, config.model.obj_ray_capacity)
+                stats["obj/overflow_rays"] = torch.clamp(aux["obj_hit_rays"] - k, min=0.0)
         return state, stats
 
     return train_step
+
+
+def warn_obj_overflow(host_stats: dict, step: int, log_fn=print) -> bool:
+    """Print a warning when a step's obj/overflow_rays is positive: the
+    rays over the compaction budget lost their object contribution
+    (durf_tpu/train.py:481-500). Returns whether it warned."""
+    over = host_stats.get("obj/overflow_rays", 0.0)
+    if over and over > 0:
+        log_fn(
+            f"WARNING step {step}: obj_ray_capacity overflow — {over:.0f} rays "
+            f"over budget lost their object contribution this batch "
+            f"(hit_frac={host_stats.get('obj/hit_frac', float('nan')):.4f}); "
+            f"raise ModelConfig.obj_ray_capacity"
+        )
+        return True
+    return False
 
 
 def make_render_fn(model: MipNerf, config: Config, device="cuda"):

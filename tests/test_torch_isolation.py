@@ -4,8 +4,9 @@
   * the entry points raise when CUDA is asked for and there is no card;
   * a kernel wrapper takes its plain version only for CPU tensors, and its
     launch counter stays 0 there;
-  * configs that ask for unported paths raise NotImplementedError (the
-    randomized forward is ported now; the centering readout is not).
+  * configs that ask for unported paths raise NotImplementedError; the
+    paths ported since (the randomized forward, compaction, the centering
+    readout, the per-object kernel route) are accepted.
 """
 
 import ast
@@ -116,22 +117,32 @@ def test_other_devices_raise_instead_of_falling_back():
     [
         ("use_proposal", True),
         ("grid_sampling", True),
-        ("obj_ray_capacity", 0.25),
+        ("use_viewdirs", False),
         ("diag_covariance", False),
         ("coord_major", False),
         ("remat_mlp", True),
     ],
 )
 def test_unported_paths_raise(field, value):
-    cfg = ModelConfig(**{field: value})
+    cfg = ModelConfig(use_pallas_mlp=True, **{field: value})
     with pytest.raises(NotImplementedError):
         check_supported(cfg)
 
 
+@pytest.mark.parametrize(
+    "field,value",
+    [("obj_ray_capacity", 0.25), ("obj_ray_capacity", -1.0), ("fused_objects", False)],
+)
+def test_lifted_paths_are_supported(field, value):
+    """Object-ray compaction (any capacity; <= 0 means off) and the
+    per-object route with the kernels on are ported."""
+    check_supported(ModelConfig(use_pallas_mlp=True, **{field: value}))
+
+
 def test_randomized_forward_raises():
     """The randomized (training) forward runs, draws from its generator
-    (density noise, jitter, random background) and stays finite; what the
-    training step still lacks, the object-centering readout, raises."""
+    (density noise, jitter, random background) and stays finite; the
+    training step with the object-centering prior on runs too."""
     batch = example_ray_batch(batch_size=4)
     cfg = ModelConfig(
         num_samples=4, max_deg_point=2, deg_view=1, density_noise=1.0,
@@ -153,5 +164,10 @@ def test_randomized_forward_raises():
     from durf_tpu_torch.configs import Config
     from durf_tpu_torch.train import make_grad_fn
 
-    with pytest.raises(NotImplementedError, match="centering"):
-        make_grad_fn(model, Config(model=cfg, centering_loss_mult=0.1))
+    from durf_tpu_torch.train import batch_to
+
+    loss, aux, grads = make_grad_fn(model, Config(model=cfg, centering_loss_mult=0.1))(
+        0, batch_to(batch, "cpu")
+    )
+    assert bool(torch.isfinite(loss)) and len(aux["centering"]) == cfg.num_levels
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())

@@ -219,17 +219,24 @@ def test_dw_jobs_cover_every_gradient_once():
     "what,widths,ok",
     [
         ("fused_mlp_bwd", (256, 128), True),
-        ("fused_mlp_bwd", (128, 128), False),
+        ("fused_mlp_bwd", (128, 256), False),
         ("obj_mlp_bwd", (128, 128), True),
         ("obj_mlp_bwd", (256, 128), False),
+        ("fused_mlp_bwd", (128, 128), True),
+        ("fused_mlp_gated_bwd", (128, 128), True),
+        ("fused_mlp_gated_bwd", (256, 128), False),
     ],
 )
 def test_backward_kernels_take_the_flagship_widths(what, widths, ok):
-    """Each backward kernel is built for one (width, head width): the
-    flagship background MLP (K2) and object MLPs (K4); others raise."""
+    """Each backward kernel is built for the widths of the flagship MLPs
+    that run it: K2 the background MLP and, on the per-object route, the
+    object MLPs; K4 and K6 the object MLPs. Others raise."""
     model = ModelConfig()
-    flagship = {"fused_mlp_bwd": model.mlp, "obj_mlp_bwd": model.box_mlp}[what]
-    assert (flagship.net_width, flagship.net_width_condition) == k1.BWD_WIDTHS[what]
+    flagship = {
+        "fused_mlp_bwd": model.mlp, "obj_mlp_bwd": model.box_mlp, "fused_mlp_gated_bwd": model.box_mlp,
+    }[what]
+    assert (flagship.net_width, flagship.net_width_condition) in k1.BWD_WIDTHS[what]
+    assert (model.box_mlp.net_width, model.box_mlp.net_width_condition) in k1.BWD_WIDTHS[what]
     cfg = MLPConfig(net_width=widths[0], net_width_condition=widths[1])
     if ok:
         k1.check_bwd_config(cfg, what)

@@ -6,7 +6,10 @@ package's MipNerf, on the same example ray batch, compared level by level.
     follow the level-0 weights through the inverse CDF).
 (b) dynamic, bf16 with the fused MLPs on (JAX: Pallas in interpret mode;
     port: the kernels' plain versions on the CPU), recurrent encode: atol
-    2e-2 on every compared output.
+    2e-2 on every compared output; once with the objects-in-grid kernel
+    ("kernels") and once on the per-object route ("per_object",
+    fused_objects=False: K1 once per object on the blended input), which
+    is also held to the fused route within the same tolerance.
 """
 
 import functools
@@ -36,10 +39,11 @@ KEYS = ("rgb", "depth", "acc", "weights", "t_vals")
 def _configs(case):
     jcfg, tcfg = _flagship_config(tiny=True), flagship_config(tiny=True)
     for cfg in (jcfg, tcfg):
-        if case == "kernels":
+        if case in ("kernels", "per_object"):
             cfg.model.compute_dtype = "bfloat16"
             cfg.model.use_pallas_mlp = True
             cfg.model.recurrent_encode = True
+            cfg.model.fused_objects = case == "kernels"
         if case == "static":
             cfg.model.dynamics = False
     return jcfg, tcfg
@@ -101,13 +105,13 @@ def _run_case(name):
     return name, j_out, t_out, (model, variables, t_model, tcfg, tb)
 
 
-@pytest.fixture(scope="module", params=["static", "float32", "kernels"])
+@pytest.fixture(scope="module", params=["static", "float32", "kernels", "per_object"])
 def case(request):
     return _run_case(request.param)
 
 
 def _tol(name, key):
-    if name == "kernels":
+    if name in ("kernels", "per_object"):
         return dict(atol=2e-2, rtol=0.0)
     if key in ("depth", "t_vals"):
         return dict(atol=1e-3, rtol=1e-4)
@@ -134,6 +138,16 @@ def test_scene_graph_outputs_match_jax(case):
     if name != "static":
         assert t_out[-1]["obj_hit_rays"].item() == float(j_out[-1]["obj_hit_rays"])
         assert t_out[-1]["dyn_mask"][0, 0].item() == 2.0  # ray 0 hits both boxes
+
+
+def test_per_object_route_matches_fused_route():
+    """The same bf16 weights through K1 per object and through K3 (their
+    plain versions): every compared output within the kernels' atol 2e-2."""
+    fused, per = _run_case("kernels")[2], _run_case("per_object")[2]
+    for level in (0, 1):
+        for key in KEYS:
+            np.testing.assert_allclose(per[level][key].numpy(), fused[level][key].numpy(),
+                                       atol=2e-2, rtol=0.0, err_msg=f"level {level} {key}")
 
 
 def test_render_image_matches_jax():

@@ -96,7 +96,7 @@ def test_plain_k3_matches_masked_blend_path():
     enc_t, vd_t, hit_t = (torch.from_numpy(a) for a in (enc, vd, hit))
     fill = torch.from_numpy(np.random.default_rng(6).normal(size=(F_IN, 1, 1)).astype(np.float32))
     with torch.no_grad():
-        rgb_o, den_o = mlp.forward_objects(enc_t, vd_t, hit_t.T[..., None], fill)
+        rgb_o, den_o = mlp(enc_t, vd_t, hit_t.T[..., None], fill)
         hit_fm = hit_t.T[:, None, :, None]
         ref_rgb, ref_den = (hit_fm * rgb_o).sum(0), (hit_fm * den_o).sum(0)
         # bf16-rounded condition rows, as obj_mlps_apply feeds the kernel

@@ -116,7 +116,7 @@ def test_step_loss_and_stats_match_jax(steps):
     _, (j_stats, _, _), (t_stats, _, _) = steps
     np.testing.assert_allclose(float(t_stats["train/loss"]), j_stats["train/loss"], rtol=1e-3)
     shared = sorted(set(j_stats) & set(t_stats))
-    assert len(shared) >= 30 and not any(k.startswith("loss/centering") for k in t_stats)
+    assert len(shared) >= 30 and {"loss/centering_0", "loss/centering_1"} <= set(shared)
     for key in shared:
         t_val = np.asarray(torch.as_tensor(t_stats[key]).detach().numpy())
         tol = dict(rtol=2e-2) if key.startswith("train/grad") else dict(rtol=1e-3, atol=1e-5)
