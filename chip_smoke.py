@@ -6,16 +6,22 @@
 Phases (each one fails the run, with a non-zero exit, if it goes wrong):
   1. print the card's name and power limit;
   2. build the CUDA kernels from durf_tpu_torch/csrc/ with nvcc, all
-     sources at once;
-  3. K1 (fused background MLP forward) against its plain PyTorch version
-     at the flagship width, at N = 8192 x 128 and at an N that is not a
-     tile multiple, atol 2e-2 (bf16 operands, float32 sums in another
-     order); times of the kernel and of the plain version, and the bound;
+     sources at once; print ptxas's registers and spills, and how often the
+     K1 and K2 libraries' machine code holds wgmma (HGMMA), TMA (UTMALDG /
+     UTMASTG) and mbarrier (SYNCS) instructions;
+  3. K1 (fused background MLP forward, the wgmma + TMA kernel at the
+     flagship widths) against its plain PyTorch version at N = 8192 x 128
+     (a render chunk) and at an N that is not a tile multiple, atol 2e-2
+     (bf16 operands, float32 sums in another order); timed at the render
+     chunk, and at the training step's shape (N = 4096 x 128) with the
+     residuals saved for K2, against its plain version and its bound (the
+     larger of operations and bytes, the save's bytes counted);
   4. K2 (its backward) against the plain backward at N = 4096 x 128 and
      1000 x 77 on random cotangents: every output (dx, d cond_lin, each
-     weight and bias gradient) finite and within relative L2 2e-2; at
-     4096 x 128 also the whole autograd Function (K1 then K2, with the
-     per-ray condition product) against autograd of the plain forward;
+     weight and bias gradient) finite and within relative L2 2e-2, and two
+     calls on the same inputs bitwise equal; at 4096 x 128 also the whole
+     autograd Function (K1 then K2, with the per-ray condition product)
+     against autograd of the plain forward, and its time and bound;
   5. K3 (objects-in-grid MLP forward) like K1 at N_obj = 2, 4, 8;
   6. K4 (its backward) like K2 at N_obj = 2, 4, 8 (hit density 0.5), and
      its Function against autograd of the plain forward at N_obj = 2;
@@ -158,7 +164,23 @@ def max_err(a, b) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
+def k1_bytes(cfg, f_in, f_c, b, n, params, save: bool) -> float:
+    """Bytes K1 must move: x, the per-ray condition, the weights and the
+    [4, N] outputs, and with `save` the residuals it writes for K2 (the bf16
+    input rows and every stored activation)."""
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+
+    nbytes = 4.0 * (f_in * n + f_c * b + params + 4 * n)
+    if save:
+        _, stride = k1.act_layout(cfg, n)
+        nbytes += 2.0 * (k1.x_cols(cfg, f_in) * n + stride)
+    return nbytes
+
+
 def check_k1(dev, gen):
+    """K1 against its plain version at the render chunk's shape and a ragged
+    one; timed at the render chunk (no save) and at the training step's
+    shape with save, which the kernels line carries."""
     import torch
 
     from durf_tpu_torch.configs import MLPConfig
@@ -182,17 +204,37 @@ def check_k1(dev, gen):
             raise SystemExit(f"K1 disagrees with its plain version: {err} > {TOL}")
         if i == 0:
             ms = time_ms(lambda: k1.fused_nerf_mlp(x, cond, w, cfg, s), iters=10)
-            plain_ms = time_ms(lambda: k1.fused_nerf_mlp_reference(x, cond, w, cfg, s), 3, 1)
             flops = 2.0 * (per_sample * n + per_ray * b)
-            nbytes = 4.0 * (f_in * n + f_c * b + params + 4 * n)
-            bound_ms, bound_by = bound(flops, nbytes)
-            print(
-                f"K1 N={n}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-                f"{per_sample * 2 / 1e6:.4f} MFLOP/sample)"
-            )
-            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms, bound_by = bound(flops, k1_bytes(cfg, f_in, f_c, b, n, params, False))
+            print(f"K1 N={n} (render, no save): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s), bound {bound_ms:.3f} ms ({bound_by})")
         del x, cond, out, ref
+    # The training step's shape, saving the residuals for K2.
+    b, s = BWD_SHAPES[0]
+    n = b * s
+    x = (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)
+    cond = (2 * torch.rand((b, f_c), generator=gen) - 1).to(dev)
+    cond_lin = k1.cond_linear(cond, w[k1.head0_index(cfg)], cfg).contiguous()
+    out = k1._k1_launch(x, cond_lin, w, cfg, s, save=True)
+    torch.cuda.synchronize()
+    ref = k1.fused_nerf_mlp_reference(x, cond, w, cfg, s)
+    err = max_err(out[:2], ref)
+    del out
+    if err > TOL:
+        raise SystemExit(f"K1 with save disagrees with its plain version: {err} > {TOL}")
+    ms = time_ms(lambda: k1._k1_launch(x, cond_lin, w, cfg, s, save=True), iters=10)
+    plain_ms = time_ms(lambda: k1.fused_nerf_mlp_reference(x, cond, w, cfg, s), 3, 1)
+    flops = 2.0 * (per_sample * n + per_ray * b)
+    nbytes = k1_bytes(cfg, f_in, f_c, b, n, params, True)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(
+        f"K1 N={n} (training step, save): max_abs_err {err:.3e}; kernel {ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)"
+    )
+    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    del x, cond, cond_lin, ref
+    torch.cuda.empty_cache()
     return result
 
 
@@ -297,7 +339,13 @@ def check_k2(dev, gen):
         g_den = torch.randn((1, n), generator=gen).to(dev)
         _, _, res = k1._k1_launch(x, cond_lin, w, cfg, s, save=True)
         dx, dcond, grads = k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s)
+        again = k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip([dx, dcond, *grads], [again[0], again[1], *again[2]]))
+        print(f"K2 N={n}: two calls on the same inputs bitwise equal: {same}")
+        if not same:
+            raise SystemExit("K2 is not bitwise reproducible")
+        del again
         ref = k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den)
         err = compare_grads(f"K2 fused_nerf_mlp_bwd N={n} (B={b}, S={s})",
                             [dx, dcond, *grads], [ref[0], ref[1], *ref[2]])
@@ -314,11 +362,15 @@ def check_k2(dev, gen):
                 lambda: k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den), 3, 1
             )
             flops = 4.0 * per_sample * n  # the dX and dW products
-            nbytes = 4.0 * (2 * f_in * n + 2 * cfg.net_width_condition * b + 2 * params + 4 * n)
+            # Read: the residuals K1 saved, the cotangents, the weights;
+            # written: dx, d cond_lin, the gradients.
+            nbytes = k1_bytes(cfg, f_in, 0, 0, n, 0, True) - 4.0 * (f_in + 4) * n
+            nbytes += 4.0 * (f_in * n + 4 * n + cfg.net_width_condition * b + 2 * params)
             bound_ms, bound_by = bound(flops, nbytes)
             print(
                 f"K2 N={n}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
+                f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.3f} "
+                f"TFLOP, {nbytes / 1e9:.3f} GB)"
             )
             result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         del x, cond, cond_lin, g_rgb, g_den, res
@@ -926,8 +978,10 @@ def main(argv=None) -> int:
     for name, (secs, log) in build.build_log.items():
         print(f"  nvcc {name}: {secs:.1f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    for name, counts in build.sass_counts(("fused_mlp", "fused_mlp_bwd")).items():
+        print(f"  sass {name}: {counts}")
 
     gen = torch.Generator().manual_seed(0)
     nums, launches = {}, {}

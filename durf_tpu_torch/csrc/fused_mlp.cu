@@ -6,21 +6,27 @@
 // view-conditioned head, rgb head) on a tile of samples, with activations
 // never leaving the SM.
 //
-// Bound on the H100: operations. At the flagship width (8x256 trunk,
-// F_in 60, head 128) a sample costs 1.18 MFLOP of bf16 products against
-// ~256 bytes of input and output, ~4600 FLOP per byte, far above the card's
+// Bound on the H100: operations when it renders. At the flagship width
+// (8x256 trunk, F_in 60, head 128) a sample costs 1.18 MFLOP of bf16
+// products against ~256 bytes of input and output, far above the card's
 // ~295 FLOP/byte balance point. The design keeps every intermediate in
 // shared memory, so device memory sees only x, the per-ray condition rows,
-// the weights (L2-resident: 1.2 MB) and the [4, N] outputs, and runs every
-// wide layer on the tensor cores (mma.sync, fp32 accumulation); see
-// mlp_tile.cuh. The per-ray condition product viewdirs_enc @
-// head_0_kernel[width:] is hoisted out (one row per ray, not per sample).
+// the weights (L2-resident: 1.2 MB) and the [4, N] outputs. The per-ray
+// condition product viewdirs_enc @ head_0_kernel[width:] is hoisted out (one
+// row per ray, not per sample).
 //
 // Called from the autograd Function's forward (ops/kernels/fused_mlp.py), it
 // also writes the input tile and every stored activation in bf16 to device
-// memory (save_x / save_act), the residuals K2 (fused_mlp_bwd.cu) reads.
+// memory (save_x / save_act), the residuals K2 (fused_mlp_bwd.cu) reads:
+// 2432 columns a sample at the flagship width, so with `save` its bound is
+// the bytes of that save.
+//
+// Two designs: at the flagship widths (256 / 128) wide_mlp_fwd_kernel of
+// mlp_wide.cuh, wgmma products whose weight slices arrive by TMA through an
+// mbarrier ring and whose saved activations leave by TMA stores that overlap
+// the next layer; at other widths the mma.sync tile code of mlp_tile.cuh.
 
-#include "mlp_tile.cuh"
+#include "mlp_wide.cuh"
 
 namespace durf {
 
@@ -64,6 +70,29 @@ static int launch(const float* x, const float* cond, const bf16* w, const float*
   return (int)cudaGetLastError();
 }
 
+// K1 at 256 / 128 (mlp_wide.cuh): the tensor maps and the slice schedule
+// come from the Python side (specs, slices; ops/kernels/hopper_mlp.py).
+static int launch_wide(const float* x, const float* cond, const bf16* w, const float* b, float* rgb,
+                       float* den, bf16* save_x, bf16* save_act, const bf16* wt, long long n,
+                       int s_per_ray, const MlpDesc& d, const long long* specs, int n_specs,
+                       const long long* slices, int n_slices, cudaStream_t stream) {
+  wide::WideDesc wd;
+  wide::fill_desc(wd, d, n, s_per_ray);
+  if (wt == nullptr || wd.xc > 2 || n_slices != wide::fwd_slices(wd)) return -1;
+  wide::Plan plan;
+  const void* bases[5] = {save_x, save_act, nullptr, nullptr, wt};
+  int err = wide::make_plan(plan, specs, n_specs, slices, n_slices, bases);
+  if (err != 0) return err;
+  const size_t smem = wide::fwd_smem(wd);
+  auto kern = wide::wide_mlp_fwd_kernel<1>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long grid = (n + wide::ROWS - 1) / wide::ROWS;
+  kern<<<(unsigned)grid, wide::THREADS_TILE, smem, stream>>>(x, cond, w, b, rgb, den,
+                                                            save_x != nullptr, plan, wd);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace durf
 
 using durf::MlpDesc;
@@ -74,7 +103,9 @@ extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const 
                                        int wc, int depth_cond, int n_rgb, int n_den,
                                        const long long* w_off, const long long* b_off,
                                        int n_layers, void* save_x, void* save_act,
-                                       const long long* act_off, int n_act, void* stream) {
+                                       const long long* act_off, int n_act, const void* wt,
+                                       const long long* specs, int n_specs,
+                                       const long long* slices, int n_slices, void* stream) {
   MlpDesc d;
   if (durf::make_fwd_desc(d, in_dim, width, depth, skip, wc, depth_cond, n_rgb, n_den, w_off, b_off,
                           n_layers, save_act != nullptr, act_off, n_act) != 0)
@@ -84,7 +115,8 @@ extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const 
   auto sa = static_cast<durf::bf16*>(save_act);
   auto s = static_cast<cudaStream_t>(stream);
   if (width == 256 && wc == 128)
-    return durf::launch<8, 4>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
+    return durf::launch_wide(x, cond, wb, b, rgb, den, sx, sa, static_cast<const durf::bf16*>(wt),
+                             n, s_per_ray, d, specs, n_specs, slices, n_slices, s);
   if (width == 256 && wc == 256)
     return durf::launch<8, 8>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
   if (width == 128 && wc == 128)

@@ -2,6 +2,10 @@
 // shared by K2 (fused_mlp_bwd.cu), K4 (obj_mlp_bwd.cu) and K6
 // (fused_mlp_gated_bwd.cu).
 //
+// K2 at the flagship widths (256 / 128) runs the wgmma + TMA kernels of
+// mlp_wide.cuh instead (mlp_bwd_launch hands it over); what follows serves
+// K4, K6 and K2 at 128 / 128.
+//
 // The backward of one MLP on N samples runs as four launches (K6: five):
 //  1. mlp_bwd_kernel: one CTA per 128-sample tile walks the layers in
 //     reverse. The tile's cotangent G_l (bf16 [TILE_M][width] rows in shared
@@ -301,7 +305,7 @@ __global__ void __launch_bounds__(THREADS)
                           s_per_ray);
   }
   // Only K6's instantiation carries the gate epilogue: in K2's and K4's it
-  // would cost registers (the 8x256 tile kernel spills with it).
+  // would cost registers.
   if constexpr (TAG == 6) gate_epilogue(ga, dx, d.in_dim, tile0, n, s_per_ray);
 }
 
@@ -310,13 +314,15 @@ __global__ void __launch_bounds__(THREADS)
 constexpr int DW_TILE = 128;          // output rows (features of A) and columns (of G)
 constexpr int DW_BK = 32;             // samples per pipeline stage
 constexpr int DW_LD = DW_TILE + PAD;  // shared row stride (bf16)
-constexpr int JOB_FIELDS = 11;
+constexpr int JOB_FIELDS = 12;
 
 // One product dW[k][j] = sum_s A[s][k] G[s][j] (+ bias[j] = sum_s G[s][j]),
-// as int64 fields: A address, G address, lda, ldg, k, j, out (offset of
-// dW[0][0] in the flat output, row stride j), bias (offset of bias[0], or
-// -1), first output tile, row tiles, column tiles. A and G are bf16
-// [n][ld] row-major with zeros in columns [k, round8(k)) / [j, round8(j)).
+// as int64 fields (ops/kernels/fused_mlp.py:dw_jobs): A buffer (0 x_save,
+// 1 act), A offset, lda, G offset (in g), ldg (elements from the buffers'
+// bases), k, j, out (offset of dW[0][0] in the flat output, row stride j),
+// bias (offset of bias[0], or -1), first output tile, row tiles, column
+// tiles. A and G are bf16 [n][ld] row-major with zeros in columns
+// [k, round8(k)) / [j, round8(j)).
 __device__ __forceinline__ void dw_load_stage(bf16* dst, const bf16* src, long long ld, int cols,
                                               int c0, long long s0, long long s_end) {
   for (int c = threadIdx.x; c < DW_BK * (DW_TILE / 8); c += THREADS) {
@@ -331,7 +337,8 @@ __device__ __forceinline__ void dw_load_stage(bf16* dst, const bf16* src, long l
 template <int TAG>
 __global__ void __launch_bounds__(THREADS)
     dw_kernel(const long long* __restrict__ jobs, int n_jobs, long long n, long long chunk,
-              float* __restrict__ part, long long total) {
+              float* __restrict__ part, long long total, const bf16* __restrict__ x_save,
+              const bf16* __restrict__ act, const bf16* __restrict__ gbuf) {
   constexpr int STAGE = DW_BK * DW_LD;
   __shared__ __align__(16) unsigned char smem_raw[4 * STAGE * sizeof(bf16)];
   bf16* const as[2] = {reinterpret_cast<bf16*>(smem_raw),
@@ -340,15 +347,15 @@ __global__ void __launch_bounds__(THREADS)
                         reinterpret_cast<bf16*>(smem_raw) + 3 * STAGE};
   const int tile = blockIdx.x;
   int jb = 0;
-  while (jb + 1 < n_jobs && jobs[(jb + 1) * JOB_FIELDS + 8] <= tile) ++jb;
+  while (jb + 1 < n_jobs && jobs[(jb + 1) * JOB_FIELDS + 9] <= tile) ++jb;
   const long long* job = jobs + jb * JOB_FIELDS;
-  const bf16* A = reinterpret_cast<const bf16*>(job[0]);
-  const bf16* G = reinterpret_cast<const bf16*>(job[1]);
-  const long long lda = job[2], ldg = job[3];
-  const int k = (int)job[4], j = (int)job[5];
-  const long long out = job[6], bias = job[7];
-  const int local = tile - (int)job[8];
-  const int tm = local / (int)job[10], tn = local - tm * (int)job[10];
+  const bf16* A = (job[0] == 0 ? x_save : act) + job[1];
+  const bf16* G = gbuf + job[3];
+  const long long lda = job[2], ldg = job[4];
+  const int k = (int)job[5], j = (int)job[6];
+  const long long out = job[7], bias = job[8];
+  const int local = tile - (int)job[9];
+  const int tm = local / (int)job[11], tn = local - tm * (int)job[11];
   const int m0 = tm * DW_TILE, n0 = tn * DW_TILE;
   const int kv = (k + 7) / 8 * 8, jv = (j + 7) / 8 * 8;
   const long long s_begin = (long long)blockIdx.y * chunk;
@@ -478,10 +485,12 @@ struct BwdArgs {
   const bf16* w;     // forward pack (density and rgb heads read from it)
   const bf16* wt;    // transposed pack
   const bf16* act;   // saved activations
+  const bf16* x_save;  // saved input rows
   bf16* g;           // cotangent workspace
   float* dx;         // [in_dim][n] accumulated (zeroed by the caller), or nullptr
   float* dcond;      // [n_obj][n_rays][wc]
-  const long long* jobs;
+  const long long* jobs;       // the dW job table on the device
+  const long long* jobs_host;  // the same in host memory (K2's wide path builds its maps from it)
   int n_jobs, n_tiles, n_splits;
   long long chunk;
   float* part;       // [n_splits][total]
@@ -505,30 +514,55 @@ static int launch_bwd_tiles(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e
   return (int)cudaGetLastError();
 }
 
-// Tile-kernel instantiations at the widths of the flagship MLPs that run
-// each kernel (fused_mlp.BWD_WIDTHS): 128-wide trunk and heads for every
-// kernel (the object MLPs: K4, K6, and K2 on the per-object route), and the
-// 8x256 background MLP for K2 alone. Other widths return -2.
 template <int TAG>
-int mlp_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const GateArgs& ga,
-                   cudaStream_t stream) {
-  if ((ga.gate != nullptr) != (TAG == 6) || (TAG == 6 && a.dx == nullptr)) return -1;
-  int err = -2;
-  if constexpr (TAG == 2) {
-    if (d.width == 256 && d.wc == 128) err = launch_bwd_tiles<TAG, 8, 4>(a, d, e, ga, stream);
-  }
-  if (d.width == 128 && d.wc == 128) err = launch_bwd_tiles<TAG, 4, 4>(a, d, e, ga, stream);
-  if (err != 0) return err;
-  dw_kernel<TAG><<<dim3((unsigned)a.n_tiles, (unsigned)a.n_splits), THREADS, 0, stream>>>(
-      a.jobs, a.n_jobs, a.n, a.chunk, a.part, a.total);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
+int launch_reduce(const BwdArgs& a, cudaStream_t stream) {
   long long blocks = (a.total + THREADS - 1) / THREADS;
   if (blocks > 4096) blocks = 4096;
   reduce_kernel<TAG><<<(unsigned)blocks, THREADS, 0, stream>>>(a.part, a.n_splits, a.total, a.dw);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
+  return (int)cudaGetLastError();
+}
+
+template <int TAG>
+int launch_ray_sum(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, cudaStream_t stream) {
   ray_sum_kernel<TAG><<<dim3((unsigned)a.n_rays, (unsigned)a.n_obj), d.wc, 0, stream>>>(
       a.g, e.g_obj_stride, e.g_off[d.depth + 2], d.wc, a.s_per_ray, a.n_rays, a.dcond);
+  return (int)cudaGetLastError();
+}
+
+// K2 at the flagship background widths (256 / 128) runs the wgmma + TMA
+// kernels of mlp_wide.cuh: fused_mlp_bwd.cu specialises this for TAG 2 with
+// the producer's schedule (specs, slices) the Python side built.
+struct WideArgs {
+  const long long* specs;
+  int n_specs;
+  const long long* slices;
+  int n_slices;
+};
+template <int TAG>
+int wide_bwd_launch(const BwdArgs&, const MlpDesc&, const BwdDesc&, const WideArgs&, cudaStream_t) {
+  return -2;
+}
+
+// Tile-kernel instantiations at the widths of the flagship MLPs that run
+// each kernel (fused_mlp.BWD_WIDTHS): 128-wide trunk and heads for every
+// kernel (the object MLPs: K4, K6, and K2 on the per-object route); K2 at
+// 256 / 128 goes to wide_bwd_launch. Other widths return -2.
+template <int TAG>
+int mlp_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const GateArgs& ga,
+                   const WideArgs& wa, cudaStream_t stream) {
+  if ((ga.gate != nullptr) != (TAG == 6) || (TAG == 6 && a.dx == nullptr)) return -1;
+  if (TAG == 2 && d.width == 256 && d.wc == 128 && a.n_obj == 1)
+    return wide_bwd_launch<TAG>(a, d, e, wa, stream);
+  if (d.width != 128 || d.wc != 128) return -2;
+  int err = launch_bwd_tiles<TAG, 4, 4>(a, d, e, ga, stream);
+  if (err != 0) return err;
+  dw_kernel<TAG><<<dim3((unsigned)a.n_tiles, (unsigned)a.n_splits), THREADS, 0, stream>>>(
+      a.jobs, a.n_jobs, a.n, a.chunk, a.part, a.total, a.x_save, a.act, a.g);
   if ((err = (int)cudaGetLastError()) != 0) return err;
+  err = launch_reduce<TAG>(a, stream);
+  if (err != 0) return err;
+  err = launch_ray_sum<TAG>(a, d, e, stream);
+  if (err != 0) return err;
   if constexpr (TAG == 6) {
     const int tiles = (int)((a.n + TILE_M - 1) / TILE_M);
     feature_sum_kernel<TAG><<<(unsigned)d.in_dim, THREADS, 0, stream>>>(ga.dfill_part, tiles, ga.dfill);
@@ -578,14 +612,16 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
 #define DURF_DEFINE_BWD_ENTRY(NAME, TAG)                                                         \
   extern "C" int NAME(                                                                           \
       const float* g_rgb, const float* g_den, const float* hit, long long n_rays, const void* w, \
-      const void* wt, const void* act, void* g, float* dx, float* dcond, const long long* jobs,  \
-      int n_jobs, int n_tiles, int n_splits, long long chunk, float* part, float* dw,            \
+      const void* wt, const void* act, const void* x_save, void* g, float* dx, float* dcond,     \
+      const long long* jobs, const long long* jobs_host, int n_jobs, int n_tiles, int n_splits,  \
+      long long chunk, float* part, float* dw,                                                   \
       long long total, long long n, int s_per_ray, int n_obj, int in_dim, int width, int depth,  \
       int skip, int wc, int depth_cond, int n_rgb, int n_den, const long long* w_off,            \
       const long long* act_off, const long long* wt_off, const long long* wtx_off,               \
       const long long* g_off, int n_layers, long long w_obj_stride, long long act_obj_stride,    \
       long long wt_obj_stride, long long g_obj_stride, const void* gx, const float* gate,        \
-      const void* gfill, float* dgate, float* dfill_part, float* dfill, void* stream) {          \
+      const void* gfill, float* dgate, float* dfill_part, float* dfill, const long long* specs,  \
+      int n_specs, const long long* slices, int n_slices, void* stream) {                        \
     durf::MlpDesc d;                                                                             \
     durf::BwdDesc e;                                                                             \
     int err = durf::make_bwd_descs(d, e, in_dim, width, depth, skip, wc, depth_cond, n_rgb,      \
@@ -599,10 +635,12 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
                     static_cast<const durf::bf16*>(w),                                           \
                     static_cast<const durf::bf16*>(wt),                                          \
                     static_cast<const durf::bf16*>(act),                                         \
+                    static_cast<const durf::bf16*>(x_save),                                      \
                     static_cast<durf::bf16*>(g),                                                 \
                     dx,                                                                          \
                     dcond,                                                                       \
                     jobs,                                                                        \
+                    jobs_host,                                                                   \
                     n_jobs,                                                                      \
                     n_tiles,                                                                     \
                     n_splits,                                                                    \
@@ -615,5 +653,6 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
                     n_obj};                                                                      \
     durf::GateArgs ga{static_cast<const durf::bf16*>(gx), gate,                                  \
                       static_cast<const durf::bf16*>(gfill), dgate, dfill_part, dfill};          \
-    return durf::mlp_bwd_launch<TAG>(a, d, e, ga, static_cast<cudaStream_t>(stream));            \
+    durf::WideArgs wa{specs, n_specs, slices, n_slices};                                         \
+    return durf::mlp_bwd_launch<TAG>(a, d, e, ga, wa, static_cast<cudaStream_t>(stream));        \
   }

@@ -14,7 +14,8 @@
 //
 // Warp layout: 8 warps as 2 (rows) x 4 (columns); a warp owns 64 rows and
 // N/4 columns of a layer's output, i.e. 4 x NT m16n8 accumulator tiles with
-// NT = N / 32. Widths 128 and 256 are instantiated.
+// NT = N / 32. Widths 128 and 256 are instantiated (K1 at 256 / 128 runs
+// the wgmma + TMA kernel of mlp_wide.cuh instead).
 
 #pragma once
 

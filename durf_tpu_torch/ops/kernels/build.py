@@ -101,6 +101,22 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def sass_counts(names, opcodes=("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "HMMA")) -> dict:
+    """How often each opcode occurs in the built libraries' machine code
+    (cuobjdump -sass): wgmma shows as HGMMA, TMA loads and stores as
+    UTMALDG / UTMASTG, mbarrier waits as SYNCS, mma.sync as HMMA. Empty where
+    the toolkit has no cuobjdump."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    out = {}
+    for name in names:
+        sass = subprocess.run([str(tool), "-sass", str(_lib_path(name))], capture_output=True,
+                              text=True, timeout=300).stdout
+        out[name] = {op: sum(line.count(op) for line in sass.splitlines()) for op in opcodes}
+    return out
+
+
 def offsets(values) -> ctypes.Array:
     """A C array of int64 (layer offsets handed to a launcher)."""
     return (ctypes.c_longlong * len(values))(*values)

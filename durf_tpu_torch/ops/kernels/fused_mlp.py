@@ -8,9 +8,12 @@ C++ for sm_90a built by `build.py`. They replace durf_tpu/ops/pallas/
 fused_mlp.py:fused_nerf_mlp (the `_fused_forward` pallas_call and its
 custom-vjp backward `_fused_bwd`). Bound on the H100: operations, 1.18 MFLOP
 of bf16 products per sample forward and twice that backward at the flagship
-width (8x256 trunk, head 128), so the forward keeps the tile's activations
-in shared memory through all layers and runs the wide layers on the tensor
-cores with fp32 accumulation (see csrc/mlp_tile.cuh, csrc/mlp_bwd.cuh).
+width (8x256 trunk, head 128); when training, the bytes of the saved
+activations and cotangents. The forward keeps the tile's activations in
+shared memory through all layers and runs the wide layers on the tensor
+cores with fp32 accumulation. At the flagship widths both are wgmma + TMA
+kernels (csrc/mlp_wide.cuh; their maps and schedules in hopper_mlp.py), at
+other widths mma.sync kernels (csrc/mlp_tile.cuh, csrc/mlp_bwd.cuh).
 
 Layouts: x arrives feature-major [F, N] in float32, the coordinate-major
 encode's native layout (N = rays x samples, ray-major); outputs are
@@ -35,17 +38,19 @@ g and one fill row; K6 adds dgate and dfill to K2's outputs.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from durf_tpu_torch.ops.kernels import build
+from durf_tpu_torch.ops.kernels import build, hopper_mlp
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 _KERNEL_WIDTHS = (128, 256)
 HEAD_COLS = 8  # padded width of the density / rgb head cotangent rows
-DW_TILE = 128  # output tile of the weight-gradient kernel (csrc/mlp_bwd.cuh)
+DW_TILE = 128  # output rows (and columns, below 256 / 128) of a weight-gradient tile
+WIDE_DW_COLS = 256  # output columns of a tile of the wide dW kernel (csrc/mlp_wide.cuh)
 DW_CHUNK = 16384  # samples per split of the weight-gradient reduction
-JOB_FIELDS = 11
+JOB_FIELDS = 12
 
 
 def layer_dims(config, in_dim: int) -> list:
@@ -393,11 +398,17 @@ def g_widths(config) -> list:
 
 def g_layout(config, n: int):
     """Offsets of G_l [n, g_widths[l]] (bf16 elements) and the per-object
-    stride of the cotangent workspace."""
-    offs, o = [], 0
-    for gw in g_widths(config):
-        offs.append(o)
-        o += gw * n
+    stride of the cotangent workspace. The segments lie in the order trunk,
+    bottleneck, heads, density, rgb, so that the trunk and bottleneck ones,
+    and the head ones, follow each other at a fixed stride (one tensor map
+    each in the wide K2)."""
+    d, dc = config.net_depth, config.net_depth_condition
+    widths = g_widths(config)
+    order = list(range(d)) + [d + 1] + [d + 2 + i for i in range(dc)] + [d, d + 2 + dc]
+    offs, o = [0] * len(widths), 0
+    for l in order:
+        offs[l] = o
+        o += widths[l] * n
     return offs, o
 
 
@@ -417,44 +428,86 @@ def grad_layout(config, in_dim: int):
     return out, o
 
 
-def dw_jobs(config, in_dim, n_obj, x_save, act, act_offs, act_stride, g, g_offs, g_stride, device):
-    """The weight-gradient products as the dW kernel's job table (int64
-    [n_jobs, JOB_FIELDS] on `device`, fields in csrc/mlp_bwd.cuh) and the
-    number of output tiles. Each job is dW = A^T G over all samples, A a
-    saved activation (or the saved input), G a cotangent workspace block."""
+def dw_jobs(config, in_dim, n_obj, act_offs, act_stride, g_offs, g_stride, x_cols,
+            tile_cols=DW_TILE):
+    """The weight-gradient products as the dW kernels' job table (int64
+    rows of JOB_FIELDS, fields in csrc/mlp_bwd.cuh) and the number of output
+    tiles (DW_TILE rows x tile_cols columns). Each job is dW = A^T G over all
+    samples, A a saved activation (or the saved input, x_cols wide), G a
+    cotangent workspace block; both are given by element offsets from their
+    buffers' bases, so the table holds no address."""
     w, wc = config.net_width, config.net_width_condition
-    d, dc = config.net_depth, config.net_depth_condition
-    in_pad = -(-in_dim // 32) * 32
+    d = config.net_depth
     layout, per_obj = grad_layout(config, in_dim)
     gws = g_widths(config)
-    a_ptr = lambda o, seg: act.data_ptr() + 2 * (o * act_stride + act_offs[seg])  # noqa: E731
-    g_ptr = lambda o, l: g.data_ptr() + 2 * (o * g_stride + g_offs[l])  # noqa: E731
     rows, tiles = [], 0
 
-    def job(a, lda, k, gp, ldg, j, out, bias):
+    def job(a_buf, a_off, lda, k, g_off, ldg, j, out, bias):
         nonlocal tiles
-        mt, nt = -(-k // DW_TILE), -(-j // DW_TILE)
-        rows.append([a, gp, lda, ldg, k, j, out, bias, tiles, mt, nt])
+        mt, nt = -(-k // DW_TILE), -(-j // tile_cols)
+        rows.append([a_buf, a_off, lda, g_off, ldg, k, j, out, bias, tiles, mt, nt])
         tiles += mt * nt
 
     for o in range(n_obj):
         base = o * per_obj
+        act = lambda seg: o * act_stride + act_offs[seg]  # noqa: E731, B023
         for l, (off, k, j) in enumerate(layout):
             out, bias = base + off, base + off + k * j
-            gp, ldg = g_ptr(o, l), gws[l]
+            g_off, ldg = o * g_stride + g_offs[l], gws[l]
             if l == 0:
-                job(x_save.data_ptr(), in_pad, in_dim, gp, ldg, j, out, bias)
+                job(0, 0, x_cols, in_dim, g_off, ldg, j, out, bias)
             elif l < d:
-                job(a_ptr(o, l - 1), w, w, gp, ldg, j, out, bias)
+                job(1, act(l - 1), w, w, g_off, ldg, j, out, bias)
                 if reads_x(config, l):
-                    job(x_save.data_ptr(), in_pad, in_dim, gp, ldg, j, out + w * j, -1)
+                    job(0, 0, x_cols, in_dim, g_off, ldg, j, out + w * j, -1)
             elif l in (d, d + 1):  # density head, bottleneck: A = trunk_{d-1}
-                job(a_ptr(o, d - 1), w, w, gp, ldg, j, out, bias)
+                job(1, act(d - 1), w, w, g_off, ldg, j, out, bias)
             elif l == d + 2:  # head_0: A = bottleneck
-                job(a_ptr(o, d), w, w, gp, ldg, j, out, bias)
+                job(1, act(d), w, w, g_off, ldg, j, out, bias)
             else:  # head_i (i >= 1) and rgb: A = head_{i-1}
-                job(a_ptr(o, l - 2), wc, wc, gp, ldg, j, out, bias)
-    return torch.tensor(rows, dtype=torch.int64).to(device), tiles
+                job(1, act(l - 2), wc, wc, g_off, ldg, j, out, bias)
+    return rows, tiles
+
+
+@functools.lru_cache(maxsize=32)
+def _job_table(config, in_dim, n, n_obj, device):
+    act_offs, act_stride = act_layout(config, n)
+    g_offs, g_stride = g_layout(config, n)
+    wide = hopper_mlp.is_wide(config) and n_obj == 1
+    rows, tiles = dw_jobs(config, in_dim, n_obj, act_offs, act_stride, g_offs, g_stride,
+                          x_cols(config, in_dim), WIDE_DW_COLS if wide else DW_TILE)
+    host = torch.tensor(rows, dtype=torch.int64)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True), host, tiles
+
+
+@functools.lru_cache(maxsize=64)
+def wide_dw_chunk(n: int, tiles: int, sms: int) -> int:
+    """Samples per split of the wide dW kernel, which launches tiles x splits
+    blocks, one per SM at a time: the split count whose blocks fill their
+    last wave best, among those giving 2 to 8 waves (within 1%: fewer blocks).
+    A multiple of its 64-sample stages."""
+    best = None
+    for s in range(1, 1025):
+        chunk = -(-n // s)
+        chunk = -(-chunk // 64) * 64
+        blocks = -(-n // chunk) * tiles
+        if not 2 * sms <= blocks <= 8 * sms:
+            continue
+        fill = blocks / (-(-blocks // sms) * sms)
+        if best is None or fill > best[0] + 0.01:
+            best = (fill, chunk)
+    return best[1] if best is not None else max(64, -(-n // 64) * 64)
+
+
+def job_table(config, in_dim: int, n: int, n_obj: int, device):
+    """The dW job table of one backward shape: (on `device`, in host memory
+    (pinned for a CUDA device), tiles). Built once per (config, in_dim, n,
+    n_obj) and kept; the copy to the card is asynchronous, so a launch
+    makes no host sync."""
+    device = torch.device(device)
+    return _job_table(hopper_mlp.Keyed(config), in_dim, n, n_obj, device)
 
 
 def unpack_grads(flat, weights, config, in_dim: int, stacked: bool):
@@ -476,7 +529,11 @@ def unpack_grads(flat, weights, config, in_dim: int, stacked: bool):
 
 def kernel_smem_bytes(config, in_dim: int) -> int:
     """Shared memory of one forward CTA (mirrors smem_bytes in
-    csrc/mlp_tile.cuh); the backward CTA needs less (no input tile)."""
+    csrc/mlp_tile.cuh, fwd_smem in csrc/mlp_wide.cuh); the backward CTA of
+    the mma.sync kernels needs less (no input tile), the wide one 230 KB."""
+    if hopper_mlp.is_wide(config):
+        xc = hopper_mlp.x_chunks(in_dim)
+        return 1024 + 128 * 256 * 2 + xc * 128 * 128 + 4 * hopper_mlp.SLICE_BYTES + 64
     in_pad = (in_dim + 31) // 32 * 32
     hmax = max(config.net_width, config.net_width_condition)
     return 2 * (128 * (in_pad + 8) + 128 * (hmax + 8) + 2 * 32 * (hmax + 8))
@@ -497,6 +554,13 @@ def check_kernel_config(config, in_dim: int) -> None:
         raise ValueError("the fused MLP kernels take at most 4 rgb and 4 density channels")
     if config.net_depth + config.net_depth_condition + 3 > 24:
         raise ValueError("the fused MLP kernels take at most 24 layers")
+    if hopper_mlp.is_wide(config) and (
+        hopper_mlp.x_chunks(in_dim) > hopper_mlp.MAX_X_CHUNKS or config.net_depth_condition > 2
+    ):
+        raise ValueError(
+            "the wide MLP kernels take in_dim <= 128 and net_depth_condition <= 2; got "
+            f"{in_dim} and {config.net_depth_condition}"
+        )
     if kernel_smem_bytes(config, in_dim) > SMEM_LIMIT:
         raise ValueError(f"in_dim {in_dim} needs more shared memory than a block has")
 
@@ -537,12 +601,18 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def x_cols(config, in_dim: int) -> int:
+    """Columns of the saved input rows: in_dim rounded up to the wide
+    kernels' 64-column boxes, or to the mma.sync kernels' 32-row slices."""
+    step = hopper_mlp.BOX if hopper_mlp.is_wide(config) else 32
+    return -(-in_dim // step) * step
+
+
 def save_buffers(config, in_dim: int, n: int, n_obj: int, device):
-    """(x_save [n, in_pad] bf16, act [n_obj * stride] bf16, act offsets,
+    """(x_save [n, x_cols] bf16, act [n_obj * stride] bf16, act offsets,
     stride): the residuals the forward kernels write for the backward."""
-    in_pad = -(-in_dim // 32) * 32
     offs, stride = act_layout(config, n)
-    x_save = torch.empty((n, in_pad), dtype=torch.bfloat16, device=device)
+    x_save = torch.empty((n, x_cols(config, in_dim)), dtype=torch.bfloat16, device=device)
     act = torch.empty((n_obj * stride,), dtype=torch.bfloat16, device=device)
     return x_save, act, offs, stride
 
@@ -550,12 +620,17 @@ def save_buffers(config, in_dim: int, n: int, n_obj: int, device):
 _c = ctypes
 _P, _I, _L = _c.c_void_p, _c.c_int, _c.c_longlong
 _OFFS = _c.POINTER(_c.c_longlong)
-_K1_ARGTYPES = [_P] * 6 + [_L] + [_I] * 9 + [_OFFS, _OFFS, _I, _P, _P, _OFFS, _I, _P]
+# The forward entry points' shared arguments (K5 prefixes its gate, K1
+# appends the wide kernel's transposed pack and plan); the last is the stream.
+_FWD_ARGTYPES = [_P] * 6 + [_L] + [_I] * 9 + [_OFFS, _OFFS, _I, _P, _P, _OFFS, _I, _P]
+_PLAN_ARGTYPES = [_OFFS, _I, _OFFS, _I]
+_K1_ARGTYPES = _FWD_ARGTYPES[:-1] + [_P] + _PLAN_ARGTYPES + [_P]
 # The K2 / K4 / K6 entry point (DURF_DEFINE_BWD_ENTRY in csrc/mlp_bwd.cuh).
 BWD_ARGTYPES = (
-    [_P, _P, _P, _L] + [_P] * 7 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 10
-    + [_OFFS] * 5 + [_I, _L, _L, _L, _L] + [_P] * 7
+    [_P, _P, _P, _L] + [_P] * 9 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 10
+    + [_OFFS] * 5 + [_I, _L, _L, _L, _L] + [_P] * 6 + _PLAN_ARGTYPES + [_P]
 )
+_NO_PLAN = (None, 0, None, 0)
 
 
 def _k1_function():
@@ -577,10 +652,15 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
     rgb = torch.empty((config.num_rgb_channels, n), dtype=torch.float32, device=x.device)
     den = torch.empty((config.num_density_channels, n), dtype=torch.float32, device=x.device)
     res, ptrs = None, (None, None, None, 0)
+    act_offs, _ = act_layout(config, n)
     if save:
         x_save, act, act_offs, act_stride = save_buffers(config, in_dim, n, 1, x.device)
         res = (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim)
         ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs))
+    wt, plan = None, _NO_PLAN
+    if hopper_mlp.is_wide(config):  # B of the wgmma products: the transposed pack
+        wt, wt_offs, wtx_offs, _ = pack_weights_t(weights, config, in_dim, x.device)
+        plan = hopper_mlp.c_plan("fwd", config, in_dim, n, (wt_offs, wtx_offs, act_offs))
     fn = _k1_function()
     with torch.cuda.device(x.device):
         err = fn(
@@ -590,7 +670,7 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
             config.net_width_condition, config.net_depth_condition,
             config.num_rgb_channels, config.num_density_channels,
             build.offsets(w_offs), build.offsets(b_offs), len(w_offs), *ptrs,
-            stream_of(x.device),
+            None if wt is None else wt.data_ptr(), *plan, stream_of(x.device),
         )
     build.check(err, "fused_nerf_mlp")
     fused_nerf_mlp.launches += 1
@@ -617,18 +697,25 @@ def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_
         (config.num_density_channels, n), dtype=torch.float32, device=dev)
     check_cuda_operand(g_rgb, "g_rgb", dev, (config.num_rgb_channels, n))
     check_cuda_operand(g_den, "g_den", dev, (config.num_density_channels, n))
-    wt, wt_offs, wtx_offs, wt_stride = pack_weights_t(weights, config, in_dim, dev)
+    need_dx = need_dx or gate is not None
     g_offs, g_stride = g_layout(config, n)
+    wide = what == "fused_mlp_bwd" and hopper_mlp.is_wide(config) and n_obj == 1
+    if wide:  # B of the wgmma products is the forward pack: no transposed pack
+        wt, wt_offs, wtx_offs, wt_stride = None, [-1] * len(w_offs), [-1] * len(w_offs), 0
+        plan = hopper_mlp.c_plan("bwd", config, in_dim, n, (w_offs, act_offs, g_offs), need_dx)
+    else:
+        wt, wt_offs, wtx_offs, wt_stride = pack_weights_t(weights, config, in_dim, dev)
+        plan = _NO_PLAN
     g = torch.empty((n_obj * g_stride,), dtype=torch.bfloat16, device=dev)
-    jobs, n_tiles = dw_jobs(
-        config, in_dim, n_obj, x_save, act, act_offs, act_stride, g, g_offs, g_stride, dev
-    )
+    jobs, jobs_host, n_tiles = job_table(config, in_dim, n, n_obj, dev)
     _, per_obj = grad_layout(config, in_dim)
     total = n_obj * per_obj
-    n_splits = max(1, -(-n // DW_CHUNK))
+    chunk = DW_CHUNK
+    if wide:
+        chunk = wide_dw_chunk(n, n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_splits = max(1, -(-n // chunk))
     part = torch.empty((n_splits, total), dtype=torch.float32, device=dev)
     flat = torch.empty((total,), dtype=torch.float32, device=dev)
-    need_dx = need_dx or gate is not None
     dx = torch.zeros((in_dim, n), dtype=torch.float32, device=dev) if need_dx else None
     dcond = torch.empty((n_obj, n_rays, config.net_width_condition), dtype=torch.float32, device=dev)
     gate_ptrs, gate_out = [None] * 6, ()
@@ -645,16 +732,17 @@ def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_
     with torch.cuda.device(dev):
         err = fn(
             g_rgb.data_ptr(), g_den.data_ptr(), None if hit is None else hit.data_ptr(), n_rays,
-            w.data_ptr(), wt.data_ptr(), act.data_ptr(), g.data_ptr(),
-            None if dx is None else dx.data_ptr(), dcond.data_ptr(),
-            jobs.data_ptr(), jobs.shape[0], n_tiles, n_splits, DW_CHUNK,
+            w.data_ptr(), None if wt is None else wt.data_ptr(), act.data_ptr(),
+            x_save.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
+            dcond.data_ptr(), jobs.data_ptr(), jobs_host.data_ptr() if wide else None,
+            jobs.shape[0], n_tiles, n_splits, chunk,
             part.data_ptr(), flat.data_ptr(), total, n, s_per_ray, n_obj, in_dim,
             config.net_width, config.net_depth, config.skip_layer,
             config.net_width_condition, config.net_depth_condition,
             config.num_rgb_channels, config.num_density_channels,
             build.offsets(w_offs), build.offsets(act_offs), build.offsets(wt_offs),
             build.offsets(wtx_offs), build.offsets(g_offs), len(w_offs),
-            w_stride, act_stride, wt_stride, g_stride, *gate_ptrs, stream_of(dev),
+            w_stride, act_stride, wt_stride, g_stride, *gate_ptrs, *plan, stream_of(dev),
         )
     build.check(err, what)
     return (dx, dcond, flat) + gate_out
@@ -812,7 +900,7 @@ def fused_nerf_mlp_gated_bwd_reference(
     return g * dxe, dgate, dfill, dcond, grads
 
 
-_K5_ARGTYPES = [_P, _P] + _K1_ARGTYPES
+_K5_ARGTYPES = [_P, _P] + _FWD_ARGTYPES
 
 
 def _k5_launch(x, gate, fill, cond_lin, weights, config, s_per_ray: int, save: bool):

@@ -14,8 +14,10 @@ takes the per-object route (K1/K2 once per object instead of K3/K4). Either
 runs under torch.profiler, then prints the device-time table by kernel and
 one JSON line: ms per unit (host clock, synchronized), device busy ms per
 unit, the idle share, device ms per unit of each hand-written kernel and of
-everything else, the device operations (kernels, copies) and the host's
-synchronizations with the card per unit. A unit is a chunk or a step.
+everything else, K2's device ms split by its launches (tile kernel, weight
+gradients, their reduction, the per-ray sums), the device operations
+(kernels, copies) and the host's synchronizations with the card per unit. A
+unit is a chunk or a step.
 """
 
 from __future__ import annotations
@@ -27,15 +29,22 @@ import time
 # Kernel symbols of each hand-written kernel. K2, K4 and K6 run four
 # launches each (the tile kernel, the weight-gradient products, their
 # reduction and the per-ray sums; K6 a fifth, the d fill sum), instantiated
-# with the tag 2, 4 or 6.
+# with the tag 2, 4 or 6; K1 and K2 at the flagship widths run the wide_*
+# kernels (csrc/mlp_wide.cuh), whose names contain the others'.
 GROUPS = (
-    ("K1", ("fused_nerf_mlp_fwd_kernel",)),
+    ("K1", ("fused_nerf_mlp_fwd_kernel", "wide_mlp_fwd_kernel<1>")),
     ("K3", ("fused_obj_mlp_fwd_kernel",)),
     ("K5", ("fused_nerf_mlp_gated_fwd_kernel",)),
 ) + tuple(
     (f"K{t}", tuple(f"{k}<{t}" for k in ("mlp_bwd_kernel", "dw_kernel", "reduce_kernel",
                                           "ray_sum_kernel", "feature_sum_kernel")))
     for t in (2, 4, 6)
+)
+K2_PARTS = (
+    ("tile", "mlp_bwd_kernel<2"),
+    ("dW", "dw_kernel<2"),
+    ("reduce", "reduce_kernel<2"),
+    ("ray_sums", "ray_sum_kernel<2"),
 )
 
 
@@ -126,6 +135,7 @@ def main(argv=None) -> None:
 
     groups = {g: 0.0 for g, _ in GROUPS}
     groups["other"] = 0.0
+    k2_parts = {p: 0.0 for p, _ in K2_PARTS}
     n_device = n_sync = 0
     for evt in events:
         us = _device_us(evt)
@@ -134,6 +144,9 @@ def main(argv=None) -> None:
             n_sync += evt.count
         group = next((g for g, keys in GROUPS if any(k in evt.key for k in keys)), "other")
         groups[group] += us
+        part = next((p for p, key in K2_PARTS if key in evt.key), None)
+        if part is not None:
+            k2_parts[part] += us
     unit = "step" if args.train else "chunk"
     busy_ms = sum(groups.values()) / 1e3 / units
     wall_ms = 1e3 * wall / units
@@ -152,6 +165,7 @@ def main(argv=None) -> None:
                 # the synchronize that ends the timed window).
                 f"host_syncs_per_{unit}": n_sync / units,
                 f"device_ms_per_{unit}": {k: v / 1e3 / units for k, v in groups.items()},
+                f"k2_device_ms_per_{unit}": {k: v / 1e3 / units for k, v in k2_parts.items()},
             }
         )
     )

@@ -5,7 +5,7 @@ address is built in Python: the saved-activation segments, the transposed
 weight pack, the cotangent workspace, the weight-gradient job table and the
 flat gradient layout. These tests replay the kernels' dataflow step by step
 in PyTorch (the tile kernel's reverse walk, the dW jobs read through the
-addresses of the job table, the per-ray sums) on exactly those buffers, and
+offsets of the job table, the per-ray sums) on exactly those buffers, and
 hold the result against the plain backward. Same rounding points on both
 sides; the tolerance (relative L2 1e-3) covers float32 sums in another order
 landing on the other side of a bf16 rounding boundary.
@@ -29,20 +29,10 @@ def _bf(t):
     return t.to(torch.bfloat16).float()
 
 
-class _Memory:
-    """Resolve the raw addresses of a job table to (buffer, element)."""
-
-    def __init__(self, *buffers):
-        self.buffers = buffers
-
-    def view(self, addr, rows, ld, cols):
-        for buf in self.buffers:
-            start = buf.data_ptr()
-            if start <= addr < start + buf.numel() * buf.element_size():
-                off = (addr - start) // buf.element_size()
-                flat = buf.reshape(-1)
-                return flat[off : off + rows * ld].reshape(rows, ld)[:, :cols].float()
-        raise AssertionError(f"address {addr:#x} outside every buffer")
+def _job_view(buf, off, ld, n, cols):
+    """The [n][ld] rows a dW job reads at element `off` of `buf`, first
+    `cols` columns, in float32."""
+    return buf.reshape(-1)[off : off + n * ld].reshape(n, ld)[:, :cols].float()
 
 
 def _emulate(x, hit, cond_lin, weights, cfg, s_per_ray, g_rgb, g_den):
@@ -115,15 +105,13 @@ def _emulate(x, hit, cond_lin, weights, cfg, s_per_ray, g_rgb, g_den):
             gs = _bf((gs @ wt_mat(wt_offs[i], w_, w_)) * (a_seg(i - 1, w_) > 0))
             put(i - 1, gs)
 
-    jobs, n_tiles = k1.dw_jobs(cfg, in_dim, n_obj, x_save, act, act_offs, act_stride,
-                               gbuf, g_offs, g_stride, "cpu")
+    jobs, _, n_tiles = k1.job_table(cfg, in_dim, n, n_obj, "cpu")
     _, per_obj = k1.grad_layout(cfg, in_dim)
     flat = torch.full((n_obj * per_obj,), float("nan"))
-    mem = _Memory(x_save, act, gbuf)
-    assert int(jobs[-1, 8] + jobs[-1, 9] * jobs[-1, 10]) == n_tiles
-    for a_addr, g_addr, lda, ldg, k, j, out, bias, _, _, _ in jobs.tolist():
-        a = mem.view(a_addr, n, lda, k)
-        g = mem.view(g_addr, n, ldg, j)
+    assert int(jobs[-1, 9] + jobs[-1, 10] * jobs[-1, 11]) == n_tiles
+    for a_buf, a_off, lda, g_off, ldg, k, j, out, bias, _, _, _ in jobs.tolist():
+        a = _job_view(x_save if a_buf == 0 else act, a_off, lda, n, k)
+        g = _job_view(gbuf, g_off, ldg, n, j)
         flat[out : out + k * j] = (a.T @ g).reshape(-1)
         if bias >= 0:
             flat[bias : bias + j] = g.sum(0)
@@ -195,24 +183,29 @@ def test_k4_layout_replay_matches_plain_backward(n_obj):
 
 def test_dw_jobs_cover_every_gradient_once():
     """Each weight and bias element of the flat layout is written by exactly
-    one job (the kernel never zeroes its output)."""
+    one job (the kernel never zeroes its output), and the table addresses its
+    operands by offsets inside the workspace buffers."""
     cfg = MLPConfig()  # flagship background MLP: 8x256, skip at layer 5
     in_dim, n, n_obj = 60, 256, 2
-    x_save, act, act_offs, stride = k1.save_buffers(cfg, in_dim, n, n_obj, "cpu")
+    _, act_stride = k1.act_layout(cfg, n)
+    act_offs, _ = k1.act_layout(cfg, n)
     g_offs, g_stride = k1.g_layout(cfg, n)
-    g = torch.empty((n_obj * g_stride,), dtype=torch.bfloat16)
-    jobs, tiles = k1.dw_jobs(cfg, in_dim, n_obj, x_save, act, act_offs, stride, g, g_offs,
-                             g_stride, "cpu")
+    rows, tiles = k1.dw_jobs(cfg, in_dim, n_obj, act_offs, act_stride, g_offs, g_stride,
+                             k1.x_cols(cfg, in_dim))
+    jobs = torch.tensor(rows)
     _, per_obj = k1.grad_layout(cfg, in_dim)
     count = torch.zeros(n_obj * per_obj, dtype=torch.int32)
-    for *_, k, j, out, bias, _, _, _ in jobs.tolist():
+    for a_buf, a_off, lda, g_off, ldg, k, j, out, bias, _, _, _ in rows:
         count[out : out + k * j] += 1
         if bias >= 0:
             count[bias : bias + j] += 1
+        a_size = n * k1.x_cols(cfg, in_dim) if a_buf == 0 else n_obj * act_stride
+        assert 0 <= a_off and a_off + n * lda <= a_size and k <= lda
+        assert 0 <= g_off and g_off + n * ldg <= n_obj * g_stride and j <= ldg
     assert torch.equal(count, torch.ones_like(count))
     # one job per kernel layer, plus the skip layer's x rows, per object
     assert jobs.shape == (n_obj * (cfg.net_depth + 1 + 4), k1.JOB_FIELDS)
-    assert tiles == int((jobs[:, 9] * jobs[:, 10]).sum())
+    assert tiles == int((jobs[:, 10] * jobs[:, 11]).sum())
 
 
 @pytest.mark.parametrize(
