@@ -7,8 +7,8 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
   1. print the card's name and power limit;
   2. build the CUDA kernels from durf_tpu_torch/csrc/ with nvcc, all
      sources at once; print ptxas's registers and spills, and how often the
-     K1 and K2 libraries' machine code holds wgmma (HGMMA), TMA (UTMALDG /
-     UTMASTG) and mbarrier (SYNCS) instructions;
+     K1, K2, K3 and K4 libraries' machine code holds wgmma (HGMMA), TMA
+     (UTMALDG / UTMASTG) and mbarrier (SYNCS) instructions;
   3. K1 (fused background MLP forward, the wgmma + TMA kernel at the
      flagship widths) against its plain PyTorch version at N = 8192 x 128
      (a render chunk) and at an N that is not a tile multiple, atol 2e-2
@@ -22,9 +22,18 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      calls on the same inputs bitwise equal; at 4096 x 128 also the whole
      autograd Function (K1 then K2, with the per-ray condition product)
      against autograd of the plain forward, and its time and bound;
-  5. K3 (objects-in-grid MLP forward) like K1 at N_obj = 2, 4, 8;
-  6. K4 (its backward) like K2 at N_obj = 2, 4, 8 (hit density 0.5), and
-     its Function against autograd of the plain forward at N_obj = 2;
+  5. K3 (objects-in-grid MLP forward, the wgmma + TMA kernel that skips
+     the (tile, object) pairs no ray hits) like K1 at N_obj = 2, 4, 8 and
+     hit shares 1.0, 0.5, 0.03 (N = 8192 x 128), at 1000 x 77, and at the
+     compacted step's shape (256 x 128, the first 117 rays hitting); each
+     prints the share of pairs that ran; timed at N_obj 2 against two
+     bounds, the dense one and that of the pairs that ran; an object no ray
+     hits leaves the outputs bitwise those of the other object alone;
+  6. K4 (its backward) like K2 at the same object counts and shares (N =
+     4096 x 128), at 1000 x 77 and at the step's shape, two calls bitwise
+     equal, its Function against autograd of the plain forward at N_obj =
+     2, and an object no ray hits gets exactly zero weight gradients and
+     d cond_lin while dx stays bitwise that of the other object alone;
   7. K5 (gated MLP forward, the input blended in the tile) and K6 (its
      backward) against their plain versions at the object width (8x128,
      F_in 63) on row-major features with a 3% hit gate, at N = 4096 x 128
@@ -61,8 +70,10 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      within relative 1e-2, every gradient leaf within relative L2 5e-2;
  16. a JSON line with every kernel's numbers (launches from the path that
      runs the kernel: K1-K4 the main path, K5/K6 phase 8, K2 at 128/128
-     phase 12), then the card's name and power limit, and as the last line
-     {"ok": true, "device": {...}}.
+     phase 12; K3 and K4 timed at the compacted step's shape, their bound
+     that of the pairs that ran, with the dense bound, the pair share and
+     the times at each hit share beside it), then the card's name and power
+     limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when CUDA is not available, or
 when run outside a checkout of the repository.
@@ -101,6 +112,11 @@ COMPARE_BATCH = 1024
 OBJ_CAPACITY = 0.0625
 # K5/K6: the share of rays whose gate is 1 (the flagship batch hits ~3%).
 GATE_HIT = 0.03
+# K3/K4: the hit shares checked and timed (every pair; today's checks; the
+# flagship batch), the compacted step's rays and how many of them hit a box
+# (PERF.md section 4), and the kernels' tile.
+HIT_SHARES = (1.0, 0.5, GATE_HIT)
+MAIN_RAYS, MAIN_HITTING, OBJ_TILE = 256, 117, 128
 # Compaction permutes the object pipeline's rays: the same values, float32
 # sums over samples in another order.
 EXACT_LOSS_TOL, EXACT_GRAD_TOL = 1e-5, 1e-3
@@ -238,7 +254,46 @@ def check_k1(dev, gen):
     return result
 
 
+def obj_hit(n_obj, b, share, gen, dev):
+    """A 0/1 hit mask [n_obj, b]: each ray hits each object with probability
+    `share`, or (share "main") the compacted training step's pattern, the
+    first MAIN_HITTING of its rays hitting each object with probability 0.6
+    and the rest nothing."""
+    import torch
+
+    if share == "main":
+        hit = torch.zeros((n_obj, b))
+        hit[:, :MAIN_HITTING] = (torch.rand((n_obj, MAIN_HITTING), generator=gen) < 0.6).float()
+    else:
+        hit = (torch.rand((n_obj, b), generator=gen) < share).float()
+    return hit.to(dev)
+
+
+def obj_bounds(flops_per_sample, nbytes, x_bytes_per_sample, hit, n, s):
+    """(dense bound ms, bound ms of the pairs that ran, its bound_by, share of
+    (tile, object) pairs that ran): the operations and bytes of every pair,
+    and those of the pairs K3/K4 ran (their tiles' samples; the input x is
+    read only for tiles that run some object)."""
+    from durf_tpu_torch.ops.kernels import obj_mlp as k3
+
+    import torch
+
+    kept = k3.kept_pairs(hit, n, s).cpu().float()
+    t0 = torch.arange(0, n, OBJ_TILE)
+    rows = torch.clamp(n - t0, max=OBJ_TILE).float()
+    samples_ran = float((kept * rows[:, None]).sum())
+    idle = float((rows * (kept.sum(1) == 0).float()).sum())  # samples of tiles that run nothing
+    dense_ms, _ = bound(flops_per_sample * n * hit.shape[0], nbytes)
+    ran_ms, ran_by = bound(flops_per_sample * samples_ran, nbytes - x_bytes_per_sample * idle)
+    return dense_ms, ran_ms, ran_by, float(kept.mean())
+
+
 def check_k3(dev, gen):
+    """K3 against its plain version at N_obj 2, 4, 8 and hit shares 1.0,
+    0.5, 0.03 (N = 8192 x 128), at 1000 x 77, and at the compacted step's
+    shape; one object that no ray hits contributes exactly nothing. Timed
+    at N_obj 2 at each share and at the step's shape, which the kernels line
+    carries."""
     import torch
 
     from durf_tpu_torch.configs import MLPConfig
@@ -246,13 +301,16 @@ def check_k3(dev, gen):
 
     cfg, f_in, f_c = MLPConfig(net_width=128), 63, 27
     per_sample, _, params = mlp_macs(cfg, f_in, f_c)
-    b, s = K3_RAYS, K3_SAMPLES
-    n = b * s
-    x = (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)
-    result = None
-    for n_obj in K3_OBJECTS:
-        w = random_mlp(cfg, f_in, f_c, n_obj, gen, dev)
-        hit = (torch.rand((n_obj, b), generator=gen) < 0.5).float().to(dev)
+    weights = {n_obj: random_mlp(cfg, f_in, f_c, n_obj, gen, dev) for n_obj in K3_OBJECTS}
+    cases = [((K3_RAYS, K3_SAMPLES), n_obj, share) for n_obj in K3_OBJECTS for share in HIT_SHARES]
+    cases += [(BWD_SHAPES[1], 2, 0.5), ((MAIN_RAYS, K3_SAMPLES), 2, "main")]
+    result, by_share, xs = None, {}, {}
+    for (b, s), n_obj, share in cases:
+        n = b * s
+        if (b, s) not in xs:
+            xs = {(b, s): (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)}
+        x, w = xs[(b, s)], weights[n_obj]
+        hit = obj_hit(n_obj, b, share, gen, dev)
         cond_lin = torch.randn((n_obj, b, cfg.net_width_condition), generator=gen)
         cond_lin = cond_lin.to(torch.bfloat16).float().to(dev)
         out = k3.fused_obj_mlp(x, hit, cond_lin, w, cfg, s)
@@ -260,21 +318,47 @@ def check_k3(dev, gen):
         ref = k3.fused_obj_mlp_reference(x, hit, cond_lin, w, cfg, s)
         err = max_err(out, ref)
         finite = all(bool(torch.isfinite(t).all()) for t in out)
-        ms = time_ms(lambda: k3.fused_obj_mlp(x, hit, cond_lin, w, cfg, s), iters=10)
-        plain_ms = time_ms(lambda: k3.fused_obj_mlp_reference(x, hit, cond_lin, w, cfg, s), 3, 1)
-        flops = 2.0 * per_sample * n * n_obj
         nbytes = 4.0 * (f_in * n + n_obj * b * (1 + cfg.net_width_condition) + n_obj * params + 4 * n)
-        bound_ms, bound_by = bound(flops, nbytes)
-        print(
-            f"K3 fused_obj_mlp_fwd N_obj={n_obj} N={n}: max_abs_err {err:.3e} finite={finite}; "
-            f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.3f} ms ({bound_by}; {per_sample * 2 / 1e6:.4f} MFLOP/sample/object)"
-        )
+        dense_ms, ran_ms, ran_by, pairs = obj_bounds(2.0 * per_sample, nbytes, 4.0 * f_in, hit, n, s)
+        line = (f"K3 fused_obj_mlp_fwd N_obj={n_obj} N={n} (B={b}, S={s}) hit share {share}: "
+                f"max_abs_err {err:.3e} finite={finite}; pairs ran {pairs:.4f}")
+        if n_obj == 2 and (b, s) != BWD_SHAPES[1]:
+            ms = time_ms(lambda: k3.fused_obj_mlp(x, hit, cond_lin, w, cfg, s), iters=10)
+            line += (f"; kernel {ms:.3f} ms, bound {dense_ms:.3f} ms dense (operations), "
+                     f"{ran_ms:.3f} ms for the pairs that ran ({ran_by})")
+            by_share[f"{b}x{s}_hit_{share}"] = dict(ms=ms, bound_ms=ran_ms, dense_bound_ms=dense_ms,
+                                                    pair_share=pairs)
+            if share in ("main", 1.0):
+                plain_ms = time_ms(lambda: k3.fused_obj_mlp_reference(x, hit, cond_lin, w, cfg, s), 3, 1)
+                line += f", plain {plain_ms:.3f} ms"
+            if share == "main":
+                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=ran_ms,
+                              bound_by=ran_by, dense_bound_ms=dense_ms, pair_share=pairs)
+        print(line)
         if not finite or err > TOL:
-            raise SystemExit(f"K3 disagrees with its plain version at N_obj={n_obj}: {err} > {TOL}")
-        if n_obj == K3_OBJECTS[0]:
-            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        del w, hit, cond_lin, out, ref
+            raise SystemExit(f"K3 disagrees with its plain version at N_obj={n_obj}, hit share "
+                             f"{share}: {err} > {TOL}")
+        del hit, cond_lin, out, ref
+    # One object that no ray hits: the outputs are those of the other alone.
+    b, s = K3_RAYS, K3_SAMPLES
+    x = xs.get((b, s), None)
+    x = (2 * torch.rand((f_in, b * s), generator=gen) - 1).to(dev) if x is None else x
+    hit = obj_hit(2, b, GATE_HIT, gen, dev)
+    hit[1] = 0.0
+    cond_lin = torch.randn((2, b, cfg.net_width_condition), generator=gen).to(torch.bfloat16).float().to(dev)
+    w = weights[2]
+    both = k3.fused_obj_mlp(x, hit, cond_lin, w, cfg, s)
+    alone = k3.fused_obj_mlp(x, hit[:1].contiguous(), cond_lin[:1].contiguous(), [t[:1] for t in w], cfg, s)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(both, alone))
+    finite = all(bool(torch.isfinite(t).all()) for t in both)
+    print(f"K3 with an object no ray hits: outputs bitwise those of the other object alone: {same}, "
+          f"finite={finite}")
+    if not same or not finite:
+        raise SystemExit("K3: an object that no ray hits changed the outputs")
+    del xs, x, hit, cond_lin, both, alone, weights
+    torch.cuda.empty_cache()
+    result["by_share"] = by_share
     return result
 
 
@@ -379,6 +463,12 @@ def check_k2(dev, gen):
 
 
 def check_k4(dev, gen):
+    """K4 against the plain backward at N_obj 2, 4, 8 and hit shares 1.0,
+    0.5, 0.03 (N = 4096 x 128), at 1000 x 77 and at the compacted step's
+    shape; two calls bitwise equal; its Function against autograd of the
+    plain forward; one object that no ray hits gets exactly zero gradients.
+    Timed at N_obj 2 at each share and at the step's shape (the kernels
+    line's figure)."""
     import torch
 
     from durf_tpu_torch.configs import MLPConfig
@@ -386,13 +476,14 @@ def check_k4(dev, gen):
 
     cfg, f_in, f_c = MLPConfig(net_width=128), 63, 27
     per_sample, _, params = mlp_macs(cfg, f_in, f_c)
-    result = None
-    cases = [(BWD_SHAPES[0], n_obj) for n_obj in K4_OBJECTS] + [(BWD_SHAPES[1], K4_OBJECTS[0])]
-    for (b, s), n_obj in cases:
+    result, by_share = None, {}
+    cases = [(BWD_SHAPES[0], n_obj, share) for n_obj in K4_OBJECTS for share in HIT_SHARES]
+    cases += [(BWD_SHAPES[1], 2, 0.5), ((MAIN_RAYS, K3_SAMPLES), 2, "main")]
+    for (b, s), n_obj, share in cases:
         n = b * s
         w = random_mlp(cfg, f_in, f_c, n_obj, gen, dev)
         x = (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)
-        hit = (torch.rand((n_obj, b), generator=gen) < 0.5).float().to(dev)
+        hit = obj_hit(n_obj, b, share, gen, dev)
         cond_lin = torch.randn((n_obj, b, cfg.net_width_condition), generator=gen)
         cond_lin = cond_lin.to(torch.bfloat16).float().to(dev)
         g_rgb = torch.randn((3, n), generator=gen).to(dev)
@@ -401,35 +492,76 @@ def check_k4(dev, gen):
         dx, dcond, grads = k3.fused_obj_mlp_bwd(res, hit, g_rgb, g_den, w, cfg, s)
         torch.cuda.synchronize()
         ref = k3.fused_obj_mlp_bwd_reference(x, hit, cond_lin, w, cfg, s, g_rgb, g_den)
-        what = f"K4 fused_obj_mlp_bwd N_obj={n_obj} N={n} (B={b}, S={s})"
+        what = f"K4 fused_obj_mlp_bwd N_obj={n_obj} N={n} (B={b}, S={s}) hit share {share}"
         err = compare_grads(what, [dx, dcond, *grads], [ref[0], ref[1], *ref[2]])
-        del ref, dx, dcond, grads
-        if (b, s) == BWD_SHAPES[0] and n_obj == K4_OBJECTS[0]:
+        del ref
+        if n_obj == 2 and share in (1.0, "main"):
+            again = k3.fused_obj_mlp_bwd(res, hit, g_rgb, g_den, w, cfg, s)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in
+                       zip([dx, dcond, *grads], [again[0], again[1], *again[2]]))
+            print(f"{what}: two calls on the same inputs bitwise equal: {same}")
+            if not same:
+                raise SystemExit("K4 is not bitwise reproducible")
+            del again
+        del dx, dcond, grads
+        if (b, s) == BWD_SHAPES[0] and n_obj == 2 and share == 0.5:
             check_function(
                 f"K4 through FusedObjMlpFn vs autograd of the plain forward N_obj={n_obj} N={n}",
                 lambda x_, c_, *w_: k3.fused_obj_mlp(x_, hit, c_, w_, cfg, s),
                 lambda x_, c_, *w_: k3.fused_obj_mlp_reference(x_, hit, c_, w_, cfg, s),
                 [x, cond_lin, *w], ("dx", "dcond_lin"), g_rgb, g_den,
             )
-        if (b, s) == BWD_SHAPES[0]:
+        if n_obj == 2 and (b, s) != BWD_SHAPES[1]:
             ms = time_ms(lambda: k3.fused_obj_mlp_bwd(res, hit, g_rgb, g_den, w, cfg, s), iters=10)
-            plain_ms = time_ms(
-                lambda: k3.fused_obj_mlp_bwd_reference(x, hit, cond_lin, w, cfg, s, g_rgb, g_den),
-                2, 1,
-            )
-            flops = 4.0 * per_sample * n * n_obj
             nbytes = 4.0 * (2 * f_in * n + n_obj * b * (1 + 2 * cfg.net_width_condition)
                             + 2 * n_obj * params + 4 * n)
-            bound_ms, bound_by = bound(flops, nbytes)
-            print(
-                f"K4 N_obj={n_obj} N={n}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
-            )
-            if n_obj == K4_OBJECTS[0]:
-                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
+            dense_ms, ran_ms, ran_by, pairs = obj_bounds(4.0 * per_sample, nbytes, 4.0 * f_in, hit, n,
+                                                         s)
+            line = (f"K4 N_obj={n_obj} N={n} hit share {share}: pairs ran {pairs:.4f}; kernel "
+                    f"{ms:.3f} ms, bound {dense_ms:.3f} ms dense (operations), {ran_ms:.3f} ms for "
+                    f"the pairs that ran ({ran_by})")
+            by_share[f"{b}x{s}_hit_{share}"] = dict(ms=ms, bound_ms=ran_ms, dense_bound_ms=dense_ms,
+                                                    pair_share=pairs)
+            if share in ("main", 1.0):
+                plain_ms = time_ms(
+                    lambda: k3.fused_obj_mlp_bwd_reference(x, hit, cond_lin, w, cfg, s, g_rgb, g_den),
+                    2, 1,
+                )
+                line += f", plain {plain_ms:.3f} ms"
+            if share == "main":
+                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=ran_ms,
+                              bound_by=ran_by, dense_bound_ms=dense_ms, pair_share=pairs)
+            print(line)
         del w, x, hit, cond_lin, g_rgb, g_den, res
         torch.cuda.empty_cache()
+    # One object that no ray hits: its gradients and d cond_lin exactly zero,
+    # dx bitwise that of the other object alone, everything finite.
+    b, s = BWD_SHAPES[0]
+    n = b * s
+    w = random_mlp(cfg, f_in, f_c, 2, gen, dev)
+    x = (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)
+    hit = obj_hit(2, b, GATE_HIT, gen, dev)
+    hit[1] = 0.0
+    cond_lin = torch.randn((2, b, cfg.net_width_condition), generator=gen).to(torch.bfloat16).float().to(dev)
+    g_rgb = torch.randn((3, n), generator=gen).to(dev)
+    g_den = torch.randn((1, n), generator=gen).to(dev)
+    _, _, res = k3._k3_launch(x, hit, cond_lin, w, cfg, s, save=True)
+    dx, dcond, grads = k3.fused_obj_mlp_bwd(res, hit, g_rgb, g_den, w, cfg, s)
+    w1 = [t[:1] for t in w]
+    _, _, res1 = k3._k3_launch(x, hit[:1].contiguous(), cond_lin[:1].contiguous(), w1, cfg, s, save=True)
+    dx1, _, _ = k3.fused_obj_mlp_bwd(res1, hit[:1].contiguous(), g_rgb, g_den, w1, cfg, s)
+    torch.cuda.synchronize()
+    zero = not dcond[1].any() and all(not g[1].any() for g in grads)
+    finite = all(bool(torch.isfinite(t).all()) for t in [dx, dcond, *grads])
+    same = torch.equal(dx, dx1)
+    print(f"K4 with an object no ray hits: its gradients and d cond_lin exactly zero: {zero}; dx "
+          f"bitwise that of the other object alone: {same}; finite={finite}")
+    if not (zero and same and finite):
+        raise SystemExit("K4: an object that no ray hits got gradients, or changed dx")
+    del w, x, hit, cond_lin, g_rgb, g_den, res, res1, dx, dx1, dcond, grads
+    torch.cuda.empty_cache()
+    result["by_share"] = by_share
     return result
 
 
@@ -980,7 +1112,7 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    for name, counts in build.sass_counts(("fused_mlp", "fused_mlp_bwd")).items():
+    for name, counts in build.sass_counts(("fused_mlp", "fused_mlp_bwd", "obj_mlp", "obj_mlp_bwd")).items():
         print(f"  sass {name}: {counts}")
 
     gen = torch.Generator().manual_seed(0)

@@ -70,7 +70,7 @@ int wide_bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, con
   ce = cudaFuncSetAttribute(dw, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dsmem);
   if (ce != cudaSuccess) return (int)ce;
   dw<<<(unsigned)((long long)a.n_tiles * a.n_splits), wide::THREADS_DW, dsmem, stream>>>(
-      a.jobs, a.n_jobs, a.n_tiles, a.n, a.chunk, a.part, a.total, dwp);
+      a.jobs, a.n_jobs, a.n_tiles, a.n, a.chunk, a.part, a.total, dwp, nullptr, 1, 0, 1, 0);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   if ((err = launch_reduce<2>(a, stream)) != 0) return err;
   return launch_ray_sum<2>(a, d, e, stream);

@@ -1,10 +1,10 @@
 // Building blocks of the fused NeRF-MLP backward kernels (Hopper, sm_90a),
-// shared by K2 (fused_mlp_bwd.cu), K4 (obj_mlp_bwd.cu) and K6
-// (fused_mlp_gated_bwd.cu).
+// shared by K2 (fused_mlp_bwd.cu) and K6 (fused_mlp_gated_bwd.cu); K4
+// (obj_mlp_bwd.cu) takes the reduction and the per-ray sums.
 //
 // K2 at the flagship widths (256 / 128) runs the wgmma + TMA kernels of
 // mlp_wide.cuh instead (mlp_bwd_launch hands it over); what follows serves
-// K4, K6 and K2 at 128 / 128.
+// K6 and K2 at 128 / 128.
 //
 // The backward of one MLP on N samples runs as four launches (K6: five):
 //  1. mlp_bwd_kernel: one CTA per 128-sample tile walks the layers in
@@ -36,7 +36,7 @@
 
 namespace durf {
 
-// Where the backward finds its operands, per object (strides on each).
+// Where the backward finds its operands.
 //  * wt: transposed weights, bf16. Layer l's h-part W_l[:K]^T is [J_l][K]
 //    row-major at wt_off[l] (K = width, or wc for head_i with i >= 1); its
 //    x-part (layer 0 and skip layers) is x_chunks matrices [J_l][64] at
@@ -48,8 +48,6 @@ struct BwdDesc {
   long long wt_off[MAX_LAYERS];
   long long wtx_off[MAX_LAYERS];
   long long g_off[MAX_LAYERS];
-  long long wt_obj_stride;
-  long long g_obj_stride;
   int x_chunks;
 };
 
@@ -60,11 +58,11 @@ __device__ __forceinline__ float bf16_round(float v) {
 // gs[row, col] = bf16(relu'(row, col) * (acc + den_term)), where relu' is
 // (act[sample][col] > 0) for a relu layer (act == nullptr: no relu) and
 // den_term = sum_c gd_c * w_den[col][c] (w_den == nullptr: none) with gd_c
-// = bf16(hit(ray) * g_den[c][sample]). Rows at or past n become 0.
+// = bf16(g_den[c][sample]). Rows at or past n become 0.
 template <int NT>
 __device__ void bwd_epilogue(const float (&acc)[4][NT][4], bf16* gs, int ldg, const bf16* act,
-                             const float* g_den, const bf16* w_den, int n_den, const float* hit,
-                             long long tile0, long long n, int s_per_ray) {
+                             const float* g_den, const bf16* w_den, int n_den, long long tile0,
+                             long long n) {
   constexpr int N = 32 * NT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp & 1, wn = warp >> 1;
@@ -76,10 +74,8 @@ __device__ void bwd_epilogue(const float (&acc)[4][NT][4], bf16* gs, int ldg, co
       const long long sample = tile0 + row;
       const bool valid = sample < n;
       float gd[4] = {0.f, 0.f, 0.f, 0.f};
-      if (valid && w_den != nullptr) {
-        const float sc = hit != nullptr ? hit[sample / s_per_ray] : 1.f;
-        for (int c = 0; c < n_den; ++c) gd[c] = bf16_round(sc * g_den[c * n + sample]);
-      }
+      if (valid && w_den != nullptr)
+        for (int c = 0; c < n_den; ++c) gd[c] = bf16_round(g_den[c * n + sample]);
       const bf16* arow = (valid && act != nullptr) ? act + sample * N : nullptr;
 #pragma unroll
       for (int nj = 0; nj < NT; ++nj) {
@@ -178,18 +174,16 @@ __device__ void gate_epilogue(const GateArgs& ga, float* dx, int in_dim, long lo
 
 // The rgb head's vjp on the CUDA cores (two threads per row, each half of
 // the head's wc columns): gs[row][k] = bf16((C_last[sample][k] > 0) *
-// sum_c gr_c * w_rgb[k][c]) with gr_c = bf16(hit * g_rgb[c][sample]). Also
+// sum_c gr_c * w_rgb[k][c]) with gr_c = bf16(g_rgb[c][sample]). Also
 // writes the rounded head cotangents as 8-wide rows of G_rgb and G_den.
 __device__ void rgb_head_bwd(bf16* gs, int ldg, int wc, const bf16* act_last, const bf16* w_rgb,
                              int n_rgb, const float* g_rgb, const float* g_den, int n_den,
-                             const float* hit, int s_per_ray, bf16* g_rgb_out, bf16* g_den_out,
-                             long long tile0, long long n) {
+                             bf16* g_rgb_out, bf16* g_den_out, long long tile0, long long n) {
   const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
   const long long sample = tile0 + row;
   const bool valid = sample < n;
-  const float sc = (valid && hit != nullptr) ? hit[sample / s_per_ray] : 1.f;
   float gr[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = 0; valid && c < n_rgb; ++c) gr[c] = bf16_round(sc * g_rgb[c * n + sample]);
+  for (int c = 0; valid && c < n_rgb; ++c) gr[c] = bf16_round(g_rgb[c * n + sample]);
   const int k0 = half * (wc / 2), k1 = k0 + wc / 2;
   for (int k = k0; k < k1; k += 2) {
     float v0 = 0.f, v1 = 0.f;
@@ -209,29 +203,26 @@ __device__ void rgb_head_bwd(bf16* gs, int ldg, int wc, const bf16* act_last, co
     const int nc = half == 0 ? n_rgb : n_den;
     __align__(16) bf16 r8[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) r8[c] = __float2bfloat16_rn(c < nc ? sc * src[c * n + sample] : 0.f);
+    for (int c = 0; c < 8; ++c) r8[c] = __float2bfloat16_rn(c < nc ? src[c * n + sample] : 0.f);
     *reinterpret_cast<uint4*>((half == 0 ? g_rgb_out : g_den_out) + sample * 8) =
         *reinterpret_cast<const uint4*>(r8);
   }
 }
 
-// One object's backward on the tile (see the top of this file). act: the
-// object's saved activation segments (MlpDesc::act_off); g: its cotangent
-// workspace; hit: its per-ray gate (nullptr: 1); dx: nullptr skips the
-// x-parts.
+// The MLP's backward on the tile (see the top of this file). act: the saved
+// activation segments (MlpDesc::act_off); g: the cotangent workspace; dx:
+// nullptr skips the x-parts.
 template <int NTW, int NTC>
 __device__ void run_mlp_bwd(const MlpDesc& d, const BwdDesc& e, const bf16* w, const bf16* wt,
                             const bf16* act, bf16* g, const float* g_rgb, const float* g_den,
-                            const float* hit, float* dx, bf16* gs, bf16* ws, long long tile0,
-                            long long n, int s_per_ray) {
+                            float* dx, bf16* gs, bf16* ws, long long tile0, long long n) {
   constexpr int W = 32 * NTW, WC = 32 * NTC;
   const int ldg = ld_of(W > WC ? W : WC);
   const int l_den = d.depth, l_bn = d.depth + 1, l_h0 = d.depth + 2;
   const int l_rgb = l_h0 + d.depth_cond;
 
   rgb_head_bwd(gs, ldg, WC, act + d.act_off[d.depth + d.depth_cond], w + d.w_off[l_rgb], d.n_rgb,
-               g_rgb, g_den, d.n_den, hit, s_per_ray, g + e.g_off[l_rgb], g + e.g_off[l_den],
-               tile0, n);
+               g_rgb, g_den, d.n_den, g + e.g_off[l_rgb], g + e.g_off[l_den], tile0, n);
   __syncthreads();
   store_tile(gs, ldg, WC, g + e.g_off[l_rgb - 1], tile0, n);
   {
@@ -239,8 +230,7 @@ __device__ void run_mlp_bwd(const MlpDesc& d, const BwdDesc& e, const bf16* w, c
     for (int i = d.depth_cond - 1; i >= 1; --i) {  // head_i -> head_{i-1}
       zero_acc(acc);
       gemm_acc<NTC>(acc, gs, ldg, WC, wt + e.wt_off[l_h0 + i], WC, ws);
-      bwd_epilogue<NTC>(acc, gs, ldg, act + d.act_off[d.depth + i], nullptr, nullptr, 0, hit,
-                        tile0, n, s_per_ray);
+      bwd_epilogue<NTC>(acc, gs, ldg, act + d.act_off[d.depth + i], nullptr, nullptr, 0, tile0, n);
       __syncthreads();
       store_tile(gs, ldg, WC, g + e.g_off[l_h0 + i - 1], tile0, n);
     }
@@ -249,14 +239,14 @@ __device__ void run_mlp_bwd(const MlpDesc& d, const BwdDesc& e, const bf16* w, c
   // head_0 -> bottleneck (no activation).
   zero_acc(acc);
   gemm_acc<NTW>(acc, gs, ldg, WC, wt + e.wt_off[l_h0], WC, ws);
-  bwd_epilogue<NTW>(acc, gs, ldg, nullptr, nullptr, nullptr, 0, hit, tile0, n, s_per_ray);
+  bwd_epilogue<NTW>(acc, gs, ldg, nullptr, nullptr, nullptr, 0, tile0, n);
   __syncthreads();
   store_tile(gs, ldg, W, g + e.g_off[l_bn], tile0, n);
   // bottleneck and density head -> trunk_{depth-1}.
   zero_acc(acc);
   gemm_acc<NTW>(acc, gs, ldg, W, wt + e.wt_off[l_bn], W, ws);
   bwd_epilogue<NTW>(acc, gs, ldg, act + d.act_off[d.depth - 1], g_den, w + d.w_off[l_den],
-                    d.n_den, hit, tile0, n, s_per_ray);
+                    d.n_den, tile0, n);
   __syncthreads();
   store_tile(gs, ldg, W, g + e.g_off[d.depth - 1], tile0, n);
   for (int i = d.depth - 1; i >= 0; --i) {
@@ -272,8 +262,7 @@ __device__ void run_mlp_bwd(const MlpDesc& d, const BwdDesc& e, const bf16* w, c
     if (i == 0) break;
     zero_acc(acc);
     gemm_acc<NTW>(acc, gs, ldg, W, wt + e.wt_off[i], W, ws);
-    bwd_epilogue<NTW>(acc, gs, ldg, act + d.act_off[i - 1], nullptr, nullptr, 0, hit, tile0, n,
-                      s_per_ray);
+    bwd_epilogue<NTW>(acc, gs, ldg, act + d.act_off[i - 1], nullptr, nullptr, 0, tile0, n);
     __syncthreads();
     store_tile(gs, ldg, W, g + e.g_off[i - 1], tile0, n);
   }
@@ -284,28 +273,22 @@ __host__ inline size_t bwd_smem_bytes(const MlpDesc& d) {
   return ((size_t)TILE_M * ld_of(hmax) + (size_t)STAGES * BK * ld_of(hmax)) * sizeof(bf16);
 }
 
-// TAG (2 for K2, 4 for K4, 6 for K6) names the instantiation, so that a
-// profile tells the kernels' launches apart; K6's adds the gate epilogue.
+// TAG (2 for K2, 6 for K6) names the instantiation, so that a profile
+// tells the kernels' launches apart; K6's adds the gate epilogue.
 template <int TAG, int NTW, int NTC>
 __global__ void __launch_bounds__(THREADS)
     mlp_bwd_kernel(const float* __restrict__ g_rgb, const float* __restrict__ g_den,
-                   const float* __restrict__ hit, long long n_rays, const bf16* __restrict__ w,
-                   const bf16* __restrict__ wt, const bf16* __restrict__ act, bf16* __restrict__ g,
-                   float* __restrict__ dx, long long n, int s_per_ray, int n_obj, MlpDesc d,
-                   BwdDesc e, GateArgs ga) {
+                   const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                   const bf16* __restrict__ act, bf16* __restrict__ g, float* __restrict__ dx,
+                   long long n, int s_per_ray, MlpDesc d, BwdDesc e, GateArgs ga) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hmax = d.width > d.wc ? d.width : d.wc;
   bf16* gs = reinterpret_cast<bf16*>(smem);
   bf16* ws = gs + TILE_M * ld_of(hmax);
   const long long tile0 = (long long)blockIdx.x * TILE_M;
-  for (int o = 0; o < n_obj; ++o) {
-    run_mlp_bwd<NTW, NTC>(d, e, w + o * d.w_obj_stride, wt + o * e.wt_obj_stride,
-                          act + o * d.act_obj_stride, g + o * e.g_obj_stride, g_rgb, g_den,
-                          hit == nullptr ? nullptr : hit + o * n_rays, dx, gs, ws, tile0, n,
-                          s_per_ray);
-  }
-  // Only K6's instantiation carries the gate epilogue: in K2's and K4's it
-  // would cost registers.
+  run_mlp_bwd<NTW, NTC>(d, e, w, wt, act, g, g_rgb, g_den, dx, gs, ws, tile0, n);
+  // Only K6's instantiation carries the gate epilogue: in K2's it would
+  // cost registers.
   if constexpr (TAG == 6) gate_epilogue(ga, dx, d.in_dim, tile0, n, s_per_ray);
 }
 
@@ -444,16 +427,19 @@ __global__ void reduce_kernel(const float* __restrict__ part, int n_splits, long
 }
 
 // dcond[o][r][c] = sum over the ray's samples of G_head0[o][r * S + s][c]
-// (fp32). One block per (ray, object), one thread per column.
+// (fp32). One block per (ray, object), one thread per column. With `hit`
+// ([n_obj][n_rays], K4), a ray that misses the object gets 0: K4 skips the
+// pairs no ray of a tile hits, so its G rows may never have been written.
 template <int TAG>
 __global__ void ray_sum_kernel(const bf16* __restrict__ g, long long g_obj_stride,
                                long long g_off, int wc, int s_per_ray, long long n_rays,
-                               float* __restrict__ dcond) {
+                               float* __restrict__ dcond, const float* __restrict__ hit = nullptr) {
   const long long r = blockIdx.x;
   const int o = blockIdx.y, c = threadIdx.x;
   const bf16* src = g + o * g_obj_stride + g_off + r * s_per_ray * wc + c;
   float s = 0.f;
-  for (int i = 0; i < s_per_ray; ++i) s += __bfloat162float(src[(long long)i * wc]);
+  if (hit == nullptr || hit[o * n_rays + r] != 0.f)
+    for (int i = 0; i < s_per_ray; ++i) s += __bfloat162float(src[(long long)i * wc]);
   dcond[((long long)o * n_rays + r) * wc + c] = s;
 }
 
@@ -475,12 +461,11 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) out[blockIdx.x] = red[0];
 }
 
-// Arguments shared by the K2, K4 and K6 entry points (see
+// Arguments shared by the K2 and K6 entry points (see
 // DURF_DEFINE_BWD_ENTRY): the launches of one MLP backward on `stream`.
 struct BwdArgs {
   const float* g_rgb;
   const float* g_den;
-  const float* hit;  // [n_obj][n_rays] or nullptr
   long long n_rays;
   const bf16* w;     // forward pack (density and rgb heads read from it)
   const bf16* wt;    // transposed pack
@@ -488,7 +473,7 @@ struct BwdArgs {
   const bf16* x_save;  // saved input rows
   bf16* g;           // cotangent workspace
   float* dx;         // [in_dim][n] accumulated (zeroed by the caller), or nullptr
-  float* dcond;      // [n_obj][n_rays][wc]
+  float* dcond;      // [n_rays][wc]
   const long long* jobs;       // the dW job table on the device
   const long long* jobs_host;  // the same in host memory (K2's wide path builds its maps from it)
   int n_jobs, n_tiles, n_splits;
@@ -497,7 +482,7 @@ struct BwdArgs {
   float* dw;         // [total]
   long long total;
   long long n;
-  int s_per_ray, n_obj;
+  int s_per_ray;
 };
 
 template <int TAG, int NTW, int NTC>
@@ -508,9 +493,8 @@ static int launch_bwd_tiles(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long grid = (a.n + TILE_M - 1) / TILE_M;
-  kern<<<(unsigned)grid, THREADS, smem, stream>>>(a.g_rgb, a.g_den, a.hit, a.n_rays, a.w, a.wt,
-                                                  a.act, a.g, a.dx, a.n, a.s_per_ray, a.n_obj, d,
-                                                  e, ga);
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(a.g_rgb, a.g_den, a.w, a.wt, a.act, a.g, a.dx,
+                                                  a.n, a.s_per_ray, d, e, ga);
   return (int)cudaGetLastError();
 }
 
@@ -524,8 +508,8 @@ int launch_reduce(const BwdArgs& a, cudaStream_t stream) {
 
 template <int TAG>
 int launch_ray_sum(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, cudaStream_t stream) {
-  ray_sum_kernel<TAG><<<dim3((unsigned)a.n_rays, (unsigned)a.n_obj), d.wc, 0, stream>>>(
-      a.g, e.g_obj_stride, e.g_off[d.depth + 2], d.wc, a.s_per_ray, a.n_rays, a.dcond);
+  ray_sum_kernel<TAG><<<(unsigned)a.n_rays, d.wc, 0, stream>>>(
+      a.g, 0, e.g_off[d.depth + 2], d.wc, a.s_per_ray, a.n_rays, a.dcond);
   return (int)cudaGetLastError();
 }
 
@@ -544,14 +528,14 @@ int wide_bwd_launch(const BwdArgs&, const MlpDesc&, const BwdDesc&, const WideAr
 }
 
 // Tile-kernel instantiations at the widths of the flagship MLPs that run
-// each kernel (fused_mlp.BWD_WIDTHS): 128-wide trunk and heads for every
-// kernel (the object MLPs: K4, K6, and K2 on the per-object route); K2 at
+// each kernel (fused_mlp.BWD_WIDTHS): 128-wide trunk and heads for both
+// kernels (the object MLPs: K6, and K2 on the per-object route); K2 at
 // 256 / 128 goes to wide_bwd_launch. Other widths return -2.
 template <int TAG>
 int mlp_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const GateArgs& ga,
                    const WideArgs& wa, cudaStream_t stream) {
   if ((ga.gate != nullptr) != (TAG == 6) || (TAG == 6 && a.dx == nullptr)) return -1;
-  if (TAG == 2 && d.width == 256 && d.wc == 128 && a.n_obj == 1)
+  if (TAG == 2 && d.width == 256 && d.wc == 128)
     return wide_bwd_launch<TAG>(a, d, e, wa, stream);
   if (d.width != 128 || d.wc != 128) return -2;
   int err = launch_bwd_tiles<TAG, 4, 4>(a, d, e, ga, stream);
@@ -575,9 +559,7 @@ int mlp_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const G
 inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int depth, int skip,
                           int wc, int depth_cond, int n_rgb, int n_den, const long long* w_off,
                           const long long* act_off, const long long* wt_off,
-                          const long long* wtx_off, const long long* g_off, int n_layers,
-                          long long w_obj_stride, long long act_obj_stride,
-                          long long wt_obj_stride, long long g_obj_stride) {
+                          const long long* wtx_off, const long long* g_off, int n_layers) {
   if (n_layers > MAX_LAYERS || n_layers != depth + depth_cond + 3) return -1;
   d = MlpDesc{};
   e = BwdDesc{};
@@ -590,8 +572,6 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
   d.depth_cond = depth_cond;
   d.n_rgb = n_rgb;
   d.n_den = n_den;
-  d.w_obj_stride = w_obj_stride;
-  d.act_obj_stride = act_obj_stride;
   for (int l = 0; l < n_layers; ++l) {
     d.w_off[l] = w_off[l];
     e.wt_off[l] = wt_off[l];
@@ -599,38 +579,33 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
     e.g_off[l] = g_off[l];
   }
   for (int a = 0; a < depth + 1 + depth_cond; ++a) d.act_off[a] = act_off[a];
-  e.wt_obj_stride = wt_obj_stride;
-  e.g_obj_stride = g_obj_stride;
   e.x_chunks = (in_dim + 63) / 64;
   return 0;
 }
 
 }  // namespace durf
 
-// The C entry point NAME of K2 (TAG 2), K4 (TAG 4) and K6 (TAG 6); each .cu
-// expands it once. The gate pointers (gx .. dfill) are null except for K6.
+// The C entry point NAME of K2 (TAG 2) and K6 (TAG 6); each .cu expands it
+// once. The gate pointers (gx .. dfill) are null except for K6.
 #define DURF_DEFINE_BWD_ENTRY(NAME, TAG)                                                         \
   extern "C" int NAME(                                                                           \
-      const float* g_rgb, const float* g_den, const float* hit, long long n_rays, const void* w, \
-      const void* wt, const void* act, const void* x_save, void* g, float* dx, float* dcond,     \
+      const float* g_rgb, const float* g_den, long long n_rays, const void* w, const void* wt,   \
+      const void* act, const void* x_save, void* g, float* dx, float* dcond,                     \
       const long long* jobs, const long long* jobs_host, int n_jobs, int n_tiles, int n_splits,  \
       long long chunk, float* part, float* dw,                                                   \
-      long long total, long long n, int s_per_ray, int n_obj, int in_dim, int width, int depth,  \
+      long long total, long long n, int s_per_ray, int in_dim, int width, int depth,             \
       int skip, int wc, int depth_cond, int n_rgb, int n_den, const long long* w_off,            \
       const long long* act_off, const long long* wt_off, const long long* wtx_off,               \
-      const long long* g_off, int n_layers, long long w_obj_stride, long long act_obj_stride,    \
-      long long wt_obj_stride, long long g_obj_stride, const void* gx, const float* gate,        \
+      const long long* g_off, int n_layers, const void* gx, const float* gate,                   \
       const void* gfill, float* dgate, float* dfill_part, float* dfill, const long long* specs,  \
       int n_specs, const long long* slices, int n_slices, void* stream) {                        \
     durf::MlpDesc d;                                                                             \
     durf::BwdDesc e;                                                                             \
     int err = durf::make_bwd_descs(d, e, in_dim, width, depth, skip, wc, depth_cond, n_rgb,      \
-                                   n_den, w_off, act_off, wt_off, wtx_off, g_off, n_layers,      \
-                                   w_obj_stride, act_obj_stride, wt_obj_stride, g_obj_stride);   \
+                                   n_den, w_off, act_off, wt_off, wtx_off, g_off, n_layers);     \
     if (err != 0) return err;                                                                    \
     durf::BwdArgs a{g_rgb,                                                                       \
                     g_den,                                                                       \
-                    hit,                                                                         \
                     n_rays,                                                                      \
                     static_cast<const durf::bf16*>(w),                                           \
                     static_cast<const durf::bf16*>(wt),                                          \
@@ -649,8 +624,7 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
                     dw,                                                                          \
                     total,                                                                       \
                     n,                                                                           \
-                    s_per_ray,                                                                   \
-                    n_obj};                                                                      \
+                    s_per_ray};                                                                  \
     durf::GateArgs ga{static_cast<const durf::bf16*>(gx), gate,                                  \
                       static_cast<const durf::bf16*>(gfill), dgate, dfill_part, dfill};          \
     durf::WideArgs wa{specs, n_specs, slices, n_slices};                                         \

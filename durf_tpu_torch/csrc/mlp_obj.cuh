@@ -1,0 +1,522 @@
+// K3 and K4 at the object MLPs' width (8x128 trunk, head 128, F_in <= 128)
+// on Hopper's wgmma with operands staged by TMA (sm_90a), skipping every
+// (tile, object) pair that no ray of the tile hits.
+//
+// Both tile kernels have K1's and K2's shape (mlp_wide.cuh): two consumer
+// warpgroups own 64 rows each of a 128-sample tile, a producer warpgroup
+// keeps TMA loads of weight slices in flight through a 4-stage mbarrier
+// ring of 16 KB stages, and activations and cotangents sit in shared memory
+// in the 128-byte swizzle that wgmma reads. What is new is the object axis:
+//
+//  * The pair predicate. A tile spans the rays tile0 / S .. (tile0 + 127) /
+//    S, clipped to the batch; it runs object o iff hit[o][r] != 0 for some
+//    such ray (tile_runs). All threads of a block evaluate it from `hit`
+//    for every pair of the block's tiles at once, into shared memory, before
+//    the warps split, so the producer and the consumers walk the same
+//    sequence of pairs: the producer issues one object's slice schedule per
+//    pair that runs, with the object as the plane of the weight map, and
+//    the consumers take those slices.
+//  * Persistent blocks. One block per SM walks the tiles blockIdx.x,
+//    blockIdx.x + gridDim.x, ...: a tile that runs no object costs its
+//    predicate and its zero outputs, not a block launch, and the producer
+//    runs ahead into the next tile's weights while the consumers finish.
+//  * Exactness. For a 0/1 mask a skipped pair contributes 0 * MLP_o(x) to
+//    rgb and density and 0 * g to every cotangent (the TPU kernel computes
+//    it and multiplies by zero: durf_tpu/ops/pallas/obj_mlp.py:179-187,
+//    :264), so skipping it changes no output wherever MLP_o(x) is finite.
+//    What a skipped pair would have written (its saved activations, its
+//    cotangent rows) is never written, and every reader skips it too: K4's
+//    dW products skip the 64-sample stages whose rays all miss the object
+//    (wide_dw_kernel's DwSkip), its per-ray sums give 0 to a ray that
+//    misses (ray_sum_kernel), and dx rows of a tile that runs no object are
+//    written as zeros.
+//  * The maps. At this width every activation and cotangent segment is
+//    [N][128], so one 3-D map each covers all objects and layers (plane o *
+//    P + segment), and the forward weight pack of all objects is one map
+//    [objects][rows][128] (ops/kernels/hopper_mlp.py:obj_fwd_plan,
+//    obj_bwd_plan): the plan does not grow with the object count.
+//
+//  * obj_mlp_fwd_kernel (K3): per tile the shared input tile is loaded once
+//    (and only if some object runs), then each running object's MLP: its
+//    weights MN-major as they lie in the forward pack (a slice is a 64-row
+//    block of W_l, two 64 x 64 boxes), the epilogue (bias, cond_lin rows at
+//    head_0, relu, bf16) writing the activation tile in place, TMA stores of
+//    it overlapping the next layer when saving, the 1- and 3-wide heads on
+//    the CUDA cores, and the gated rgb and density summed in registers in
+//    object order. The warpgroups take turns on the tensor cores (K1's
+//    ping-pong).
+//  * obj_mlp_bwd_kernel (K4's tile kernel): per running object K2's reverse
+//    walk (G_l W_l^T with the forward pack as the K-major B, masks arriving
+//    by TMA, G leaving by TMA stores) with the output cotangents scaled by
+//    hit_o; dx of the x-parts (layer 0, the skip layer) summed over objects
+//    in registers in walk and object order and stored once per tile.
+
+#pragma once
+
+#include "mlp_wide.cuh"
+
+namespace durf {
+namespace obj {
+
+using wide::Plan;
+using wide::ROWS;
+using wide::Slice;
+
+constexpr int WIDTH = 128;                      // trunk and head width
+constexpr int TILE_BYTES = ROWS * WIDTH * 2;     // a 128 x 128 bf16 tile
+constexpr int SLICE = 16384;                     // one ring stage
+constexpr int STAGES = 4;
+constexpr int HEADS_FLOATS = 2 * WIDTH * 4;  // K3: one warpgroup's staged head weights
+// Map slots (hopper_mlp.py O_* and OB_*).
+enum { O_XSAVE = 0, O_ACT = 1, O_W = 2 };
+enum { OB_ACT = 0, OB_G = 1, OB_W = 2, OB_WX = 3 };
+
+struct ObjDesc {
+  int in_dim, xc, depth, skip, dc, n_rgb, n_den, s_per_ray, n_obj;
+  int act_planes, g_planes;  // planes of one object in the activation / cotangent maps
+  long long n, n_rays;
+  long long w_stride, b_stride;    // per-object strides of the weight and bias packs
+  long long act_stride, g_stride;  // per-object strides of the workspaces (elements)
+  long long g_rgb, g_den;          // K4: offsets of the 8-wide head cotangent rows in an object's G
+  long long w_off[MAX_LAYERS];     // bf16 forward-pack offsets
+  long long b_off[MAX_LAYERS];     // fp32 bias offsets
+};
+
+__host__ __device__ inline bool reads_x(const ObjDesc& d, int i) {
+  return i == 0 || ((i - 1) % d.skip == 0 && (i - 1) > 0);
+}
+
+// The slices the consumers take per object, which the schedule must match.
+__host__ inline int fwd_slices(const ObjDesc& d) {
+  int s = 0;
+  for (int i = 0; i < d.depth; ++i) s += (i > 0 ? 2 : 0) + (reads_x(d, i) ? d.xc : 0);
+  return s + 2 + 2 * d.dc;
+}
+__host__ inline int bwd_slices(const ObjDesc& d, bool dx) {
+  int s = 2 * d.dc + 2;
+  for (int i = d.depth - 1; i >= 0; --i) s += (i > 0 ? 2 : 0) + (dx && reads_x(d, i) ? 2 * d.xc : 0);
+  return s;
+}
+
+// Whether the tile at tile0 runs the object whose per-ray gates are hit_o.
+__device__ __forceinline__ bool tile_runs(const float* hit_o, long long tile0, long long n, int s) {
+  const long long r1 = (tile0 + ROWS - 1 < n ? tile0 + ROWS - 1 : n - 1) / s;
+  for (long long r = tile0 / s; r <= r1; ++r)
+    if (hit_o[r] != 0.f) return true;
+  return false;
+}
+
+// This block's tiles are blockIdx.x + k gridDim.x, k < block_tiles(d).
+__host__ __device__ inline long long block_tiles(const ObjDesc& d, long long block, long long grid) {
+  const long long tiles = (d.n + ROWS - 1) / ROWS;
+  return (tiles - block + grid - 1) / grid;
+}
+
+// Every thread: runs[k * n_obj + o] = whether the block's k-th tile runs
+// object o; then a CTA barrier (which also publishes the mbarriers thread 0
+// initialised).
+__device__ __forceinline__ void block_pairs(unsigned char* runs, const float* hit, const ObjDesc& d) {
+  const long long pairs = block_tiles(d, blockIdx.x, gridDim.x) * d.n_obj;
+  for (long long i = threadIdx.x; i < pairs; i += blockDim.x) {
+    const long long k = i / d.n_obj;
+    const int o = (int)(i - k * d.n_obj);
+    runs[i] = tile_runs(hit + o * d.n_rays, (blockIdx.x + k * gridDim.x) * ROWS, d.n, d.s_per_ray);
+  }
+  __syncthreads();
+}
+
+// The producer: for each tile of this block and each object the tile runs,
+// the schedule, each slice BOXES boxes at c0 + 64 b, the object added to
+// the plane.
+template <int BOXES>
+__device__ void produce(const Plan& plan, const unsigned char* runs, const ObjDesc& d,
+                        unsigned char* stages, uint64_t* full, uint64_t* empty) {
+  int i = 0;
+  const long long tiles = block_tiles(d, blockIdx.x, gridDim.x);
+  for (long long k = 0; k < tiles; ++k) {
+    for (int o = 0; o < d.n_obj; ++o) {
+      if (!runs[k * d.n_obj + o]) continue;
+      for (int k = 0; k < plan.n_slices; ++k, ++i) {
+        const int s = i % STAGES;
+        hop::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        const Slice sl = plan.slices[k];
+        const unsigned bytes = plan.box_bytes[sl.spec];
+        hop::mbar_expect_tx(&full[s], BOXES * bytes);
+        for (int b = 0; b < BOXES; ++b)
+          hop::tma_load(stages + s * SLICE + b * bytes, &plan.maps[sl.spec], &full[s],
+                        sl.c0 + 64 * b, sl.c1, sl.c2 + o);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  for (int s = 0; s < STAGES; ++s) {
+    hop::mbar_init(&full[s], 1);
+    hop::mbar_init(&empty[s], wide::CONSUMER_WARPS);
+  }
+}
+
+// ---- K3 ----
+
+// After a layer's products: the epilogue writes the activation tile in
+// place and, with `save`, a TMA store sends it to activation plane `plane`.
+template <bool RELU, bool COND>
+__device__ __forceinline__ void fwd_layer(const float (&acc)[WIDTH / 2], unsigned char* act,
+                                          const float* bias, const float* cond, const Plan& plan,
+                                          int save, int plane, long long tile0, long long n,
+                                          int s_per_ray, int wg, int t) {
+  wide::before_overwrite(wg, t);
+  wide::fwd_epilogue<WIDTH, RELU, COND>(acc, act, bias, cond, tile0, n, s_per_ray, wg, t);
+  wide::after_write(wg);
+  if (save) wide::store_rows(&plan.maps[O_ACT], act, WIDTH / 64, tile0, plane, wg, t);
+}
+
+// The 1- and 3-wide heads (c_out <= 4) of the object MLPs on the CUDA
+// cores. Their weights are staged per object as fp32 [WIDTH][4] in the
+// warpgroup's own scratch (`heads`: density, then rgb), so that a thread
+// reads them as broadcast float4s; the two threads of a row each sum half
+// of its columns, read as 16-byte chunks of the swizzled tile, and combine
+// with a shuffle. The sums run in wide::small_head_wide's order.
+__device__ __forceinline__ void stage_heads(float* heads, const bf16* w_den, int n_den,
+                                            const bf16* w_rgb, int n_rgb, int t) {
+  for (int i = t; i < WIDTH * 4; i += 128) {
+    const int k = i >> 2, c = i & 3;
+    heads[i] = c < n_den ? __bfloat162float(w_den[k * n_den + c]) : 0.f;
+    heads[WIDTH * 4 + i] = c < n_rgb ? __bfloat162float(w_rgb[k * n_rgb + c]) : 0.f;
+  }
+}
+__device__ __forceinline__ void small_head(const unsigned char* tile, const float* w4,
+                                           const float* bias, int c_out, int wg, int t,
+                                           float (&out)[4]) {
+  const int row = 64 * wg + (t >> 1), half = t & 1;
+  const unsigned char* r = tile + half * ROWS * 128 + row * 128;  // column block `half` of the row
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint4 v = *reinterpret_cast<const uint4*>(r + ((q ^ (row & 7)) << 4));
+    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float h = (e & 1) ? __high2float(v2[e >> 1]) : __low2float(v2[e >> 1]);
+      const float4 w = *reinterpret_cast<const float4*>(w4 + 4 * (half * 64 + 8 * q + e));
+      s[0] = fmaf(h, w.x, s[0]);
+      s[1] = fmaf(h, w.y, s[1]);
+      s[2] = fmaf(h, w.z, s[2]);
+      s[3] = fmaf(h, w.w, s[3]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    s[c] += __shfl_xor_sync(0xffffffffu, s[c], 1);
+    out[c] = c < c_out ? s[c] + bias[c] : 0.f;
+  }
+}
+
+// One tile of K3 on the consumer warpgroups: the shared input tile (if
+// some object runs), each running object's MLP, the gated sums.
+template <int XC>
+__device__ __forceinline__ void fwd_tile(long long tile0, const unsigned char* runs,
+                                         const float* __restrict__ x,
+                                         const float* __restrict__ hit,
+                                         const float* __restrict__ cond_lin,
+                                         const bf16* __restrict__ w, const float* __restrict__ b,
+                                         float* __restrict__ rgb_out, float* __restrict__ den_out,
+                                         int save, const Plan& plan, const ObjDesc& d,
+                                         unsigned char* act, unsigned char* xt, float* heads,
+                                         wide::Ring<STAGES, SLICE>& ring, int wg, int t) {
+  const long long n = d.n;
+  const long long sample = tile0 + 64 * wg + (t >> 1);  // this thread's row of the heads
+  const long long ray = sample < n ? sample / d.s_per_ray : 0;
+  float rgb_acc[4] = {0.f, 0.f, 0.f, 0.f}, den_acc[4] = {0.f, 0.f, 0.f, 0.f};
+  bool any = false;
+  for (int o = 0; o < d.n_obj; ++o) any |= runs[o] != 0;
+  if (any) {
+    wide::before_overwrite(wg, t);  // the last tile's stores have read the x and activation tiles
+    // The input tile: feature-major fp32 -> bf16 rows, zero past in_dim and n.
+    for (int i0 = t; i0 < XC * 64 * 64; i0 += 8 * 128) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * 128, f = i >> 6, r = i & 63;
+        const long long s = tile0 + 64 * wg + r;
+        v[u] = (f < d.in_dim && s < n) ? x[(long long)f * n + s] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * 128, f = i >> 6, r = i & 63;
+        *reinterpret_cast<bf16*>(xt + hop::swz(ROWS, 64 * wg + r, f)) = __float2bfloat16_rn(v[u]);
+      }
+    }
+    wide::after_write(wg);
+    if (save) wide::store_rows(&plan.maps[O_XSAVE], xt, XC, tile0, 0, wg, t);
+    const int l_rgb = d.depth + 2 + d.dc;
+    float acc[WIDTH / 2];
+    for (int o = 0; o < d.n_obj; ++o) {
+      if (!runs[o]) continue;
+      const bf16* wo = w + o * d.w_stride;
+      const float* bo = b + o * d.b_stride;
+      const float* co = cond_lin + o * d.n_rays * WIDTH;
+      const int z = o * d.act_planes;
+      for (int i = 0; i < d.depth; ++i) {
+        wide::zero(acc);
+        if (i > 0) wide::product<WIDTH, STAGES, true, true, SLICE>(acc, act, WIDTH / 64, ring, wg);
+        if (reads_x(d, i)) wide::product<WIDTH, STAGES, true, true, SLICE>(acc, xt, XC, ring, wg);
+        fwd_layer<true, false>(acc, act, bo + d.b_off[i], co, plan, save, z + i, tile0, n,
+                               d.s_per_ray, wg, t);
+        if (i == 0) {  // the heads' weights: the last object's rgb head has read them
+          stage_heads(heads, wo + d.w_off[d.depth], d.n_den, wo + d.w_off[l_rgb], d.n_rgb, t);
+          hop::named_sync(1 + wg, 128);
+        }
+      }
+      float den[4], rgb[4];
+      small_head(act, heads, bo + d.b_off[d.depth], d.n_den, wg, t, den);
+      wide::zero(acc);  // bottleneck, no activation
+      wide::product<WIDTH, STAGES, true, true, SLICE>(acc, act, WIDTH / 64, ring, wg);
+      fwd_layer<false, false>(acc, act, bo + d.b_off[d.depth + 1], co, plan, save, z + d.depth,
+                              tile0, n, d.s_per_ray, wg, t);
+      for (int i = 0; i < d.dc; ++i) {
+        wide::zero(acc);
+        wide::product<WIDTH, STAGES, true, true, SLICE>(acc, act, WIDTH / 64, ring, wg);
+        const float* bias = bo + d.b_off[d.depth + 2 + i];
+        if (i == 0)
+          fwd_layer<true, true>(acc, act, bias, co, plan, save, z + d.depth + 1, tile0, n,
+                                d.s_per_ray, wg, t);
+        else
+          fwd_layer<true, false>(acc, act, bias, co, plan, save, z + d.depth + 1 + i, tile0, n,
+                                 d.s_per_ray, wg, t);
+      }
+      small_head(act, heads + WIDTH * 4, bo + d.b_off[l_rgb], d.n_rgb, wg, t, rgb);
+      const float g = hit[o * d.n_rays + ray];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        rgb_acc[c] += g * rgb[c];
+        den_acc[c] += g * den[c];
+      }
+    }
+  }
+  if ((t & 1) == 0 && sample < n) {
+    for (int c = 0; c < d.n_rgb; ++c) rgb_out[c * n + sample] = rgb_acc[c];
+    for (int c = 0; c < d.n_den; ++c) den_out[c * n + sample] = den_acc[c];
+  }
+}
+
+template <int XC>
+__global__ void __launch_bounds__(wide::THREADS_TILE, 1)
+    obj_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ hit,
+                       const float* __restrict__ cond_lin, const bf16* __restrict__ w,
+                       const float* __restrict__ b, float* __restrict__ rgb_out,
+                       float* __restrict__ den_out, int save, const __grid_constant__ Plan plan,
+                       const __grid_constant__ ObjDesc d) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* act = wide::align1024(smem_raw);
+  unsigned char* xt = act + TILE_BYTES;
+  unsigned char* stages = xt + XC * ROWS * 128;
+  float* heads = reinterpret_cast<float*>(stages + STAGES * SLICE);  // [2 warpgroups][2][WIDTH][4]
+  uint64_t* full = reinterpret_cast<uint64_t*>(heads + 2 * HEADS_FLOATS);
+  uint64_t* empty = full + STAGES;
+  unsigned char* runs = reinterpret_cast<unsigned char*>(empty + STAGES);
+  if (threadIdx.x == 0) {
+    init_ring(full, empty);
+    hop::mbar_init_fence();
+  }
+  block_pairs(runs, hit, d);
+  if (threadIdx.x >= 256) {
+    hop::setmaxnreg_dec<wide::PRODUCER_REGS>();
+    if (threadIdx.x == 256) produce<2>(plan, runs, d, stages, full, empty);
+    return;
+  }
+  hop::setmaxnreg_inc<wide::CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  wide::Ring<STAGES, SLICE> ring{stages, full, empty, 0};
+  if (wg == 1) hop::named_arrive(3, 256);  // warpgroup 0 takes the first turn
+  const long long tiles = block_tiles(d, blockIdx.x, gridDim.x);
+  for (long long k = 0; k < tiles; ++k)
+    fwd_tile<XC>((blockIdx.x + k * gridDim.x) * ROWS, runs + k * d.n_obj, x, hit, cond_lin, w, b,
+                 rgb_out, den_out, save, plan, d, act, xt, heads + wg * HEADS_FLOATS, ring, wg, t);
+  if (wg == 0) hop::named_sync(3, 256);  // warpgroup 1's arrival after its last turn
+  if (t == 0) hop::tma_store_wait_read();
+}
+
+// ---- K4: the tile kernel ----
+
+// One step of the reverse walk: acc = G W_l^T over the next two slices
+// while (MASK) the activation plane `mask_plane` arrives for the relu
+// mask; the epilogue (DEN: with the density head's term, cotangents scaled
+// by the object's gates) writes G_{l-1} into gt, and a TMA store sends it
+// to cotangent plane `g_plane`.
+template <bool MASK, bool DEN>
+__device__ __forceinline__ void bwd_step(float (&acc)[WIDTH / 2], unsigned char* gt,
+                                         unsigned char* mt, const Plan& plan,
+                                         wide::Ring<STAGES, SLICE>& ring, uint64_t* bar,
+                                         int& mphase, int mask_plane, int g_plane,
+                                         const float* g_den, const bf16* w_den, int n_den,
+                                         const float* hit_o, int s_per_ray, long long tile0,
+                                         long long n, int wg, int t) {
+  if (MASK) wide::load_rows(&plan.maps[OB_ACT], mt, WIDTH / 64, tile0, mask_plane, bar, wg, t);
+  wide::zero(acc);
+  wide::product<WIDTH, STAGES, false, false, SLICE>(acc, gt, WIDTH / 64, ring, wg);
+  if (MASK) {
+    hop::mbar_wait(bar, mphase);
+    mphase ^= 1;
+  }
+  wide::before_overwrite(wg, t);
+  wide::bwd_epilogue<WIDTH, MASK, DEN, DEN>(acc, gt, mt, g_den, w_den, n_den, tile0, n, wg, t, hit_o,
+                                            s_per_ray);
+  wide::after_write(wg);
+  wide::store_rows(&plan.maps[OB_G], gt, WIDTH / 64, tile0, g_plane, wg, t);
+}
+
+// One tile of K4's tile kernel on the consumer warpgroups: each running
+// object's reverse walk, then the tile's dx rows (zeros if none runs).
+template <int XC>
+__device__ __forceinline__ void bwd_tile(long long tile0, const unsigned char* runs,
+                                         const float* __restrict__ g_rgb,
+                                         const float* __restrict__ g_den,
+                                         const float* __restrict__ hit, const bf16* __restrict__ w,
+                                         const bf16* __restrict__ act, bf16* __restrict__ g,
+                                         float* __restrict__ dx, const Plan& plan,
+                                         const ObjDesc& d, unsigned char* gt, unsigned char* mt,
+                                         wide::Ring<STAGES, SLICE>& ring, uint64_t* bar,
+                                         int& mphase, int wg, int t) {
+  const long long n = d.n;
+  const int l_h0 = d.depth + 2;
+  float acc[WIDTH / 2];
+  float dxa[XC][32];  // this thread's dx elements, summed over the x-parts and objects
+#pragma unroll
+  for (int c = 0; c < XC; ++c) wide::zero(dxa[c]);
+  for (int o = 0; o < d.n_obj; ++o) {
+    if (!runs[o]) continue;
+    const float* hit_o = hit + o * d.n_rays;
+    const bf16* wo = w + o * d.w_stride;
+    bf16* go = g + o * d.g_stride;
+    const int za = o * d.act_planes, zg = o * d.g_planes;
+    wide::before_overwrite(wg, t);  // the last G store has read gt
+    wide::rgb_head_bwd_wide<true>(gt, reinterpret_cast<float*>(mt + wg * 64 * 128),
+                                  act + o * d.act_stride + (long long)(d.depth + d.dc) * WIDTH * n,
+                                  wo + d.w_off[l_h0 + d.dc], d.n_rgb, g_rgb, g_den, d.n_den,
+                                  go + d.g_rgb, go + d.g_den, tile0, n, wg, t, hit_o, d.s_per_ray);
+    wide::after_write(wg);
+    wide::store_rows(&plan.maps[OB_G], gt, WIDTH / 64, tile0, zg + d.depth + d.dc, wg, t);
+    for (int i = d.dc - 1; i >= 1; --i)  // head_i -> head_{i-1}
+      bwd_step<true, false>(acc, gt, mt, plan, ring, bar, mphase, za + d.depth + i,
+                            zg + d.depth + i, g_den, wo, 0, hit_o, d.s_per_ray, tile0, n, wg, t);
+    // head_0 -> bottleneck (no activation)
+    bwd_step<false, false>(acc, gt, mt, plan, ring, bar, mphase, 0, zg + d.depth, g_den, wo, 0,
+                           hit_o, d.s_per_ray, tile0, n, wg, t);
+    // bottleneck and density head -> trunk_{depth-1}
+    bwd_step<true, true>(acc, gt, mt, plan, ring, bar, mphase, za + d.depth - 1, zg + d.depth - 1,
+                         g_den, wo + d.w_off[d.depth], d.n_den, hit_o, d.s_per_ray, tile0, n, wg,
+                         t);
+    for (int i = d.depth - 1; i >= 0; --i) {
+      if (reads_x(d, i) && dx != nullptr) {
+#pragma unroll
+        for (int c = 0; c < XC; ++c) {
+          float accx[32];
+          wide::zero(accx);
+          wide::product<64, STAGES, false, false, SLICE>(accx, gt, WIDTH / 64, ring, wg);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dxa[c][e] += accx[e];
+        }
+      }
+      if (i == 0) break;
+      bwd_step<true, false>(acc, gt, mt, plan, ring, bar, mphase, za + i - 1, zg + i - 1, g_den, wo,
+                            0, hit_o, d.s_per_ray, tile0, n, wg, t);
+    }
+  }
+  if (dx != nullptr) {
+#pragma unroll
+    for (int c = 0; c < XC; ++c) wide::dx_accumulate(dxa[c], dx, c, d.in_dim, tile0, n, true, wg, t);
+  }
+}
+
+template <int TAG, int XC>
+__global__ void __launch_bounds__(wide::THREADS_TILE, 1)
+    obj_mlp_bwd_kernel(const float* __restrict__ g_rgb, const float* __restrict__ g_den,
+                       const float* __restrict__ hit, const bf16* __restrict__ w,
+                       const bf16* __restrict__ act, bf16* __restrict__ g, float* __restrict__ dx,
+                       const __grid_constant__ Plan plan, const __grid_constant__ ObjDesc d) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* gt = wide::align1024(smem_raw);
+  unsigned char* mt = gt + TILE_BYTES;
+  unsigned char* stages = mt + TILE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * SLICE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* mbar = empty + STAGES;  // one per warpgroup: its activation rows
+  unsigned char* runs = reinterpret_cast<unsigned char*>(mbar + 2);
+  if (threadIdx.x == 0) {
+    init_ring(full, empty);
+    hop::mbar_init(&mbar[0], 1);
+    hop::mbar_init(&mbar[1], 1);
+    hop::mbar_init_fence();
+  }
+  block_pairs(runs, hit, d);
+  if (threadIdx.x >= 256) {
+    hop::setmaxnreg_dec<wide::PRODUCER_REGS>();
+    if (threadIdx.x == 256) produce<1>(plan, runs, d, stages, full, empty);
+    return;
+  }
+  hop::setmaxnreg_inc<wide::CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  wide::Ring<STAGES, SLICE> ring{stages, full, empty, 0};
+  int mphase = 0;
+  const long long tiles = block_tiles(d, blockIdx.x, gridDim.x);
+  for (long long k = 0; k < tiles; ++k)
+    bwd_tile<XC>((blockIdx.x + k * gridDim.x) * ROWS, runs + k * d.n_obj, g_rgb, g_den, hit, w, act,
+                 g, dx, plan, d, gt, mt, ring, &mbar[wg], mphase, wg, t);
+  if (t == 0) hop::tma_store_wait_read();
+}
+
+// ---- host ----
+
+// Persistent blocks: one per SM, at most one per tile.
+inline unsigned grid_of(const ObjDesc& d) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = (d.n + ROWS - 1) / ROWS;
+  return (unsigned)(tiles < sms ? tiles : sms);
+}
+// The pair flags of block 0, which has the most tiles.
+inline size_t runs_bytes(const ObjDesc& d) { return (size_t)(block_tiles(d, 0, grid_of(d)) * d.n_obj); }
+inline size_t fwd_smem(const ObjDesc& d) {
+  return 1024 + TILE_BYTES + (size_t)d.xc * ROWS * 128 + STAGES * SLICE + 2 * HEADS_FLOATS * 4 +
+         2 * STAGES * 8 + runs_bytes(d);
+}
+inline size_t bwd_smem(const ObjDesc& d) {
+  return 1024 + 2 * TILE_BYTES + STAGES * SLICE + (2 * STAGES + 2) * 8 + runs_bytes(d);
+}
+
+// The descriptor from the entry points' arguments; -1 where the kernels do
+// not take the shape.
+inline int make_desc(ObjDesc& d, int in_dim, int width, int depth, int skip, int wc, int dc,
+                     int n_rgb, int n_den, const long long* w_off, const long long* b_off,
+                     int n_layers, long long n, long long n_rays, int s_per_ray, int n_obj,
+                     long long w_stride, long long b_stride, long long act_stride) {
+  if (width != WIDTH || wc != WIDTH || n_layers != depth + dc + 3 || n_layers > MAX_LAYERS) return -1;
+  d = ObjDesc{};
+  d.in_dim = in_dim;
+  d.xc = (in_dim + 63) / 64;
+  d.depth = depth;
+  d.skip = skip;
+  d.dc = dc;
+  d.n_rgb = n_rgb;
+  d.n_den = n_den;
+  d.s_per_ray = s_per_ray;
+  d.n_obj = n_obj;
+  d.act_planes = depth + 1 + dc;
+  d.g_planes = depth + 2 + dc;
+  d.n = n;
+  d.n_rays = n_rays;
+  d.w_stride = w_stride;
+  d.b_stride = b_stride;
+  d.act_stride = act_stride;
+  for (int l = 0; l < n_layers; ++l) {
+    d.w_off[l] = w_off[l];
+    d.b_off[l] = b_off == nullptr ? 0 : b_off[l];
+  }
+  return d.xc > 2 || n_rgb > 4 || n_den > 4 ? -1 : 0;
+}
+
+}  // namespace obj
+}  // namespace durf

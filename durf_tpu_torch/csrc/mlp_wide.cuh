@@ -1,5 +1,7 @@
 // K1 and K2 at the flagship widths (8x256 trunk, head 128) on Hopper's
-// wgmma with operands staged by TMA (sm_90a).
+// wgmma with operands staged by TMA (sm_90a). K3 and K4 at the object width
+// (mlp_obj.cuh) build on the same ring, products and epilogues, and K4's
+// weight gradients are wide_dw_kernel with the object axis (OBJ).
 //
 // The tile kernels run three warpgroups: two consumers and a producer, which
 // gives registers up to the consumers (setmaxnreg 40 and 232; ptxas still
@@ -27,7 +29,7 @@
 //    arrives by TMA while layer l's product runs, so the relu mask is read
 //    from shared memory; G_{l-1} goes out by a TMA store from the tile the
 //    next product reads.
-//  * wide_dw_kernel (K2's weight gradients): dW = A^T G over a slice of
+//  * wide_dw_kernel (K2's and K4's weight gradients): dW = A^T G over a slice of
 //    samples per block, 128 x N output tiles (N = the layer's 64, 128 or
 //    256 columns) over the two warpgroups, both operands MN-major (samples
 //    are rows in device memory), 64 samples a stage, 4 stages. The row tiles
@@ -130,7 +132,8 @@ __device__ void produce(const Plan& plan, unsigned char* stages, uint64_t* full,
   }
 }
 
-template <int STAGES>
+// SB: the bytes of one stage (K3 and K4 at the object width: 16 KB).
+template <int STAGES, int SB = SLICE_BYTES>
 struct Ring {
   unsigned char* stages;
   uint64_t* full;
@@ -164,13 +167,15 @@ __device__ __forceinline__ void zero(float (&acc)[R]) {
 __device__ __forceinline__ void turn_begin(int wg) { hop::named_sync(3 + wg, 256); }
 __device__ __forceinline__ void turn_end(int wg) { hop::named_arrive(3 + (wg ^ 1), 256); }
 
-// acc += A[rows of this warpgroup][0 .. 64 n_slices) B^T over the next
+// acc += A[rows of this warpgroup][0 .. 64 n_slices) B over the next
 // n_slices slices of the ring. A is a swizzled tile of ROWS rows whose
-// 64-column block b starts at a + b * ROWS * 128; each slice holds the N
-// rows of B (K-major) for one 64-column block. TURNS: one ping-pong turn.
-template <int N, int STAGES, bool TURNS = false>
+// 64-column block b starts at a + b * ROWS * 128; each slice holds B for
+// one 64-row block of K: its N rows of 64 K-major columns, or (B_MN) its 64
+// rows of N columns, MN-major, as N / 64 boxes of 64 x 64 at 8 KB steps.
+// TURNS: one ping-pong turn.
+template <int N, int STAGES, bool TURNS = false, bool B_MN = false, int SB = SLICE_BYTES>
 __device__ void product(float (&acc)[N / 2], const unsigned char* a, int n_slices,
-                        Ring<STAGES>& ring, int wg) {
+                        Ring<STAGES, SB>& ring, int wg) {
   hop::fence_acc(acc);
   if (TURNS) turn_begin(wg);
   int prev = -1;
@@ -178,11 +183,16 @@ __device__ void product(float (&acc)[N / 2], const unsigned char* a, int n_slice
     const int st = ring.take();
     hop::wgmma_fence();
     const uint32_t a0 = hop::smem_u32(a) + s * ROWS * 128 + wg * 64 * 128;
-    const uint32_t b0 = hop::smem_u32(ring.stages + st * SLICE_BYTES);
+    const uint32_t b0 = hop::smem_u32(ring.stages + st * SB);
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      hop::wgmma<N, 0, 0>(acc, hop::desc_sw128(a0 + 32 * k, 16, 1024),
-                          hop::desc_sw128(b0 + 32 * k, 16, 1024), 1);
+    for (int k = 0; k < 4; ++k) {
+      if (B_MN)
+        hop::wgmma<N, 0, 1>(acc, hop::desc_sw128(a0 + 32 * k, 16, 1024),
+                            hop::desc_sw128(b0 + 2048 * k, 64 * 128, 1024), 1);
+      else
+        hop::wgmma<N, 0, 0>(acc, hop::desc_sw128(a0 + 32 * k, 16, 1024),
+                            hop::desc_sw128(b0 + 32 * k, 16, 1024), 1);
+    }
     hop::wgmma_commit();
     if (TURNS && s == n_slices - 1) turn_end(wg);
     if (prev >= 0) {
@@ -391,21 +401,25 @@ __global__ void __launch_bounds__(THREADS_TILE, 1)
 
 // G tile[row, col] = bf16(relu'(row, col) * (acc + den_term)), MASK: relu'
 // from the activation tile `mask`; DEN: den_term = sum_c gd_c w_den[col][c]
-// with gd_c = bf16(g_den[c][sample]) (n_den <= 4). Rows at or past n become 0.
-template <int N, bool MASK, bool DEN>
+// with gd_c = bf16(h g_den[c][sample]) (n_den <= 4), h = hit[ray] with HIT
+// (the object's 0/1 gate, S samples a ray), else 1. Rows at or past n
+// become 0.
+template <int N, bool MASK, bool DEN, bool HIT = false>
 __device__ void bwd_epilogue(const float (&acc)[N / 2], unsigned char* __restrict__ gt,
                              const unsigned char* __restrict__ mask, const float* __restrict__ g_den,
                              const bf16* __restrict__ w_den, int n_den, long long tile0,
-                             long long n, int wg, int t) {
+                             long long n, int wg, int t, const float* __restrict__ hit = nullptr,
+                             int s_per_ray = 1) {
   bool valid[2];
   float gd[2][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const long long sample = tile0 + 64 * wg + acc_row(t, i);
     valid[i] = sample < n;
+    const float h = (HIT && DEN && valid[i]) ? hit[sample / s_per_ray] : 1.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      gd[i][c] = (DEN && valid[i] && c < n_den) ? bf16_round(g_den[c * n + sample]) : 0.f;
+      gd[i][c] = (DEN && valid[i] && c < n_den) ? bf16_round(h * g_den[c * n + sample]) : 0.f;
   }
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
@@ -471,21 +485,25 @@ __device__ void dx_accumulate(const float (&acc)[32], float* dx, int c, int in_d
 
 // The rgb head's vjp on the CUDA cores (two threads per row, half of the
 // head's columns each): G tile[row][k] = bf16((act_last[sample][k] > 0) *
-// sum_c gr_c w_rgb[k][c]) with gr_c = bf16(g_rgb[c][sample]); also the
-// rounded head cotangents as 8-wide rows of G_rgb and G_den. `scratch`
-// (2 KB of the warpgroup's own shared memory) holds w_rgb as fp32 [WC][4].
+// sum_c gr_c w_rgb[k][c]) with gr_c = bf16(h g_rgb[c][sample]); also the
+// rounded head cotangents bf16(h g) as 8-wide rows of G_rgb and G_den; h =
+// hit[ray] with HIT, else 1. `scratch` (2 KB of the warpgroup's own shared
+// memory) holds w_rgb as fp32 [WC][4].
+template <bool HIT = false>
 __device__ void rgb_head_bwd_wide(unsigned char* gt, float* scratch, const bf16* act_last,
                                   const bf16* w_rgb, int n_rgb, const float* g_rgb,
                                   const float* g_den, int n_den, bf16* g_rgb_out, bf16* g_den_out,
-                                  long long tile0, long long n, int wg, int t) {
+                                  long long tile0, long long n, int wg, int t,
+                                  const float* hit = nullptr, int s_per_ray = 1) {
   for (int i = t; i < WC * 4; i += 128)
     scratch[i] = (i & 3) < n_rgb ? __bfloat162float(w_rgb[(i >> 2) * n_rgb + (i & 3)]) : 0.f;
   hop::named_sync(1 + wg, 128);
   const int row = 64 * wg + (t >> 1), half = t & 1;
   const long long sample = tile0 + row;
   const bool valid = sample < n;
+  const float h = (HIT && valid) ? hit[sample / s_per_ray] : 1.f;
   float gr[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = 0; valid && c < n_rgb; ++c) gr[c] = bf16_round(g_rgb[c * n + sample]);
+  for (int c = 0; valid && c < n_rgb; ++c) gr[c] = bf16_round(h * g_rgb[c * n + sample]);
   const int k0 = half * (WC / 2);
   uint4 a8s[WC / 16];  // this thread's activations, loaded ahead of the stores
 #pragma unroll
@@ -512,7 +530,7 @@ __device__ void rgb_head_bwd_wide(unsigned char* gt, float* scratch, const bf16*
     const int nc = half == 0 ? n_rgb : n_den;
     __align__(16) bf16 r8[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) r8[c] = __float2bfloat16_rn(c < nc ? src[c * n + sample] : 0.f);
+    for (int c = 0; c < 8; ++c) r8[c] = __float2bfloat16_rn(c < nc ? h * src[c * n + sample] : 0.f);
     *reinterpret_cast<uint4*>((half == 0 ? g_rgb_out : g_den_out) + sample * 8) =
         *reinterpret_cast<const uint4*>(r8);
   }
@@ -616,16 +634,33 @@ __global__ void __launch_bounds__(THREADS_TILE, 1)
   if (t == 0) hop::tma_store_wait_read();
 }
 
-// ---- K2: the weight gradients ----
+// ---- K2's and K4's weight gradients ----
 
 // Job fields (ops/kernels/fused_mlp.py:dw_jobs, JOB_FIELDS): A buffer (0
 // x_save, 1 act), A offset, lda, G offset, ldg, k, j, out, bias, first
 // tile, row tiles, column tiles (1 here: a tile spans all j <= 256 columns).
 constexpr int JF = 12;
 
-template <int N>
-__device__ void dw_tile(const long long* job, int tm, long long s_begin, int nks, float* p,
-                        unsigned char* stages, uint64_t* full, uint64_t* empty, int wg, int t) {
+// K4 (OBJ): the stages a block walks for object o. A 64-sample stage runs
+// iff some ray it spans hits the object: its G rows were then written by
+// the tile kernel (whose tile spans the same ray); a stage whose rays all
+// miss would add 0 (G is zero on those rows, or never written). The block's
+// threads evaluate it for all its stages at once, into shared memory.
+struct DwSkip {
+  const float* hit;  // the object's [n_rays] 0/1 gates
+  long long n;
+  int s_per_ray;
+  __device__ bool runs(long long s0) const {
+    const long long r1 = (s0 + DW_BK - 1 < n ? s0 + DW_BK - 1 : n - 1) / s_per_ray;
+    for (long long r = s0 / s_per_ray; r <= r1; ++r)
+      if (hit[r] != 0.f) return true;
+    return false;
+  }
+};
+
+template <int N, bool OBJ>
+__device__ void dw_tile(const long long* job, int tm, int nks, float* p, unsigned char* stages,
+                        uint64_t* full, uint64_t* empty, int wg, int t, const unsigned char* runs) {
   const int k = (int)job[5], j = (int)job[6];
   const long long out = job[7], bias = job[8];
   const bool rows = 128 * tm + 64 * wg < k;
@@ -640,9 +675,12 @@ __device__ void dw_tile(const long long* job, int tm, long long s_begin, int nks
   zero(bsum);
   hop::fence_acc(acc);
   int prev = -1;
+  int ran = 0;  // stages taken (OBJ); K2 takes every stage
   for (int ks = 0; ks < nks; ++ks) {
-    const int st = ks % DW_STAGES;
-    hop::mbar_wait(&full[st], (ks / DW_STAGES) & 1);
+    if (OBJ && !runs[ks]) continue;
+    const int i = OBJ ? ran++ : ks;
+    const int st = i % DW_STAGES;
+    hop::mbar_wait(&full[st], (i / DW_STAGES) & 1);
     unsigned char* sa = stages + st * DW_STAGE;
     unsigned char* sg = sa + 2 * DW_BOX;
     if (rows) {
@@ -708,18 +746,27 @@ __device__ void dw_tile(const long long* job, int tm, long long s_begin, int nks
   }
 }
 
-// Block b: split b / n_tiles (samples [split * chunk, ...)), output tile
-// b % n_tiles. Every (tile, split) writes its own partial sums.
-template <int TAG>
+// Block b: output tile b % n_tiles and split b / n_tiles (samples [split *
+// chunk, ...)); with OBJ (K4) the jobs are one object's, and block b takes
+// object (b / n_tiles) % n_obj of split b / (n_tiles n_obj): its A and G
+// boxes from plane o of the maps (A from x_save: plane 0), its outputs at
+// o * per_obj, and only the stages of its split that DwSkip runs (flags
+// after the ring: chunk / DW_BK bytes of shared memory). Every (tile,
+// object, split) writes its own partial sums.
+template <int TAG, bool OBJ = false>
 __global__ void __launch_bounds__(THREADS_DW, 1)
     wide_dw_kernel(const long long* __restrict__ jobs, int n_jobs, int n_tiles, long long n,
                    long long chunk, float* __restrict__ part, long long total,
-                   const __grid_constant__ DwPlan plan) {
+                   const __grid_constant__ DwPlan plan, const float* __restrict__ hit, int n_obj,
+                   long long n_rays, int s_per_ray, long long per_obj) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* stages = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(stages + DW_STAGES * DW_STAGE);
   uint64_t* empty = full + DW_STAGES;
-  const int tile = blockIdx.x % n_tiles, split = blockIdx.x / n_tiles;
+  unsigned char* runs = reinterpret_cast<unsigned char*>(empty + DW_STAGES);
+  const int tile = blockIdx.x % n_tiles;
+  const int o = OBJ ? (blockIdx.x / n_tiles) % n_obj : 0;
+  const int split = OBJ ? blockIdx.x / n_tiles / n_obj : blockIdx.x / n_tiles;
   int jb = 0;
   while (jb + 1 < n_jobs && jobs[(jb + 1) * JF + 9] <= tile) ++jb;
   const long long* job = jobs + jb * JF;
@@ -735,28 +782,37 @@ __global__ void __launch_bounds__(THREADS_DW, 1)
     }
     hop::mbar_init_fence();
   }
+  if (OBJ) {
+    const DwSkip skip{hit + o * n_rays, n, s_per_ray};
+    for (int ks = threadIdx.x; ks < nks; ks += blockDim.x)
+      runs[ks] = skip.runs(s_begin + (long long)ks * DW_BK);
+  }
   __syncthreads();
   const int a_boxes = min(2, (k - 128 * tm + 63) / 64), g_boxes = (j + 63) / 64;
   if (threadIdx.x >= 256) {
     if (threadIdx.x != 256) return;
+    const int za = job[0] == BUF_XSAVE ? 0 : o;
+    int ran = 0;
     for (int ks = 0; ks < nks; ++ks) {
-      const int st = ks % DW_STAGES;
-      hop::mbar_wait(&empty[st], ((ks / DW_STAGES) & 1) ^ 1);
+      if (OBJ && !runs[ks]) continue;
+      const int s0 = (int)(s_begin + (long long)ks * DW_BK);
+      const int i = OBJ ? ran++ : ks;
+      const int st = i % DW_STAGES;
+      hop::mbar_wait(&empty[st], ((i / DW_STAGES) & 1) ^ 1);
       hop::mbar_expect_tx(&full[st], (a_boxes + g_boxes) * DW_BOX);
       unsigned char* sa = stages + st * DW_STAGE;
-      const int s0 = (int)(s_begin + (long long)ks * DW_BK);
       for (int b = 0; b < a_boxes; ++b)
-        hop::tma_load(sa + b * DW_BOX, &plan.a[jb], &full[st], 128 * tm + 64 * b, s0, 0);
+        hop::tma_load(sa + b * DW_BOX, &plan.a[jb], &full[st], 128 * tm + 64 * b, s0, za);
       for (int c = 0; c < g_boxes; ++c)
-        hop::tma_load(sa + (2 + c) * DW_BOX, &plan.g[jb], &full[st], 64 * c, s0, 0);
+        hop::tma_load(sa + (2 + c) * DW_BOX, &plan.g[jb], &full[st], 64 * c, s0, o);
     }
     return;
   }
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-  float* p = part + (long long)split * total;
-  if (g_boxes == 1) dw_tile<64>(job, tm, s_begin, nks, p, stages, full, empty, wg, t);
-  else if (g_boxes == 2) dw_tile<128>(job, tm, s_begin, nks, p, stages, full, empty, wg, t);
-  else dw_tile<256>(job, tm, s_begin, nks, p, stages, full, empty, wg, t);
+  float* p = part + (long long)split * total + o * per_obj;
+  if (g_boxes == 1) dw_tile<64, OBJ>(job, tm, nks, p, stages, full, empty, wg, t, runs);
+  else if (g_boxes == 2) dw_tile<128, OBJ>(job, tm, nks, p, stages, full, empty, wg, t, runs);
+  else dw_tile<256, OBJ>(job, tm, nks, p, stages, full, empty, wg, t, runs);
 }
 
 // ---- host ----
@@ -765,7 +821,8 @@ inline size_t fwd_smem(const WideDesc& d) {
   return 1024 + TILE_BYTES + (size_t)d.xc * ROWS * 128 + FWD_STAGES * SLICE_BYTES + 2 * FWD_STAGES * 8;
 }
 inline size_t bwd_smem() { return 1024 + 2 * TILE_BYTES + BWD_STAGES * SLICE_BYTES + (2 * BWD_STAGES + 2) * 8; }
-inline size_t dw_smem() { return 1024 + DW_STAGES * DW_STAGE + 2 * DW_STAGES * 8; }
+// `flags`: K4's per-stage flags (chunk / DW_BK bytes).
+inline size_t dw_smem(size_t flags = 0) { return 1024 + DW_STAGES * DW_STAGE + 2 * DW_STAGES * 8 + flags; }
 
 // Encode the plan's maps over the buffers by id (nullptr: that map is not
 // used and stays unencoded) and copy the schedule. Returns 0 or an error.
@@ -811,15 +868,20 @@ inline void fill_desc(WideDesc& wd, const MlpDesc& d, long long n, int s_per_ray
 }
 
 // The dW maps of every job: A over the rows of x_save or act, G over the
-// cotangent workspace, [n][ld] bf16, boxes 64 columns x DW_BK samples.
+// cotangent workspace, [n][ld] bf16, boxes 64 columns x DW_BK samples; with
+// n_obj > 1 (K4) act and g hold one plane per object, act_stride and
+// g_stride elements apart.
 inline int make_dw_plan(DwPlan& plan, const long long* jobs_host, int n_jobs, long long n,
-                        const void* x_save, const void* act, const void* g) {
+                        const void* x_save, const void* act, const void* g, int n_obj = 1,
+                        long long act_stride = 0, long long g_stride = 0) {
   if (n_jobs > MAX_JOBS) return -1;
   plan = DwPlan{};
   for (int i = 0; i < n_jobs; ++i) {
     const long long* jb = jobs_host + (long long)i * JF;
-    const MapSpec a{jb[0], jb[1], jb[2], n, 1, jb[2], jb[2] * n, 64, DW_BK};
-    const MapSpec gs{BUF_G, jb[3], jb[4], n, 1, jb[4], jb[4] * n, 64, DW_BK};
+    const bool shared = jb[0] == BUF_XSAVE || n_obj == 1;
+    const MapSpec a{jb[0], jb[1], jb[2], n, shared ? 1 : n_obj, jb[2],
+                    shared ? jb[2] * n : act_stride, 64, DW_BK};
+    const MapSpec gs{BUF_G, jb[3], jb[4], n, n_obj, jb[4], n_obj == 1 ? jb[4] * n : g_stride, 64, DW_BK};
     int err = encode_map(&plan.a[i], jb[0] == BUF_XSAVE ? x_save : act, a);
     if (err == 0) err = encode_map(&plan.g[i], g, gs);
     if (err != 0) return err;

@@ -625,10 +625,10 @@ _OFFS = _c.POINTER(_c.c_longlong)
 _FWD_ARGTYPES = [_P] * 6 + [_L] + [_I] * 9 + [_OFFS, _OFFS, _I, _P, _P, _OFFS, _I, _P]
 _PLAN_ARGTYPES = [_OFFS, _I, _OFFS, _I]
 _K1_ARGTYPES = _FWD_ARGTYPES[:-1] + [_P] + _PLAN_ARGTYPES + [_P]
-# The K2 / K4 / K6 entry point (DURF_DEFINE_BWD_ENTRY in csrc/mlp_bwd.cuh).
+# The K2 / K6 entry point (DURF_DEFINE_BWD_ENTRY in csrc/mlp_bwd.cuh).
 BWD_ARGTYPES = (
-    [_P, _P, _P, _L] + [_P] * 9 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 10
-    + [_OFFS] * 5 + [_I, _L, _L, _L, _L] + [_P] * 6 + _PLAN_ARGTYPES + [_P]
+    [_P, _P, _L] + [_P] * 9 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 9
+    + [_OFFS] * 5 + [_I] + [_P] * 6 + _PLAN_ARGTYPES + [_P]
 )
 _NO_PLAN = (None, 0, None, 0)
 
@@ -677,19 +677,17 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
     return rgb, den, res
 
 
-def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_ray, need_dx,
+def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, need_dx,
                gate=None):
-    """Allocate the backward's workspace and launch K2, K4 or K6 (the C entry
+    """Allocate the backward's workspace and launch K2 or K6 (the C entry
     point `name` of csrc/<what>.cu) on the residuals the forward saved.
     `gate` = (x rows [N, F] bf16, gate [B] fp32, fill [F] bf16) for K6, whose
-    dx is then always formed. Returns (dx [F, N] or None, d cond_lin
-    [N_obj, B, W_c], flat weight grads [N_obj * per-object total], and for K6
-    (dgate [N] per sample, dfill [F]))."""
+    dx is then always formed. Returns (dx [F, N] or None, d cond_lin [B,
+    W_c], flat weight grads, and for K6 (dgate [N] per sample, dfill [F]))."""
     check_bwd_config(config, what)
-    x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim = residuals
+    x_save, act, act_offs, _, (w, w_offs, _), in_dim = residuals
     dev = x_save.device
     n = x_save.shape[0]
-    n_obj = 1 if hit is None else hit.shape[0]
     n_rays = n // s_per_ray
     g_rgb = g_rgb.contiguous() if g_rgb is not None else torch.zeros(
         (config.num_rgb_channels, n), dtype=torch.float32, device=dev)
@@ -698,18 +696,17 @@ def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_
     check_cuda_operand(g_rgb, "g_rgb", dev, (config.num_rgb_channels, n))
     check_cuda_operand(g_den, "g_den", dev, (config.num_density_channels, n))
     need_dx = need_dx or gate is not None
-    g_offs, g_stride = g_layout(config, n)
-    wide = what == "fused_mlp_bwd" and hopper_mlp.is_wide(config) and n_obj == 1
+    g_offs, g_size = g_layout(config, n)
+    wide = what == "fused_mlp_bwd" and hopper_mlp.is_wide(config)
     if wide:  # B of the wgmma products is the forward pack: no transposed pack
-        wt, wt_offs, wtx_offs, wt_stride = None, [-1] * len(w_offs), [-1] * len(w_offs), 0
+        wt, wt_offs, wtx_offs = None, [-1] * len(w_offs), [-1] * len(w_offs)
         plan = hopper_mlp.c_plan("bwd", config, in_dim, n, (w_offs, act_offs, g_offs), need_dx)
     else:
-        wt, wt_offs, wtx_offs, wt_stride = pack_weights_t(weights, config, in_dim, dev)
+        wt, wt_offs, wtx_offs, _ = pack_weights_t(weights, config, in_dim, dev)
         plan = _NO_PLAN
-    g = torch.empty((n_obj * g_stride,), dtype=torch.bfloat16, device=dev)
-    jobs, jobs_host, n_tiles = job_table(config, in_dim, n, n_obj, dev)
-    _, per_obj = grad_layout(config, in_dim)
-    total = n_obj * per_obj
+    g = torch.empty((g_size,), dtype=torch.bfloat16, device=dev)
+    jobs, jobs_host, n_tiles = job_table(config, in_dim, n, 1, dev)
+    _, total = grad_layout(config, in_dim)
     chunk = DW_CHUNK
     if wide:
         chunk = wide_dw_chunk(n, n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -717,7 +714,7 @@ def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_
     part = torch.empty((n_splits, total), dtype=torch.float32, device=dev)
     flat = torch.empty((total,), dtype=torch.float32, device=dev)
     dx = torch.zeros((in_dim, n), dtype=torch.float32, device=dev) if need_dx else None
-    dcond = torch.empty((n_obj, n_rays, config.net_width_condition), dtype=torch.float32, device=dev)
+    dcond = torch.empty((n_rays, config.net_width_condition), dtype=torch.float32, device=dev)
     gate_ptrs, gate_out = [None] * 6, ()
     if gate is not None:
         x_rows, gate_ray, fill_row = gate
@@ -731,18 +728,18 @@ def launch_bwd(name, what, residuals, hit, g_rgb, g_den, weights, config, s_per_
     fn.restype = _c.c_int
     with torch.cuda.device(dev):
         err = fn(
-            g_rgb.data_ptr(), g_den.data_ptr(), None if hit is None else hit.data_ptr(), n_rays,
+            g_rgb.data_ptr(), g_den.data_ptr(), n_rays,
             w.data_ptr(), None if wt is None else wt.data_ptr(), act.data_ptr(),
             x_save.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
             dcond.data_ptr(), jobs.data_ptr(), jobs_host.data_ptr() if wide else None,
             jobs.shape[0], n_tiles, n_splits, chunk,
-            part.data_ptr(), flat.data_ptr(), total, n, s_per_ray, n_obj, in_dim,
+            part.data_ptr(), flat.data_ptr(), total, n, s_per_ray, in_dim,
             config.net_width, config.net_depth, config.skip_layer,
             config.net_width_condition, config.net_depth_condition,
             config.num_rgb_channels, config.num_density_channels,
             build.offsets(w_offs), build.offsets(act_offs), build.offsets(wt_offs),
             build.offsets(wtx_offs), build.offsets(g_offs), len(w_offs),
-            w_stride, act_stride, wt_stride, g_stride, *gate_ptrs, *plan, stream_of(dev),
+            *gate_ptrs, *plan, stream_of(dev),
         )
     build.check(err, what)
     return (dx, dcond, flat) + gate_out
@@ -754,11 +751,11 @@ def fused_nerf_mlp_bwd(residuals, g_rgb, g_den, weights, config, s_per_ray: int,
     Returns (dx [F, N] float32 or None when not `need_dx`, d cond_lin
     [B, W_c], weight grads in operand order)."""
     dx, dcond, flat = launch_bwd(
-        "durf_fused_nerf_mlp_bwd", "fused_mlp_bwd", residuals, None, g_rgb, g_den,
+        "durf_fused_nerf_mlp_bwd", "fused_mlp_bwd", residuals, g_rgb, g_den,
         weights, config, s_per_ray, need_dx,
     )
     fused_nerf_mlp_bwd.launches += 1
-    return dx, dcond[0], unpack_grads(flat, weights, config, residuals[5], stacked=False)
+    return dx, dcond, unpack_grads(flat, weights, config, residuals[5], stacked=False)
 
 
 fused_nerf_mlp_bwd.launches = 0
@@ -957,13 +954,13 @@ def fused_nerf_mlp_gated_bwd(residuals, g_rgb, g_den, weights, config, s_per_ray
     mlp_res, gate_res = residuals
     t = lambda g: None if g is None else g.T  # noqa: E731  the kernel reads [C, N]
     dx, dcond, flat, dgate, dfill = launch_bwd(
-        "durf_fused_nerf_mlp_gated_bwd", "fused_mlp_gated_bwd", mlp_res, None, t(g_rgb),
+        "durf_fused_nerf_mlp_gated_bwd", "fused_mlp_gated_bwd", mlp_res, t(g_rgb),
         t(g_den), weights, config, s_per_ray, True, gate=gate_res,
     )
     fused_nerf_mlp_gated_bwd.launches += 1
-    n_rays = dcond.shape[1]
+    n_rays = dcond.shape[0]
     return (
-        dx.T, dgate.reshape(n_rays, s_per_ray).sum(1), dfill, dcond[0],
+        dx.T, dgate.reshape(n_rays, s_per_ray).sum(1), dfill, dcond,
         unpack_grads(flat, weights, config, mlp_res[5], stacked=False),
     )
 

@@ -16,6 +16,18 @@ take.
 
 K1 multiplies activation tiles by WT's K-major slices; K2 multiplies
 cotangent tiles by W's, which is already the K-major operand of G W^T.
+
+K3 and K4 at the object width (8x128 trunk, head 128; csrc/mlp_obj.cuh)
+read only the forward pack. At that width every activation and cotangent
+segment is [N][128], so one 3-D map covers all of them: plane o * P + seg
+for object o and segment seg (trunk_0.., bottleneck, head_0..; P planes a
+object, the cotangent workspace's per-object stride padded to whole
+planes); and every 128-column layer of the pack starts on a whole row of
+the pack seen as [rows][128], so one map with the object as its plane
+covers every layer of every object. Their schedules are one object's
+slices; the producer walks them once per object that the tile runs, adding
+the object to the plane. K3 reads its weights MN-major: a slice is a
+64-row block of W_l [K][128], two 64 x 64 boxes (c0 and c0 + 64).
 """
 
 from __future__ import annotations
@@ -28,6 +40,9 @@ WIDE_WIDTHS = (256, 128)  # (net_width, net_width_condition) of the wide kernels
 BOX = 64  # columns of one swizzled box: 128 bytes of bf16
 SLICE_BYTES = 32768  # one ring stage
 MAX_MAPS, MAX_SLICES, MAX_JOBS, MAX_X_CHUNKS = 16, 64, 14, 2
+OBJ_WIDTHS = (128, 128)  # (net_width, net_width_condition) of the object kernels
+OBJ_SLICE_BYTES = 16384  # one ring stage of K3 and K4
+OBJ_FWD_BOXES = 2  # boxes a K3 slice loads: c0 and c0 + 64
 SPEC_FIELDS, SLICE_FIELDS = 9, 4
 XSAVE, ACT, G, W, WT = range(5)
 # Fixed map slots: K1 x_save, activations (trunk and bottleneck), head
@@ -35,6 +50,9 @@ XSAVE, ACT, G, W, WT = range(5)
 # bottleneck), head cotangents. Weight maps follow.
 F_XSAVE, F_ACT, F_ACT_HEAD = range(3)
 B_ACT, B_ACT_HEAD, B_G, B_G_HEAD = range(4)
+# K3's and K4's map slots.
+O_XSAVE, O_ACT, O_W = range(3)
+OB_ACT, OB_G, OB_W, OB_WX = range(4)
 
 
 def is_wide(config) -> bool:
@@ -142,6 +160,106 @@ def bwd_plan(config, in_dim: int, n: int, w_offs, act_offs, g_offs, need_dx: boo
             slices += [[m, BOX * s, 0, 0] for s in range(w // BOX)]
     _check(specs, slices)
     return specs, slices
+
+
+def is_obj(config) -> bool:
+    """Whether K3 and K4 run the wgmma + TMA object kernels for this MLP."""
+    return (config.net_width, config.net_width_condition) == OBJ_WIDTHS
+
+
+def obj_planes(config) -> tuple:
+    """(activation planes, cotangent planes) of one object in K3's and K4's
+    3-D maps: the [N][128] segments trunk_0.., bottleneck, head_0..; the
+    cotangent workspace adds one plane for the 8-wide density and rgb rows."""
+    segs = config.net_depth + 1 + config.net_depth_condition
+    return segs, segs + 1
+
+
+def obj_g_stride(config, n: int) -> int:
+    """Per-object stride (elements) of K4's cotangent workspace: g_layout's
+    segments, padded to whole [N][128] planes."""
+    return obj_planes(config)[1] * config.net_width * n
+
+
+def _obj_rows(config, w_offs, w_stride) -> list:
+    """Each layer's first row in the forward pack seen as [rows][128]."""
+    w = config.net_width
+    if w_stride % w or any(o % w for o in w_offs):
+        raise ValueError("the object kernels need every layer of the pack on a whole 128-wide row")
+    return [o // w for o in w_offs]
+
+
+def obj_fwd_plan(config, in_dim: int, n: int, n_obj: int, w_offs, w_stride: int, x_cols: int):
+    """K3's maps and one object's slice schedule (c2 = 0; the producer adds
+    the object). w_offs, w_stride: the forward pack (pack_weights);
+    x_cols: the saved input rows' columns."""
+    from durf_tpu_torch.ops.kernels.fused_mlp import reads_x  # fused_mlp imports this module
+
+    w, d, dc = config.net_width, config.net_depth, config.net_depth_condition
+    xc = x_chunks(in_dim)
+    rows = _obj_rows(config, w_offs, w_stride)
+    specs = [
+        spec(XSAVE, 0, x_cols, n),
+        spec(ACT, 0, w, n, n_obj * obj_planes(config)[0]),
+        spec(W, 0, w, w_stride // w, n_obj, plane_stride=w_stride),
+    ]
+    blocks = lambda r, k: [[O_W, 0, r + BOX * s, 0] for s in range(k)]  # noqa: E731
+    slices = []
+    for i in range(d):
+        if i > 0:
+            slices += blocks(rows[i], w // BOX)
+        if reads_x(config, i):  # the x rows of concat(h, x) @ k
+            slices += blocks(rows[i] + (w if i > 0 else 0), xc)
+    for l in range(d + 1, d + 2 + dc):  # bottleneck, head_0 (its first width rows), head_i
+        slices += blocks(rows[l], w // BOX)
+    _check(specs, slices)
+    return specs, slices
+
+
+def obj_bwd_plan(config, in_dim: int, n: int, n_obj: int, w_offs, w_stride: int, need_dx: bool):
+    """K4's tile-kernel maps and one object's slice schedule (c2 = 0; the
+    producer adds the object): W_l's K-major [128][64] boxes, and [64][64]
+    boxes of the x rows for dx."""
+    from durf_tpu_torch.ops.kernels.fused_mlp import reads_x  # fused_mlp imports this module
+
+    w, d, dc = config.net_width, config.net_depth, config.net_depth_condition
+    xc = x_chunks(in_dim)
+    rows = _obj_rows(config, w_offs, w_stride)
+    act_planes, g_planes = obj_planes(config)
+    specs = [
+        spec(ACT, 0, w, n, n_obj * act_planes),
+        spec(G, 0, w, n, n_obj * g_planes),
+        spec(W, 0, w, w_stride // w, n_obj, box_rows=w, plane_stride=w_stride),
+        spec(W, 0, w, w_stride // w, n_obj, plane_stride=w_stride),
+    ]
+    cols = lambda m, r: [[m, BOX * s, r, 0] for s in range(w // BOX)]  # noqa: E731
+    slices = []
+    for l in range(d + 1 + dc, d, -1):  # head_i -> head_{i-1}, head_0 -> bottleneck, -> trunk
+        slices += cols(OB_W, rows[l])
+    for i in range(d - 1, -1, -1):
+        if need_dx and reads_x(config, i):
+            for c in range(xc):
+                slices += cols(OB_WX, rows[i] + (w if i > 0 else 0) + BOX * c)
+        if i > 0:
+            slices += cols(OB_W, rows[i])
+    _check(specs, slices)
+    return specs, slices
+
+
+@functools.lru_cache(maxsize=64)
+def _c_obj_plan(kind: str, config, in_dim: int, n: int, n_obj: int, w_offs, w_stride, extra):
+    if kind == "obj_fwd":
+        specs, slices = obj_fwd_plan(config, in_dim, n, n_obj, w_offs, w_stride, extra)
+    else:
+        specs, slices = obj_bwd_plan(config, in_dim, n, n_obj, w_offs, w_stride, extra)
+    flat = lambda rows: build.offsets([v for r in rows for v in r])  # noqa: E731
+    return flat(specs), len(specs), flat(slices), len(slices)
+
+
+def c_obj_plan(kind: str, config, in_dim: int, n: int, n_obj: int, w_offs, w_stride: int, extra):
+    """K3's ("obj_fwd", extra = x_cols) or K4's ("obj_bwd", extra = need_dx)
+    plan as the C entry points take it, built once per shape."""
+    return _c_obj_plan(kind, Keyed(config), in_dim, n, n_obj, tuple(w_offs), w_stride, extra)
 
 
 @functools.lru_cache(maxsize=64)

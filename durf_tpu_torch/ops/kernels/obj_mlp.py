@@ -6,14 +6,21 @@ Kernels: `csrc/obj_mlp.cu` (K3) and `csrc/obj_mlp_bwd.cu` (K4), CUDA C++
 for sm_90a built by `build.py`. They replace durf_tpu/ops/pallas/
 obj_mlp.py:fused_obj_mlp (the `_obj_forward` pallas_call and its custom-vjp
 backward `_obj_bwd`). K3 computes sum_o hit_o * MLP_o(x) for every sample:
-one CTA loads a tile of shared features once, runs every object's MLP on it
+one CTA loads a tile of shared features once, runs the object MLPs on it
 and keeps the gated sums in registers, so per-object outputs never reach
 device memory and no cross-CTA reduction is needed. K4 is its vjp: per
 object the cotangents scaled by hit_o, dx summed over objects, d cond_lin
 per object and ray, stacked weight grads, no gradient for the 0/1 mask.
 Bound on the H100: operations, 0.33 MFLOP of bf16 products per sample per
 object forward (twice that backward) at the flagship width (8x128, F_in 63,
-head 128).
+head 128), for the pairs that run.
+
+At the object MLPs' width (128 / 128) both are wgmma + TMA kernels
+(csrc/mlp_obj.cuh; maps and schedules in hopper_mlp.py) that run only the
+(128-sample tile, object) pairs some ray of the tile hits (`kept_pairs`):
+for a 0/1 mask a skipped pair adds exactly 0, so the outputs are those of
+the dense plain versions. At other widths K3 runs the mma.sync kernel of
+csrc/mlp_tile.cuh on every pair; K4 is built for 128 / 128 only.
 
 For a 0/1 hit mask, hit * MLP(hit*x + (1-hit)*c0) == hit * MLP(x), so the
 masked-encode blend of the batched path disappears. The per-ray condition
@@ -32,14 +39,16 @@ import ctypes
 
 import torch
 
-from durf_tpu_torch.ops.kernels import build
+from durf_tpu_torch.ops.kernels import build, hopper_mlp
 from durf_tpu_torch.ops.kernels.fused_mlp import (
     check_bwd_config,
     check_cuda_operand,
     check_kernel_config,
     dot,
+    g_layout,
+    grad_layout,
     head0_index,
-    launch_bwd,
+    job_table,
     pack_weights,
     save_buffers,
     split_matmul_backward,
@@ -47,6 +56,8 @@ from durf_tpu_torch.ops.kernels.fused_mlp import (
     stream_of,
     take_residuals,
     unpack_grads,
+    wide_dw_chunk,
+    x_cols,
 )
 
 
@@ -101,12 +112,59 @@ def fused_obj_mlp_bwd_reference(
     return dx.T.contiguous(), torch.stack(dconds), stacked
 
 
+TILE_ROWS = 128  # samples per tile of K3 and K4
+
+
+def kept_pairs(hit, n: int, s_per_ray: int, rows: int = TILE_ROWS):
+    """[tiles, N_obj] bool: whether the kernels run the (tile, object) pair.
+    A tile of `rows` samples spans the rays tile0 // S .. (tile0 + rows -
+    1) // S, clipped to the batch; the pair runs iff some ray of that span
+    hits the object (K3 and K4 evaluate the same predicate on the card).
+    hit: [N_obj, B] 0/1."""
+    n_obj = hit.shape[0]
+    t0 = torch.arange(0, n, rows, device=hit.device)
+    r0 = t0 // s_per_ray
+    r1 = torch.clamp(t0 + rows - 1, max=n - 1) // s_per_ray
+    count = torch.zeros((n_obj, hit.shape[1] + 1), dtype=torch.int64, device=hit.device)
+    count[:, 1:] = (hit != 0).long().cumsum(1)
+    return (count[:, r1 + 1] - count[:, r0] > 0).T
+
+
+# Set to a list to log (hit, N, S) of every K3 launch (K4 runs the same
+# pairs as the K3 launch whose residuals it reads); profile.py reads the
+# share of pairs that ran from it. None: no log.
+pair_log = None
+
+
+def pairs_ran(log) -> tuple:
+    """(pairs that ran, pairs) summed over a pair_log."""
+    ran = total = 0
+    for hit, n, s in log:
+        kept = kept_pairs(hit, n, s)
+        ran += int(kept.sum())
+        total += kept.numel()
+    return ran, total
+
+
 _c = ctypes
 _P, _I, _L = _c.c_void_p, _c.c_int, _c.c_longlong
 _OFFS = _c.POINTER(_c.c_longlong)
+_PLAN = [_OFFS, _I, _OFFS, _I]
+_NO_PLAN = (None, 0, None, 0)
 _K3_ARGTYPES = [_P] * 7 + [_L, _L] + [_I] * 10 + [_OFFS, _OFFS, _I, _L, _L] + [
-    _P, _P, _OFFS, _I, _L, _P,
-]
+    _P, _P, _OFFS, _I, _L] + _PLAN + [_P]
+_K4_ARGTYPES = (
+    [_P, _P, _P, _L] + [_P] * 8 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 10
+    + [_OFFS, _OFFS, _I, _L, _L, _L] + _PLAN + [_P]
+)
+
+
+def check_obj_config(config, in_dim: int) -> None:
+    """Raise if K3 does not take this MLP shape (K4 also checks
+    check_bwd_config): the object kernels at 128 / 128 take in_dim <= 128."""
+    check_kernel_config(config, in_dim)
+    if hopper_mlp.is_obj(config) and hopper_mlp.x_chunks(in_dim) > hopper_mlp.MAX_X_CHUNKS:
+        raise ValueError(f"the object MLP kernels at width 128 take in_dim <= 128; got {in_dim}")
 
 
 def _k3_function():
@@ -122,7 +180,7 @@ def _k3_launch(x, hit, cond_lin, weights, config, s_per_ray: int, save: bool):
     None."""
     in_dim, n = x.shape
     n_obj, n_rays = hit.shape
-    check_kernel_config(config, in_dim)
+    check_obj_config(config, in_dim)
     check_cuda_operand(x, "x", x.device)
     check_cuda_operand(hit, "hit", x.device)
     check_cuda_operand(cond_lin, "cond_lin", x.device, (n_obj, n_rays, config.net_width_condition))
@@ -136,6 +194,10 @@ def _k3_launch(x, hit, cond_lin, weights, config, s_per_ray: int, save: bool):
         x_save, act, act_offs, act_stride = save_buffers(config, in_dim, n, n_obj, x.device)
         res = (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim)
         ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs), act_stride)
+    plan = _NO_PLAN
+    if hopper_mlp.is_obj(config):
+        plan = hopper_mlp.c_obj_plan("obj_fwd", config, in_dim, n, n_obj, w_offs, w_stride,
+                                     x_cols(config, in_dim))
     fn = _k3_function()
     with torch.cuda.device(x.device):
         err = fn(
@@ -145,11 +207,60 @@ def _k3_launch(x, hit, cond_lin, weights, config, s_per_ray: int, save: bool):
             config.net_width_condition, config.net_depth_condition,
             config.num_rgb_channels, config.num_density_channels,
             build.offsets(w_offs), build.offsets(b_offs), len(w_offs), w_stride, b_stride,
-            *ptrs, stream_of(x.device),
+            *ptrs, *plan, stream_of(x.device),
         )
     build.check(err, "fused_obj_mlp")
     fused_obj_mlp.launches += 1
+    if pair_log is not None:
+        pair_log.append((hit, n, s_per_ray))
     return rgb, den, res
+
+
+def _k4_launch(residuals, hit, g_rgb, g_den, config, s_per_ray: int, need_dx: bool):
+    """Allocate K4's workspace and launch it (csrc/obj_mlp_bwd.cu) on the
+    residuals K3 saved. Returns (dx [F, N] or None, d cond_lin [N_obj, B,
+    W_c], flat weight grads [N_obj * per-object total])."""
+    check_bwd_config(config, "obj_mlp_bwd")
+    x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim = residuals
+    dev = x_save.device
+    n = x_save.shape[0]
+    n_obj, n_rays = hit.shape
+    check_cuda_operand(hit, "hit", dev, (n_obj, n // s_per_ray))
+    zeros = lambda c: torch.zeros((c, n), dtype=torch.float32, device=dev)  # noqa: E731
+    g_rgb = zeros(config.num_rgb_channels) if g_rgb is None else g_rgb.contiguous()
+    g_den = zeros(config.num_density_channels) if g_den is None else g_den.contiguous()
+    check_cuda_operand(g_rgb, "g_rgb", dev, (config.num_rgb_channels, n))
+    check_cuda_operand(g_den, "g_den", dev, (config.num_density_channels, n))
+    g_offs, _ = g_layout(config, n)
+    g_stride = hopper_mlp.obj_g_stride(config, n)
+    # Rows of pairs that no ray hits are never written: empty, not zeros.
+    g = torch.empty((n_obj * g_stride,), dtype=torch.bfloat16, device=dev)
+    jobs, jobs_host, n_tiles = job_table(config, in_dim, n, 1, dev)  # one object's jobs
+    _, per_obj = grad_layout(config, in_dim)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = wide_dw_chunk(n, n_tiles * n_obj, sms)
+    n_splits = -(-n // chunk)
+    part = torch.empty((n_splits, n_obj * per_obj), dtype=torch.float32, device=dev)
+    flat = torch.empty((n_obj * per_obj,), dtype=torch.float32, device=dev)
+    dx = torch.empty((in_dim, n), dtype=torch.float32, device=dev) if need_dx else None
+    dcond = torch.empty((n_obj, n_rays, config.net_width_condition), dtype=torch.float32, device=dev)
+    plan = hopper_mlp.c_obj_plan("obj_bwd", config, in_dim, n, n_obj, w_offs, w_stride, need_dx)
+    fn = build.load("obj_mlp_bwd").durf_fused_obj_mlp_bwd
+    fn.argtypes = _K4_ARGTYPES
+    fn.restype = _c.c_int
+    with torch.cuda.device(dev):
+        err = fn(
+            g_rgb.data_ptr(), g_den.data_ptr(), hit.data_ptr(), n_rays, w.data_ptr(),
+            act.data_ptr(), x_save.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
+            dcond.data_ptr(), jobs.data_ptr(), jobs_host.data_ptr(), jobs.shape[0], n_tiles,
+            n_splits, chunk, part.data_ptr(), flat.data_ptr(), per_obj, n, s_per_ray, n_obj,
+            in_dim, config.net_width, config.net_depth, config.skip_layer,
+            config.net_width_condition, config.net_depth_condition, config.num_rgb_channels,
+            config.num_density_channels, build.offsets(w_offs), build.offsets(g_offs),
+            len(w_offs), w_stride, act_stride, g_stride, *plan, stream_of(dev),
+        )
+    build.check(err, "fused_obj_mlp_bwd")
+    return dx, dcond, flat
 
 
 def fused_obj_mlp_bwd(residuals, hit, g_rgb, g_den, weights, config, s_per_ray: int, need_dx=True):
@@ -157,11 +268,7 @@ def fused_obj_mlp_bwd(residuals, hit, g_rgb, g_den, weights, config, s_per_ray: 
 
     Returns (dx [F, N] float32 or None when not `need_dx`, d cond_lin
     [N_obj, B, W_c], stacked weight grads in operand order)."""
-    check_cuda_operand(hit, "hit", residuals[0].device)
-    dx, dcond, flat = launch_bwd(
-        "durf_fused_obj_mlp_bwd", "obj_mlp_bwd", residuals, hit, g_rgb, g_den,
-        weights, config, s_per_ray, need_dx,
-    )
+    dx, dcond, flat = _k4_launch(residuals, hit, g_rgb, g_den, config, s_per_ray, need_dx)
     fused_obj_mlp_bwd.launches += 1
     return dx, dcond, unpack_grads(flat, weights, config, residuals[5], stacked=True)
 

@@ -14,10 +14,11 @@ takes the per-object route (K1/K2 once per object instead of K3/K4). Either
 runs under torch.profiler, then prints the device-time table by kernel and
 one JSON line: ms per unit (host clock, synchronized), device busy ms per
 unit, the idle share, device ms per unit of each hand-written kernel and of
-everything else, K2's device ms split by its launches (tile kernel, weight
-gradients, their reduction, the per-ray sums), the device operations
-(kernels, copies) and the host's synchronizations with the card per unit. A
-unit is a chunk or a step.
+everything else, K2's and K4's device ms split by their launches (tile
+kernel, weight gradients, their reduction, the per-ray sums), the share of
+(tile, object) pairs K3 and K4 ran, the device operations (kernels, copies)
+and the host's synchronizations with the card per unit. A unit is a chunk
+or a step.
 """
 
 from __future__ import annotations
@@ -30,22 +31,25 @@ import time
 # launches each (the tile kernel, the weight-gradient products, their
 # reduction and the per-ray sums; K6 a fifth, the d fill sum), instantiated
 # with the tag 2, 4 or 6; K1 and K2 at the flagship widths run the wide_*
-# kernels (csrc/mlp_wide.cuh), whose names contain the others'.
+# kernels (csrc/mlp_wide.cuh), K3 and K4 at the object width the obj_mlp_*
+# kernels (csrc/mlp_obj.cuh) and wide_dw_kernel<4, whose names contain the
+# others'.
 GROUPS = (
     ("K1", ("fused_nerf_mlp_fwd_kernel", "wide_mlp_fwd_kernel<1>")),
-    ("K3", ("fused_obj_mlp_fwd_kernel",)),
+    ("K3", ("obj_mlp_fwd_kernel",)),
     ("K5", ("fused_nerf_mlp_gated_fwd_kernel",)),
 ) + tuple(
     (f"K{t}", tuple(f"{k}<{t}" for k in ("mlp_bwd_kernel", "dw_kernel", "reduce_kernel",
                                           "ray_sum_kernel", "feature_sum_kernel")))
     for t in (2, 4, 6)
 )
-K2_PARTS = (
-    ("tile", "mlp_bwd_kernel<2"),
-    ("dW", "dw_kernel<2"),
-    ("reduce", "reduce_kernel<2"),
-    ("ray_sums", "ray_sum_kernel<2"),
-)
+# K2's and K4's device time by launch (their tile kernels' names end in
+# mlp_bwd_kernel<T, their dW kernels' in dw_kernel<T).
+PARTS = {
+    k: (("tile", f"mlp_bwd_kernel<{t}"), ("dW", f"dw_kernel<{t}"),
+        ("reduce", f"reduce_kernel<{t}"), ("ray_sums", f"ray_sum_kernel<{t}"))
+    for k, t in (("K2", 2), ("K4", 4))
+}
 
 
 def _device_us(evt) -> float:
@@ -103,6 +107,7 @@ def main(argv=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from durf_tpu_torch.devices import resolve_device
+    from durf_tpu_torch.ops.kernels import obj_mlp as k3
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--train", action="store_true", help="profile the training step")
@@ -124,18 +129,21 @@ def main(argv=None) -> None:
     for _ in range(2):
         one()
     torch.cuda.synchronize()
+    k3.pair_log = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(units):
             one()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    ran, total = k3.pairs_ran(k3.pair_log)
+    k3.pair_log = None
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=args.top))
 
     groups = {g: 0.0 for g, _ in GROUPS}
     groups["other"] = 0.0
-    k2_parts = {p: 0.0 for p, _ in K2_PARTS}
+    parts = {k: {p: 0.0 for p, _ in keys} for k, keys in PARTS.items()}
     n_device = n_sync = 0
     for evt in events:
         us = _device_us(evt)
@@ -144,9 +152,10 @@ def main(argv=None) -> None:
             n_sync += evt.count
         group = next((g for g, keys in GROUPS if any(k in evt.key for k in keys)), "other")
         groups[group] += us
-        part = next((p for p, key in K2_PARTS if key in evt.key), None)
-        if part is not None:
-            k2_parts[part] += us
+        for k, keys in PARTS.items():
+            part = next((p for p, key in keys if key in evt.key), None)
+            if part is not None:
+                parts[k][part] += us
     unit = "step" if args.train else "chunk"
     busy_ms = sum(groups.values()) / 1e3 / units
     wall_ms = 1e3 * wall / units
@@ -165,7 +174,15 @@ def main(argv=None) -> None:
                 # the synchronize that ends the timed window).
                 f"host_syncs_per_{unit}": n_sync / units,
                 f"device_ms_per_{unit}": {k: v / 1e3 / units for k, v in groups.items()},
-                f"k2_device_ms_per_{unit}": {k: v / 1e3 / units for k, v in k2_parts.items()},
+                **{
+                    f"{k.lower()}_device_ms_per_{unit}": {p: v / 1e3 / units for p, v in ps.items()}
+                    for k, ps in parts.items()
+                },
+                # The share of (128-sample tile, object) pairs that K3 and
+                # K4 ran: the others no ray of the tile hits.
+                "obj_pairs_ran": ran,
+                "obj_pairs": total,
+                "obj_pair_share": ran / total if total else None,
             }
         )
     )
