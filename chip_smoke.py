@@ -34,11 +34,17 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      equal, its Function against autograd of the plain forward at N_obj =
      2, and an object no ray hits gets exactly zero weight gradients and
      d cond_lin while dx stays bitwise that of the other object alone;
-  7. K5 (gated MLP forward, the input blended in the tile) and K6 (its
-     backward) against their plain versions at the object width (8x128,
-     F_in 63) on row-major features with a 3% hit gate, at N = 4096 x 128
-     and 1000 x 77; their Function against autograd of the plain forward;
-     K2 at 128/128 (the per-object route's build) like K2;
+  7. K1 and K2 at 128/128 (the per-object route's build, and the width of
+     the proposal MLP: the mask-free build of K3's and K4's kernels) for the
+     8x128 object MLP (F_in 63) and the 4x128 proposal MLP (F_in 60), at N
+     = 4096 x 128 and 1000 x 77: K1 with and without saving residuals like
+     K1, K2 on what it saved like K2 (two calls bitwise equal), at 8x128 and
+     4096 x 128 their Function against autograd of the plain forward; each
+     timed at 4096 x 128 beside its bound and plain version; K5 (gated MLP
+     forward, the input blended in the tile) and K6 (its backward) against
+     their plain versions at the object width (8x128, F_in 63) on row-major
+     features with a 3% hit gate, at N = 4096 x 128 and 1000 x 77; their
+     Function against autograd of the plain forward;
   8. the gated stacked object MLPs: NerfMLP(num_stack=2,
      pallas_gate_in_kernel=True) on row-major flagship features through
      forward and backward, against the same module on the plain path; K5
@@ -60,7 +66,8 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      relative 1e-5, every gradient leaf within relative L2 1e-3);
  12. the per-object route (fused_objects=False): one step's loss and raw
      gradients against the fused route (relative 1e-2 and L2 5e-2), K1 and
-     K2 launching levels x (1 + N_obj) = 6 times, K3 and K4 none; timed;
+     K2 launching levels x (1 + N_obj) = 6 times, K3 and K4 none; timed
+     beside the fused route's step;
  13. one step with the centering prior on (centering_loss_mult 0.1): the
      loss and loss/centering_* finite;
  14. descent: 20 steps at a constant lr of 5e-3, the last loss below the
@@ -69,8 +76,8 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      plain path with the same weights and random stream (batch 1024): loss
      within relative 1e-2, every gradient leaf within relative L2 5e-2;
  16. a JSON line with every kernel's numbers (launches from the path that
-     runs the kernel: K1-K4 the main path, K5/K6 phase 8, K2 at 128/128
-     phase 12; K3 and K4 timed at the compacted step's shape, their bound
+     runs the kernel: K1-K4 the main path, K5/K6 phase 8, K1 and K2 at
+     128/128 phase 12; K3 and K4 timed at the compacted step's shape, their bound
      that of the pairs that ran, with the dense bound, the pair share and
      the times at each hit share beside it), then the card's name and power
      limit, and as the last line {"ok": true, "device": {...}}.
@@ -565,43 +572,135 @@ def check_k4(dev, gen):
     return result
 
 
-def check_k2_object_width(dev, gen):
-    """K2 at 128/128, the build the per-object route runs, like check_k2 at
-    N = 4096 x 128."""
+# K1 and K2 at 128/128: the 8x128 object MLPs (F_in 63, the per-object
+# route) and the 4x128 proposal MLP (F_in 60, waymo_fast.gin).
+NARROW = ((dict(net_width=128), 63, "8x128"), (dict(net_depth=4, net_width=128), 60, "4x128"))
+
+
+def narrow_inputs(cfg, f_in, f_c, b, s, gen, dev, w):
+    """x [F, N], cond [B, F_c], its per-ray rows cond_lin, and cotangents."""
     import torch
 
-    from durf_tpu_torch.configs import MLPConfig
     from durf_tpu_torch.ops.kernels import fused_mlp as k1
 
-    cfg, f_in, f_c = MLPConfig(net_width=128), 63, 27
-    w = random_mlp(cfg, f_in, f_c, None, gen, dev)
-    per_sample, _, params = mlp_macs(cfg, f_in, f_c)
-    b, s = BWD_SHAPES[0]
     n = b * s
     x = (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)
     cond = (2 * torch.rand((b, f_c), generator=gen) - 1).to(dev)
     cond_lin = k1.cond_linear(cond, w[k1.head0_index(cfg)], cfg).contiguous()
     g_rgb = torch.randn((3, n), generator=gen).to(dev)
     g_den = torch.randn((1, n), generator=gen).to(dev)
-    _, _, res = k1._k1_launch(x, cond_lin, w, cfg, s, save=True)
-    dx, dcond, grads = k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s)
-    torch.cuda.synchronize()
-    ref = k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den)
-    err = compare_grads(f"K2 at 128/128 N={n} (B={b}, S={s})", [dx, dcond, *grads],
-                        [ref[0], ref[1], *ref[2]])
-    del ref, dx, dcond, grads
-    ms = time_ms(lambda: k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s), iters=10)
-    plain_ms = time_ms(
-        lambda: k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den), 3, 1
-    )
-    flops = 4.0 * per_sample * n
-    nbytes = 4.0 * (2 * f_in * n + 2 * cfg.net_width_condition * b + 2 * params + 4 * n)
-    bound_ms, bound_by = bound(flops, nbytes)
-    print(f"K2 128/128 N={n}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
-    del x, cond, cond_lin, g_rgb, g_den, res
-    torch.cuda.empty_cache()
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return x, cond, cond_lin, g_rgb, g_den
+
+
+def check_k1_object_width(dev, gen):
+    """K1 at 128/128 against its plain version (NARROW at BWD_SHAPES), with
+    and without saving residuals; timed at the step's shape. Returns the
+    K1-128 entry of the kernels line: 8x128 saving, as the per-object step
+    calls it, without save and the proposal MLP's beside it."""
+    import torch
+
+    from durf_tpu_torch.configs import MLPConfig
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+
+    f_c, out = 27, {}
+    for shape, f_in, name in NARROW:
+        cfg = MLPConfig(**shape)
+        w = random_mlp(cfg, f_in, f_c, None, gen, dev)
+        per_sample, per_ray, params = mlp_macs(cfg, f_in, f_c)
+        for i, (b, s) in enumerate(BWD_SHAPES):
+            n = b * s
+            x, cond, cond_lin, _, _ = narrow_inputs(cfg, f_in, f_c, b, s, gen, dev, w)
+            ref = k1.fused_nerf_mlp_reference(x, cond, w, cfg, s)
+            errs, nums = {}, {}
+            for save in (False, True):
+                rgb, den, _ = k1._k1_launch(x, cond_lin, w, cfg, s, save=save)
+                torch.cuda.synchronize()
+                errs[save] = max_err((rgb, den), ref)
+                finite = all(bool(torch.isfinite(t).all()) for t in (rgb, den))
+                if not finite or errs[save] > TOL:
+                    raise SystemExit(f"K1 at 128/128 ({name}, save={save}) disagrees with its plain "
+                                     f"version: {errs[save]} > {TOL}")
+                del rgb, den
+            line = (f"K1-128 {name} fused_nerf_mlp_fwd N={n} (B={b}, S={s}): max_abs_err "
+                    f"{errs[False]:.3e} without save, {errs[True]:.3e} with")
+            if i == 0:
+                plain_ms = time_ms(lambda: k1.fused_nerf_mlp_reference(x, cond, w, cfg, s), 3, 1)
+                flops = 2.0 * (per_sample * n + per_ray * b)
+                for save in (False, True):
+                    ms = time_ms(lambda: k1._k1_launch(x, cond_lin, w, cfg, s, save=save), iters=10)
+                    nbytes = k1_bytes(cfg, f_in, f_c, b, n, params, save)
+                    bound_ms, bound_by = bound(flops, nbytes)
+                    line += (f"; {'with' if save else 'without'} save kernel {ms:.3f} ms "
+                             f"({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), bound "
+                             f"{bound_ms:.3f} ms ({bound_by})")
+                    nums[save] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+                line += f"; plain {plain_ms:.3f} ms"
+                out[name] = dict(max_abs_err=max(errs.values()), plain_ms=plain_ms, **nums[True],
+                                 no_save=nums[False])
+            print(line)
+            del x, cond, cond_lin, ref
+            torch.cuda.empty_cache()
+    return dict(out["8x128"], proposal_4x128=out["4x128"])
+
+
+def check_k2_object_width(dev, gen):
+    """K2 at 128/128 on what K1 saved, against the plain backward (NARROW at
+    BWD_SHAPES), two calls bitwise equal, at 8x128 and the step's shape its
+    Function against autograd of the plain forward; timed at the step's
+    shape. Returns the K2-128 entry (8x128, the proposal MLP's beside it)."""
+    import torch
+
+    from durf_tpu_torch.configs import MLPConfig
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+
+    f_c, out = 27, {}
+    for shape, f_in, name in NARROW:
+        cfg = MLPConfig(**shape)
+        w = random_mlp(cfg, f_in, f_c, None, gen, dev)
+        per_sample, _, params = mlp_macs(cfg, f_in, f_c)
+        for i, (b, s) in enumerate(BWD_SHAPES):
+            n = b * s
+            x, cond, cond_lin, g_rgb, g_den = narrow_inputs(cfg, f_in, f_c, b, s, gen, dev, w)
+            _, _, res = k1._k1_launch(x, cond_lin, w, cfg, s, save=True)
+            dx, dcond, grads = k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s)
+            again = k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in
+                       zip([dx, dcond, *grads], [again[0], again[1], *again[2]]))
+            print(f"K2-128 {name} N={n}: two calls on the same inputs bitwise equal: {same}")
+            if not same:
+                raise SystemExit("K2 at 128/128 is not bitwise reproducible")
+            del again
+            ref = k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den)
+            err = compare_grads(f"K2-128 {name} fused_nerf_mlp_bwd N={n} (B={b}, S={s})",
+                                [dx, dcond, *grads], [ref[0], ref[1], *ref[2]])
+            del ref, dx, dcond, grads
+            if i == 0:
+                if name == "8x128":
+                    check_function(
+                        f"K2-128 {name} through FusedNerfMlpFn vs autograd of the plain forward N={n}",
+                        lambda x_, c_, *w_: k1.fused_nerf_mlp(x_, c_, w_, cfg, s),
+                        lambda x_, c_, *w_: k1.fused_nerf_mlp_reference(x_, c_, w_, cfg, s),
+                        [x, cond, *w], ("dx", "dcond"), g_rgb, g_den,
+                    )
+                ms = time_ms(lambda: k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s), iters=10)
+                plain_ms = time_ms(
+                    lambda: k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den), 3, 1
+                )
+                flops = 4.0 * per_sample * n  # the dX and dW products
+                # Read: the residuals K1 saved, the cotangents, the weights;
+                # written: dx, d cond_lin, the gradients (as check_k2).
+                nbytes = k1_bytes(cfg, f_in, 0, 0, n, 0, True) - 4.0 * (f_in + 4) * n
+                nbytes += 4.0 * (f_in * n + 4 * n + cfg.net_width_condition * b + 2 * params)
+                bound_ms, bound_by = bound(flops, nbytes)
+                print(f"K2-128 {name} N={n}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                      f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+                      f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
+                out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+            del x, cond, cond_lin, g_rgb, g_den, res
+            torch.cuda.empty_cache()
+    return dict(out["8x128"], proposal_4x128=out["4x128"])
 
 
 def gate_inputs(b, s, f_in, gen, dev):
@@ -977,8 +1076,8 @@ def check_compaction_exact(dev):
 def check_per_object(dev, card):
     """The per-object route (fused_objects=False): one step against the
     fused route on the same weights and stream, K1/K2 per object; then
-    timed. Returns the launches of K2 at 128/128 in its step (one per
-    object and level; the other K2 launches are the background MLP's)."""
+    timed, and the fused route's step beside it. Returns the launches of K1
+    and K2 at 128/128 in its step."""
     import torch
 
     from durf_tpu_torch.entry import train_entry
@@ -992,14 +1091,19 @@ def check_per_object(dev, card):
         raise SystemExit(f"the per-object route did not go through K1/K2: {launches}")
     compare_steps(f"per-object vs fused route step (batch {TRAIN_BATCH})", per, fused, 1e-2, 5e-2)
     del per, fused
-    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, fused_objects=False)
-    state, stats, dt, _, _ = time_steps(step_fn, state, batch)
-    ms = 1e3 * dt / TIMED_STEPS
-    print(f"per-object route: {ms:.3f} ms/step at batch {TRAIN_BATCH} with compaction "
-          f"({TIMED_STEPS * TRAIN_BATCH / dt:.1f} rays/s; {card})")
-    del step_fn, state, batch, stats
-    torch.cuda.empty_cache()
-    return launches["K2"] - 2
+    ms = {}
+    for fused_objects in (False, True):
+        step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, fused_objects=fused_objects)
+        state, stats, dt, _, _ = time_steps(step_fn, state, batch)
+        ms[fused_objects] = 1e3 * dt / TIMED_STEPS
+        del step_fn, state, batch, stats
+        torch.cuda.empty_cache()
+    print(f"per-object route: {ms[False]:.3f} ms/step at batch {TRAIN_BATCH} with compaction "
+          f"({TRAIN_BATCH / ms[False] * 1e3:.1f} rays/s), fused route "
+          f"{ms[True]:.3f} ms/step in the same phase ({card})")
+    # The launches of the 128/128 builds: one per object and level (the
+    # other two are the background MLP's).
+    return {"K1-128": launches["K1"] - 2, "K2-128": launches["K2"] - 2}
 
 
 def check_centering(dev):
@@ -1114,6 +1218,10 @@ def main(argv=None) -> int:
                 print(f"  ptxas {name}: {line.strip()}")
     for name, counts in build.sass_counts(("fused_mlp", "fused_mlp_bwd", "obj_mlp", "obj_mlp_bwd")).items():
         print(f"  sass {name}: {counts}")
+    # K1 and K2 at 128/128: the mask-free object kernels (TAG 1 and 2).
+    for name, fn in (("fused_mlp", "obj_mlp_fwd_kernelILi1E"), ("fused_mlp_bwd", "obj_mlp_bwd_kernelILi2E")):
+        counts = build.sass_counts((name,), function=fn)
+        print(f"  sass {name}, kernels {fn}*: {counts.get(name, {})}")
 
     gen = torch.Generator().manual_seed(0)
     nums, launches = {}, {}
@@ -1122,6 +1230,7 @@ def main(argv=None) -> int:
         nums["K2"] = check_k2(dev, gen)
         nums["K3"] = check_k3(dev, gen)
         nums["K4"] = check_k4(dev, gen)
+        nums["K1-128"] = check_k1_object_width(dev, gen)
         nums["K2-128"] = check_k2_object_width(dev, gen)
         nums["K5"], nums["K6"] = check_k5_k6(dev, gen)
     if "gated" in only:
@@ -1134,7 +1243,7 @@ def main(argv=None) -> int:
     if "exact" in only:
         check_compaction_exact(dev)
     if "per_object" in only:
-        launches["K2-128"] = check_per_object(dev, smi)
+        launches.update(check_per_object(dev, smi))
     if "centering" in only:
         check_centering(dev)
     if "descent" in only:
@@ -1158,7 +1267,9 @@ def main(argv=None) -> int:
                "durf_tpu/ops/pallas/fused_mlp.py:389"),
         "K6": ("K6 fused_nerf_mlp_gated_bwd", "durf_tpu_torch/csrc/fused_mlp_gated_bwd.cu",
                "durf_tpu/ops/pallas/fused_mlp.py:562"),
-        "K2-128": ("K2 fused_nerf_mlp_bwd at 128/128 (per-object route)",
+        "K1-128": ("K1 fused_nerf_mlp_fwd at 128/128 (per-object route, proposal MLP)",
+                   "durf_tpu_torch/csrc/fused_mlp.cu", "durf_tpu/ops/pallas/fused_mlp.py:389"),
+        "K2-128": ("K2 fused_nerf_mlp_bwd at 128/128 (per-object route, proposal MLP)",
                    "durf_tpu_torch/csrc/fused_mlp_bwd.cu", "durf_tpu/ops/pallas/fused_mlp.py:562"),
     }
     kernels = [

@@ -21,12 +21,18 @@
 // 2432 columns a sample at the flagship width, so with `save` its bound is
 // the bytes of that save.
 //
-// Two designs: at the flagship widths (256 / 128) wide_mlp_fwd_kernel of
+// Three builds: at the flagship widths (256 / 128) wide_mlp_fwd_kernel of
 // mlp_wide.cuh, wgmma products whose weight slices arrive by TMA through an
 // mbarrier ring and whose saved activations leave by TMA stores that overlap
-// the next layer; at other widths the mma.sync tile code of mlp_tile.cuh.
+// the next layer; at 128 / 128 (the object MLPs on the per-object route;
+// the width of waymo_fast.gin's 4x128 proposal MLP) the mask-free build of
+// K3's kernel (mlp_obj.cuh, obj_mlp_fwd_kernel<1>): K3 for one object on
+// every tile, reading no mask, with its residuals in the object kernels'
+// layout, one [n][128] plane per segment, which K2's 128 / 128 build
+// reads; at other widths ((128, 256), (256, 256)) the mma.sync tile code of
+// mlp_tile.cuh.
 
-#include "mlp_wide.cuh"
+#include "mlp_obj.cuh"
 
 namespace durf {
 
@@ -117,10 +123,17 @@ extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const 
   if (width == 256 && wc == 128)
     return durf::launch_wide(x, cond, wb, b, rgb, den, sx, sa, static_cast<const durf::bf16*>(wt),
                              n, s_per_ray, d, specs, n_specs, slices, n_slices, s);
+  if (width == 128 && wc == 128) {  // one object: K3's maps and schedule (hopper_mlp.obj_fwd_plan)
+    durf::obj::ObjDesc od;
+    if (durf::obj::make_desc(od, in_dim, width, depth, skip, wc, depth_cond, n_rgb, n_den, w_off,
+                             b_off, n_layers, n, n / s_per_ray, s_per_ray, 1, 0, 0, 0) != 0 ||
+        (sa != nullptr && !durf::obj::act_planes(od, act_off, n_act)))
+      return -1;
+    return durf::obj::launch_fwd<1>(x, nullptr, cond, wb, b, rgb, den, sx, sa, od, specs, n_specs,
+                                    slices, n_slices, s);
+  }
   if (width == 256 && wc == 256)
     return durf::launch<8, 8>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
-  if (width == 128 && wc == 128)
-    return durf::launch<4, 4>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
   if (width == 128 && wc == 256)
     return durf::launch<4, 8>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
   return -2;

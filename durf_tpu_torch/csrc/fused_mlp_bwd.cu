@@ -28,19 +28,40 @@
 //    relu masks and the dW products instead of recomputing.
 //  * A tile held whole rays: d cond_lin is a per-ray sum, taken here by
 //    ray_sum_kernel over the head_0 cotangent rows for any samples-per-ray.
-// At the flagship widths (256 / 128) the tile kernel and the dW products are
-// the wgmma + TMA kernels of mlp_wide.cuh; at 128 / 128 (the per-object
-// route) the mma.sync kernels of mlp_bwd.cuh that K4 and K6 share.
+// Two builds, both wgmma + TMA, both with no transposed weight pack (B is
+// the forward pack, the K-major operand of G_l W_l^T): at the flagship
+// widths (256 / 128) the tile kernel and dW products of mlp_wide.cuh; at
+// 128 / 128 (the object MLPs on the per-object route; the width of the
+// 4x128 proposal MLP) the mask-free build of K4's launches (mlp_obj.cuh,
+// TAG 2): its tile kernel for one object on every tile, wide_dw_kernel
+// without the object axis, the fixed-order reduction and the per-ray sums,
+// on the residuals K1's 128 / 128 build saved. No other widths are built
+// (fused_mlp.py BWD_WIDTHS).
 
-#include "mlp_wide.cuh"
+#include "mlp_obj.cuh"
 
 namespace durf {
 
-// K2 at 256 / 128: the tile kernel, the dW products, their reduction and
-// the per-ray sums.
+// K2 at 128 / 128: one object of K4's launches, reading no mask.
+static int narrow_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e,
+                             const WideArgs& wa, cudaStream_t stream) {
+  obj::ObjDesc od;
+  if (obj::make_desc(od, d.in_dim, d.width, d.depth, d.skip, d.wc, d.depth_cond, d.n_rgb, d.n_den,
+                     d.w_off, nullptr, d.depth + d.depth_cond + 3, a.n, a.n_rays, a.s_per_ray, 1,
+                     0, 0, 0) != 0 ||
+      !obj::act_planes(od, d.act_off, od.act_planes) ||
+      obj::set_g_layout(od, e.g_off, od.g_planes * obj::WIDTH * a.n) != 0)
+    return -1;
+  return obj::launch_bwd<2>(a, nullptr, od, wa, stream);
+}
+
+// K2: at 256 / 128 the wide tile kernel, the dW products, their reduction
+// and the per-ray sums; at 128 / 128 narrow_bwd_launch.
 template <>
-int wide_bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const WideArgs& wa,
-                       cudaStream_t stream) {
+int hopper_bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const WideArgs& wa,
+                         cudaStream_t stream) {
+  if (d.width == 128 && d.wc == 128) return narrow_bwd_launch(a, d, e, wa, stream);
+  if (d.width != 256 || d.wc != 128) return -2;
   wide::WideDesc wd;
   wide::fill_desc(wd, d, a.n, a.s_per_ray);
   wd.act_last = d.act_off[d.depth + d.depth_cond];

@@ -1,12 +1,13 @@
-// Building blocks of the fused NeRF-MLP backward kernels (Hopper, sm_90a),
-// shared by K2 (fused_mlp_bwd.cu) and K6 (fused_mlp_gated_bwd.cu); K4
-// (obj_mlp_bwd.cu) takes the reduction and the per-ray sums.
+// Building blocks of K6, the gated fused NeRF-MLP backward
+// (fused_mlp_gated_bwd.cu; Hopper, sm_90a), on mma.sync; K2 and K4 take the
+// reduction, the per-ray sums and the entry point's arguments.
 //
-// K2 at the flagship widths (256 / 128) runs the wgmma + TMA kernels of
-// mlp_wide.cuh instead (mlp_bwd_launch hands it over); what follows serves
-// K6 and K2 at 128 / 128.
+// K2 runs the wgmma + TMA kernels of mlp_wide.cuh (256 / 128) and of
+// mlp_obj.cuh (128 / 128) instead: mlp_bwd_launch hands it to
+// hopper_bwd_launch (fused_mlp_bwd.cu), and none of the mma.sync code below
+// is built for it.
 //
-// The backward of one MLP on N samples runs as four launches (K6: five):
+// The backward of one MLP on N samples runs as five launches:
 //  1. mlp_bwd_kernel: one CTA per 128-sample tile walks the layers in
 //     reverse. The tile's cotangent G_l (bf16 [TILE_M][width] rows in shared
 //     memory) is the A operand of the transposed product G_l . W_l^T (the
@@ -22,7 +23,7 @@
 //     the gradients are deterministic.
 //  4. ray_sum_kernel: d cond_lin[ray] = sum over the ray's samples of
 //     head_0's cotangent (the view condition enters per ray).
-//  5. (K6 only) feature_sum_kernel: d fill = the sum, in a fixed order, of
+//  5. feature_sum_kernel: d fill = the sum, in a fixed order, of
 //     the per-tile partials the tile kernel's gate epilogue wrote.
 //
 // Rounding points follow the TPU kernel's backward (durf_tpu/ops/pallas/
@@ -127,7 +128,7 @@ __device__ void dx_accumulate(const float (&acc)[4][NT][4], float* dx, int col0,
 
 // K6's in-tile gate: the MLP ran on xe = bf16(g * x + (1 - g) * fill), g
 // the per-ray gate, x [n][in_dim] and fill [in_dim] the bf16 input rows.
-// All null for K2 and K4.
+// All null for K2.
 struct GateArgs {
   const bf16* x;
   const float* gate;   // [n_rays]
@@ -273,8 +274,7 @@ __host__ inline size_t bwd_smem_bytes(const MlpDesc& d) {
   return ((size_t)TILE_M * ld_of(hmax) + (size_t)STAGES * BK * ld_of(hmax)) * sizeof(bf16);
 }
 
-// TAG (2 for K2, 6 for K6) names the instantiation, so that a profile
-// tells the kernels' launches apart; K6's adds the gate epilogue.
+// TAG (6: K6) names the launch in a profile (profile.py).
 template <int TAG, int NTW, int NTC>
 __global__ void __launch_bounds__(THREADS)
     mlp_bwd_kernel(const float* __restrict__ g_rgb, const float* __restrict__ g_den,
@@ -287,9 +287,7 @@ __global__ void __launch_bounds__(THREADS)
   bf16* ws = gs + TILE_M * ld_of(hmax);
   const long long tile0 = (long long)blockIdx.x * TILE_M;
   run_mlp_bwd<NTW, NTC>(d, e, w, wt, act, g, g_rgb, g_den, dx, gs, ws, tile0, n);
-  // Only K6's instantiation carries the gate epilogue: in K2's it would
-  // cost registers.
-  if constexpr (TAG == 6) gate_epilogue(ga, dx, d.in_dim, tile0, n, s_per_ray);
+  gate_epilogue(ga, dx, d.in_dim, tile0, n, s_per_ray);
 }
 
 // ---- weight gradients: split-K products over the sample axis ----
@@ -513,46 +511,40 @@ int launch_ray_sum(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, cudaStr
   return (int)cudaGetLastError();
 }
 
-// K2 at the flagship background widths (256 / 128) runs the wgmma + TMA
-// kernels of mlp_wide.cuh: fused_mlp_bwd.cu specialises this for TAG 2 with
-// the producer's schedule (specs, slices) the Python side built.
+// The producer's schedule (specs, slices) of the wgmma + TMA tile kernels,
+// as the Python side built it.
 struct WideArgs {
   const long long* specs;
   int n_specs;
   const long long* slices;
   int n_slices;
 };
+// K2's launches: fused_mlp_bwd.cu specialises this for TAG 2.
 template <int TAG>
-int wide_bwd_launch(const BwdArgs&, const MlpDesc&, const BwdDesc&, const WideArgs&, cudaStream_t) {
-  return -2;
-}
+int hopper_bwd_launch(const BwdArgs&, const MlpDesc&, const BwdDesc&, const WideArgs&, cudaStream_t);
 
-// Tile-kernel instantiations at the widths of the flagship MLPs that run
-// each kernel (fused_mlp.BWD_WIDTHS): 128-wide trunk and heads for both
-// kernels (the object MLPs: K6, and K2 on the per-object route); K2 at
-// 256 / 128 goes to wide_bwd_launch. Other widths return -2.
+// K2 (TAG 2) goes to hopper_bwd_launch; K6 (TAG 6) runs the mma.sync
+// launches above at the object MLPs' widths (fused_mlp.BWD_WIDTHS), other
+// widths return -2.
 template <int TAG>
 int mlp_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const GateArgs& ga,
                    const WideArgs& wa, cudaStream_t stream) {
   if ((ga.gate != nullptr) != (TAG == 6) || (TAG == 6 && a.dx == nullptr)) return -1;
-  if (TAG == 2 && d.width == 256 && d.wc == 128)
-    return wide_bwd_launch<TAG>(a, d, e, wa, stream);
-  if (d.width != 128 || d.wc != 128) return -2;
-  int err = launch_bwd_tiles<TAG, 4, 4>(a, d, e, ga, stream);
-  if (err != 0) return err;
-  dw_kernel<TAG><<<dim3((unsigned)a.n_tiles, (unsigned)a.n_splits), THREADS, 0, stream>>>(
-      a.jobs, a.n_jobs, a.n, a.chunk, a.part, a.total, a.x_save, a.act, a.g);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  err = launch_reduce<TAG>(a, stream);
-  if (err != 0) return err;
-  err = launch_ray_sum<TAG>(a, d, e, stream);
-  if (err != 0) return err;
-  if constexpr (TAG == 6) {
+  if constexpr (TAG == 2) {
+    return hopper_bwd_launch<TAG>(a, d, e, wa, stream);
+  } else {
+    if (d.width != 128 || d.wc != 128) return -2;
+    int err = launch_bwd_tiles<TAG, 4, 4>(a, d, e, ga, stream);
+    if (err != 0) return err;
+    dw_kernel<TAG><<<dim3((unsigned)a.n_tiles, (unsigned)a.n_splits), THREADS, 0, stream>>>(
+        a.jobs, a.n_jobs, a.n, a.chunk, a.part, a.total, a.x_save, a.act, a.g);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    if ((err = launch_reduce<TAG>(a, stream)) != 0) return err;
+    if ((err = launch_ray_sum<TAG>(a, d, e, stream)) != 0) return err;
     const int tiles = (int)((a.n + TILE_M - 1) / TILE_M);
     feature_sum_kernel<TAG><<<(unsigned)d.in_dim, THREADS, 0, stream>>>(ga.dfill_part, tiles, ga.dfill);
-    err = (int)cudaGetLastError();
+    return (int)cudaGetLastError();
   }
-  return err;
 }
 
 // Descriptors from the flat arrays the Python wrappers pass.

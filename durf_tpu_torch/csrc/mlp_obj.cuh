@@ -50,6 +50,16 @@
 //    by TMA, G leaving by TMA stores) with the output cotangents scaled by
 //    hit_o; dx of the x-parts (layer 0, the skip layer) summed over objects
 //    in registers in walk and object order and stored once per tile.
+//
+// The mask-free build. At 128 / 128, K1 is K3 with one object whose hit
+// mask is all ones, and K2 is K4 for that object. The kernels' TAG picks
+// the build: 3 and 4 (K3, K4) read `hit`, evaluate the pair predicate and
+// scale by the gates; 1 and 2 (K1 and K2 at 128 / 128, fused_mlp.cu and
+// fused_mlp_bwd.cu) run their one object on every tile, read no mask and
+// scale nothing, and K2's weight gradients take wide_dw_kernel without the
+// object axis, which skips no stage. The TAG also names the launch in a
+// profile (profile.py), so that K1's and K2's time is not counted as K3's
+// and K4's.
 
 #pragma once
 
@@ -77,7 +87,7 @@ struct ObjDesc {
   long long n, n_rays;
   long long w_stride, b_stride;    // per-object strides of the weight and bias packs
   long long act_stride, g_stride;  // per-object strides of the workspaces (elements)
-  long long g_rgb, g_den;          // K4: offsets of the 8-wide head cotangent rows in an object's G
+  long long g_rgb, g_den, g_h0;    // backward: the 8-wide head rows' and head_0's offsets in an object's G
   long long w_off[MAX_LAYERS];     // bf16 forward-pack offsets
   long long b_off[MAX_LAYERS];     // fp32 bias offsets
 };
@@ -125,17 +135,17 @@ __device__ __forceinline__ void block_pairs(unsigned char* runs, const float* hi
   __syncthreads();
 }
 
-// The producer: for each tile of this block and each object the tile runs,
-// the schedule, each slice BOXES boxes at c0 + 64 b, the object added to
-// the plane.
-template <int BOXES>
+// The producer: for each tile of this block and each object the tile runs
+// (HIT; without it, every tile runs its one object), the schedule, each
+// slice BOXES boxes at c0 + 64 b, the object added to the plane.
+template <int BOXES, bool HIT>
 __device__ void produce(const Plan& plan, const unsigned char* runs, const ObjDesc& d,
                         unsigned char* stages, uint64_t* full, uint64_t* empty) {
   int i = 0;
   const long long tiles = block_tiles(d, blockIdx.x, gridDim.x);
   for (long long k = 0; k < tiles; ++k) {
     for (int o = 0; o < d.n_obj; ++o) {
-      if (!runs[k * d.n_obj + o]) continue;
+      if (HIT && !runs[k * d.n_obj + o]) continue;
       for (int k = 0; k < plan.n_slices; ++k, ++i) {
         const int s = i % STAGES;
         hop::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
@@ -214,8 +224,10 @@ __device__ __forceinline__ void small_head(const unsigned char* tile, const floa
 }
 
 // One tile of K3 on the consumer warpgroups: the shared input tile (if
-// some object runs), each running object's MLP, the gated sums.
-template <int XC>
+// some object runs), each running object's MLP, the gated sums. Without
+// HIT (K1): the one object's MLP, its outputs as they are, and the heads'
+// weights staged once per block by the caller.
+template <int XC, bool HIT>
 __device__ __forceinline__ void fwd_tile(long long tile0, const unsigned char* runs,
                                          const float* __restrict__ x,
                                          const float* __restrict__ hit,
@@ -229,8 +241,8 @@ __device__ __forceinline__ void fwd_tile(long long tile0, const unsigned char* r
   const long long sample = tile0 + 64 * wg + (t >> 1);  // this thread's row of the heads
   const long long ray = sample < n ? sample / d.s_per_ray : 0;
   float rgb_acc[4] = {0.f, 0.f, 0.f, 0.f}, den_acc[4] = {0.f, 0.f, 0.f, 0.f};
-  bool any = false;
-  for (int o = 0; o < d.n_obj; ++o) any |= runs[o] != 0;
+  bool any = !HIT;
+  for (int o = 0; HIT && o < d.n_obj; ++o) any |= runs[o] != 0;
   if (any) {
     wide::before_overwrite(wg, t);  // the last tile's stores have read the x and activation tiles
     // The input tile: feature-major fp32 -> bf16 rows, zero past in_dim and n.
@@ -253,7 +265,7 @@ __device__ __forceinline__ void fwd_tile(long long tile0, const unsigned char* r
     const int l_rgb = d.depth + 2 + d.dc;
     float acc[WIDTH / 2];
     for (int o = 0; o < d.n_obj; ++o) {
-      if (!runs[o]) continue;
+      if (HIT && !runs[o]) continue;
       const bf16* wo = w + o * d.w_stride;
       const float* bo = b + o * d.b_stride;
       const float* co = cond_lin + o * d.n_rays * WIDTH;
@@ -264,7 +276,7 @@ __device__ __forceinline__ void fwd_tile(long long tile0, const unsigned char* r
         if (reads_x(d, i)) wide::product<WIDTH, STAGES, true, true, SLICE>(acc, xt, XC, ring, wg);
         fwd_layer<true, false>(acc, act, bo + d.b_off[i], co, plan, save, z + i, tile0, n,
                                d.s_per_ray, wg, t);
-        if (i == 0) {  // the heads' weights: the last object's rgb head has read them
+        if (HIT && i == 0) {  // the heads' weights: the last object's rgb head has read them
           stage_heads(heads, wo + d.w_off[d.depth], d.n_den, wo + d.w_off[l_rgb], d.n_rgb, t);
           hop::named_sync(1 + wg, 128);
         }
@@ -287,11 +299,11 @@ __device__ __forceinline__ void fwd_tile(long long tile0, const unsigned char* r
                                  d.s_per_ray, wg, t);
       }
       small_head(act, heads + WIDTH * 4, bo + d.b_off[l_rgb], d.n_rgb, wg, t, rgb);
-      const float g = hit[o * d.n_rays + ray];
+      const float g = HIT ? hit[o * d.n_rays + ray] : 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        rgb_acc[c] += g * rgb[c];
-        den_acc[c] += g * den[c];
+        rgb_acc[c] = HIT ? rgb_acc[c] + g * rgb[c] : rgb[c];
+        den_acc[c] = HIT ? den_acc[c] + g * den[c] : den[c];
       }
     }
   }
@@ -301,7 +313,8 @@ __device__ __forceinline__ void fwd_tile(long long tile0, const unsigned char* r
   }
 }
 
-template <int XC>
+// TAG 3: K3; TAG 1: K1 at 128 / 128 (one object, every tile, hit unread).
+template <int TAG, int XC>
 __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
     obj_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ hit,
                        const float* __restrict__ cond_lin, const bf16* __restrict__ w,
@@ -316,24 +329,34 @@ __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(heads + 2 * HEADS_FLOATS);
   uint64_t* empty = full + STAGES;
   unsigned char* runs = reinterpret_cast<unsigned char*>(empty + STAGES);
+  constexpr bool HIT = TAG == 3;
   if (threadIdx.x == 0) {
     init_ring(full, empty);
     hop::mbar_init_fence();
   }
-  block_pairs(runs, hit, d);
+  if (HIT)
+    block_pairs(runs, hit, d);
+  else
+    __syncthreads();
   if (threadIdx.x >= 256) {
     hop::setmaxnreg_dec<wide::PRODUCER_REGS>();
-    if (threadIdx.x == 256) produce<2>(plan, runs, d, stages, full, empty);
+    if (threadIdx.x == 256) produce<2, HIT>(plan, runs, d, stages, full, empty);
     return;
   }
   hop::setmaxnreg_inc<wide::CONSUMER_REGS>();
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   wide::Ring<STAGES, SLICE> ring{stages, full, empty, 0};
+  if (!HIT) {  // one object: its heads' weights, once
+    stage_heads(heads + wg * HEADS_FLOATS, w + d.w_off[d.depth], d.n_den,
+                w + d.w_off[d.depth + 2 + d.dc], d.n_rgb, t);
+    hop::named_sync(1 + wg, 128);
+  }
   if (wg == 1) hop::named_arrive(3, 256);  // warpgroup 0 takes the first turn
   const long long tiles = block_tiles(d, blockIdx.x, gridDim.x);
   for (long long k = 0; k < tiles; ++k)
-    fwd_tile<XC>((blockIdx.x + k * gridDim.x) * ROWS, runs + k * d.n_obj, x, hit, cond_lin, w, b,
-                 rgb_out, den_out, save, plan, d, act, xt, heads + wg * HEADS_FLOATS, ring, wg, t);
+    fwd_tile<XC, HIT>((blockIdx.x + k * gridDim.x) * ROWS, runs + k * d.n_obj, x, hit, cond_lin, w,
+                      b, rgb_out, den_out, save, plan, d, act, xt, heads + wg * HEADS_FLOATS, ring, wg,
+                      t);
   if (wg == 0) hop::named_sync(3, 256);  // warpgroup 1's arrival after its last turn
   if (t == 0) hop::tma_store_wait_read();
 }
@@ -342,10 +365,10 @@ __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
 
 // One step of the reverse walk: acc = G W_l^T over the next two slices
 // while (MASK) the activation plane `mask_plane` arrives for the relu
-// mask; the epilogue (DEN: with the density head's term, cotangents scaled
-// by the object's gates) writes G_{l-1} into gt, and a TMA store sends it
-// to cotangent plane `g_plane`.
-template <bool MASK, bool DEN>
+// mask; the epilogue (DEN: with the density head's term, its cotangents
+// scaled by the object's gates with HIT) writes G_{l-1} into gt, and a TMA
+// store sends it to cotangent plane `g_plane`.
+template <bool MASK, bool DEN, bool HIT>
 __device__ __forceinline__ void bwd_step(float (&acc)[WIDTH / 2], unsigned char* gt,
                                          unsigned char* mt, const Plan& plan,
                                          wide::Ring<STAGES, SLICE>& ring, uint64_t* bar,
@@ -361,15 +384,16 @@ __device__ __forceinline__ void bwd_step(float (&acc)[WIDTH / 2], unsigned char*
     mphase ^= 1;
   }
   wide::before_overwrite(wg, t);
-  wide::bwd_epilogue<WIDTH, MASK, DEN, DEN>(acc, gt, mt, g_den, w_den, n_den, tile0, n, wg, t, hit_o,
-                                            s_per_ray);
+  wide::bwd_epilogue<WIDTH, MASK, DEN, DEN && HIT>(acc, gt, mt, g_den, w_den, n_den, tile0, n, wg,
+                                                   t, hit_o, s_per_ray);
   wide::after_write(wg);
   wide::store_rows(&plan.maps[OB_G], gt, WIDTH / 64, tile0, g_plane, wg, t);
 }
 
 // One tile of K4's tile kernel on the consumer warpgroups: each running
 // object's reverse walk, then the tile's dx rows (zeros if none runs).
-template <int XC>
+// Without HIT (K2): the one object's walk, its cotangents unscaled.
+template <int XC, bool HIT>
 __device__ __forceinline__ void bwd_tile(long long tile0, const unsigned char* runs,
                                          const float* __restrict__ g_rgb,
                                          const float* __restrict__ g_den,
@@ -386,28 +410,29 @@ __device__ __forceinline__ void bwd_tile(long long tile0, const unsigned char* r
 #pragma unroll
   for (int c = 0; c < XC; ++c) wide::zero(dxa[c]);
   for (int o = 0; o < d.n_obj; ++o) {
-    if (!runs[o]) continue;
-    const float* hit_o = hit + o * d.n_rays;
+    if (HIT && !runs[o]) continue;
+    const float* hit_o = HIT ? hit + o * d.n_rays : nullptr;
     const bf16* wo = w + o * d.w_stride;
     bf16* go = g + o * d.g_stride;
     const int za = o * d.act_planes, zg = o * d.g_planes;
     wide::before_overwrite(wg, t);  // the last G store has read gt
-    wide::rgb_head_bwd_wide<true>(gt, reinterpret_cast<float*>(mt + wg * 64 * 128),
-                                  act + o * d.act_stride + (long long)(d.depth + d.dc) * WIDTH * n,
-                                  wo + d.w_off[l_h0 + d.dc], d.n_rgb, g_rgb, g_den, d.n_den,
-                                  go + d.g_rgb, go + d.g_den, tile0, n, wg, t, hit_o, d.s_per_ray);
+    wide::rgb_head_bwd_wide<HIT>(gt, reinterpret_cast<float*>(mt + wg * 64 * 128),
+                                 act + o * d.act_stride + (long long)(d.depth + d.dc) * WIDTH * n,
+                                 wo + d.w_off[l_h0 + d.dc], d.n_rgb, g_rgb, g_den, d.n_den,
+                                 go + d.g_rgb, go + d.g_den, tile0, n, wg, t, hit_o, d.s_per_ray);
     wide::after_write(wg);
     wide::store_rows(&plan.maps[OB_G], gt, WIDTH / 64, tile0, zg + d.depth + d.dc, wg, t);
     for (int i = d.dc - 1; i >= 1; --i)  // head_i -> head_{i-1}
-      bwd_step<true, false>(acc, gt, mt, plan, ring, bar, mphase, za + d.depth + i,
-                            zg + d.depth + i, g_den, wo, 0, hit_o, d.s_per_ray, tile0, n, wg, t);
+      bwd_step<true, false, HIT>(acc, gt, mt, plan, ring, bar, mphase, za + d.depth + i,
+                                 zg + d.depth + i, g_den, wo, 0, hit_o, d.s_per_ray, tile0, n, wg,
+                                 t);
     // head_0 -> bottleneck (no activation)
-    bwd_step<false, false>(acc, gt, mt, plan, ring, bar, mphase, 0, zg + d.depth, g_den, wo, 0,
-                           hit_o, d.s_per_ray, tile0, n, wg, t);
+    bwd_step<false, false, HIT>(acc, gt, mt, plan, ring, bar, mphase, 0, zg + d.depth, g_den, wo,
+                                0, hit_o, d.s_per_ray, tile0, n, wg, t);
     // bottleneck and density head -> trunk_{depth-1}
-    bwd_step<true, true>(acc, gt, mt, plan, ring, bar, mphase, za + d.depth - 1, zg + d.depth - 1,
-                         g_den, wo + d.w_off[d.depth], d.n_den, hit_o, d.s_per_ray, tile0, n, wg,
-                         t);
+    bwd_step<true, true, HIT>(acc, gt, mt, plan, ring, bar, mphase, za + d.depth - 1,
+                              zg + d.depth - 1, g_den, wo + d.w_off[d.depth], d.n_den, hit_o,
+                              d.s_per_ray, tile0, n, wg, t);
     for (int i = d.depth - 1; i >= 0; --i) {
       if (reads_x(d, i) && dx != nullptr) {
 #pragma unroll
@@ -420,8 +445,8 @@ __device__ __forceinline__ void bwd_tile(long long tile0, const unsigned char* r
         }
       }
       if (i == 0) break;
-      bwd_step<true, false>(acc, gt, mt, plan, ring, bar, mphase, za + i - 1, zg + i - 1, g_den, wo,
-                            0, hit_o, d.s_per_ray, tile0, n, wg, t);
+      bwd_step<true, false, HIT>(acc, gt, mt, plan, ring, bar, mphase, za + i - 1, zg + i - 1, g_den,
+                                 wo, 0, hit_o, d.s_per_ray, tile0, n, wg, t);
     }
   }
   if (dx != nullptr) {
@@ -430,6 +455,8 @@ __device__ __forceinline__ void bwd_tile(long long tile0, const unsigned char* r
   }
 }
 
+// TAG 4: K4's tile kernel; TAG 2: K2's at 128 / 128 (one object, every
+// tile, hit unread).
 template <int TAG, int XC>
 __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
     obj_mlp_bwd_kernel(const float* __restrict__ g_rgb, const float* __restrict__ g_den,
@@ -444,16 +471,20 @@ __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
   uint64_t* empty = full + STAGES;
   uint64_t* mbar = empty + STAGES;  // one per warpgroup: its activation rows
   unsigned char* runs = reinterpret_cast<unsigned char*>(mbar + 2);
+  constexpr bool HIT = TAG == 4;
   if (threadIdx.x == 0) {
     init_ring(full, empty);
     hop::mbar_init(&mbar[0], 1);
     hop::mbar_init(&mbar[1], 1);
     hop::mbar_init_fence();
   }
-  block_pairs(runs, hit, d);
+  if (HIT)
+    block_pairs(runs, hit, d);
+  else
+    __syncthreads();
   if (threadIdx.x >= 256) {
     hop::setmaxnreg_dec<wide::PRODUCER_REGS>();
-    if (threadIdx.x == 256) produce<1>(plan, runs, d, stages, full, empty);
+    if (threadIdx.x == 256) produce<1, HIT>(plan, runs, d, stages, full, empty);
     return;
   }
   hop::setmaxnreg_inc<wide::CONSUMER_REGS>();
@@ -462,8 +493,8 @@ __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
   int mphase = 0;
   const long long tiles = block_tiles(d, blockIdx.x, gridDim.x);
   for (long long k = 0; k < tiles; ++k)
-    bwd_tile<XC>((blockIdx.x + k * gridDim.x) * ROWS, runs + k * d.n_obj, g_rgb, g_den, hit, w, act,
-                 g, dx, plan, d, gt, mt, ring, &mbar[wg], mphase, wg, t);
+    bwd_tile<XC, HIT>((blockIdx.x + k * gridDim.x) * ROWS, runs + k * d.n_obj, g_rgb, g_den, hit, w,
+                      act, g, dx, plan, d, gt, mt, ring, &mbar[wg], mphase, wg, t);
   if (t == 0) hop::tma_store_wait_read();
 }
 
@@ -516,6 +547,99 @@ inline int make_desc(ObjDesc& d, int in_dim, int width, int depth, int skip, int
     d.b_off[l] = b_off == nullptr ? 0 : b_off[l];
   }
   return d.xc > 2 || n_rgb > 4 || n_den > 4 ? -1 : 0;
+}
+
+// Whether the saved activations lie one [n][128] plane per segment
+// (act_layout), as the activation map reads them.
+inline bool act_planes(const ObjDesc& d, const long long* act_off, int n_act) {
+  if (n_act != d.act_planes) return false;
+  for (int i = 0; i < n_act; ++i)
+    if (act_off[i] != (long long)i * WIDTH * d.n) return false;
+  return true;
+}
+
+// The cotangent workspace of g_layout (ops/kernels/fused_mlp.py): the
+// 128-wide segments one [n][128] plane apart, the density and rgb rows in
+// the last plane, g_stride elements an object (whole planes). Sets d's
+// offsets into it; -1 for another layout.
+inline int set_g_layout(ObjDesc& d, const long long* g_off, long long g_stride) {
+  const long long plane = (long long)WIDTH * d.n;
+  for (int l = 0; l < d.depth + d.dc + 3; ++l) {
+    const bool head = l >= d.depth + 2 && l < d.depth + 2 + d.dc;
+    const int p = l < d.depth ? l : l == d.depth + 1 ? d.depth : head ? l - 1 : -1;
+    if (p >= 0 && g_off[l] != p * plane) return -1;
+  }
+  if (g_stride != d.g_planes * plane || g_off[d.depth] < (d.g_planes - 1) * plane) return -1;
+  d.g_stride = g_stride;
+  d.g_den = g_off[d.depth];
+  d.g_rgb = g_off[d.depth + 2 + d.dc];
+  d.g_h0 = g_off[d.depth + 2];
+  return 0;
+}
+
+// The forward (TAG 3: K3, gated by `hit`; TAG 1: K1 at 128 / 128, hit
+// nullptr) on the maps and one object's slice schedule the Python side
+// built (hopper_mlp.obj_fwd_plan).
+template <int TAG>
+int launch_fwd(const float* x, const float* hit, const float* cond_lin, const bf16* w,
+               const float* b, float* rgb, float* den, bf16* save_x, bf16* save_act,
+               const ObjDesc& d, const long long* specs, int n_specs, const long long* slices,
+               int n_slices, cudaStream_t stream) {
+  if ((hit != nullptr) != (TAG == 3) || n_slices != fwd_slices(d)) return -1;
+  Plan plan;
+  const void* bases[5] = {save_x, save_act, nullptr, w, nullptr};
+  int err = wide::make_plan(plan, specs, n_specs, slices, n_slices, bases);
+  if (err != 0) return err;
+  const size_t smem = fwd_smem(d);
+  auto kern = d.xc == 1 ? obj_mlp_fwd_kernel<TAG, 1> : obj_mlp_fwd_kernel<TAG, 2>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid_of(d), wide::THREADS_TILE, smem, stream>>>(x, hit, cond_lin, w, b, rgb, den,
+                                                         save_act != nullptr, plan, d);
+  return (int)cudaGetLastError();
+}
+
+// The backward's launches (TAG 4: K4, gated by `hit`; TAG 2: K2 at 128 /
+// 128, hit nullptr): the tile kernel, the dW products over `a`'s job table
+// (one object's jobs; with HIT per object, skipping the stages no ray of
+// the object hits), their fixed-order reduction, and the per-ray d cond_lin
+// sums. a.total: the gradients of all objects.
+template <int TAG>
+int launch_bwd(const BwdArgs& a, const float* hit, const ObjDesc& d, const WideArgs& wa,
+               cudaStream_t stream) {
+  constexpr bool HIT = TAG == 4;
+  if ((hit != nullptr) != HIT || a.jobs_host == nullptr ||
+      wa.n_slices != bwd_slices(d, a.dx != nullptr))
+    return -1;
+  Plan plan;
+  const void* bases[5] = {a.x_save, a.act, a.g, a.w, nullptr};
+  int err = wide::make_plan(plan, wa.specs, wa.n_specs, wa.slices, wa.n_slices, bases);
+  if (err != 0) return err;
+  wide::DwPlan dwp;
+  if ((err = wide::make_dw_plan(dwp, a.jobs_host, a.n_jobs, d.n, a.x_save, a.act, a.g, d.n_obj,
+                                d.act_stride, d.g_stride)) != 0)
+    return err;
+
+  const size_t smem = bwd_smem(d);
+  auto tile = d.xc == 1 ? obj_mlp_bwd_kernel<TAG, 1> : obj_mlp_bwd_kernel<TAG, 2>;
+  cudaError_t ce = cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (ce != cudaSuccess) return (int)ce;
+  tile<<<grid_of(d), wide::THREADS_TILE, smem, stream>>>(a.g_rgb, a.g_den, hit, a.w, a.act, a.g,
+                                                        a.dx, plan, d);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+
+  const size_t dsmem = wide::dw_smem(HIT ? (size_t)((a.chunk + wide::DW_BK - 1) / wide::DW_BK) : 0);
+  auto dwk = wide::wide_dw_kernel<TAG, HIT>;
+  ce = cudaFuncSetAttribute(dwk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dsmem);
+  if (ce != cudaSuccess) return (int)ce;
+  dwk<<<(unsigned)((long long)a.n_tiles * d.n_obj * a.n_splits), wide::THREADS_DW, dsmem, stream>>>(
+      a.jobs, a.n_jobs, a.n_tiles, d.n, a.chunk, a.part, a.total, dwp, hit, d.n_obj, d.n_rays,
+      d.s_per_ray, a.total / d.n_obj);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  if ((err = launch_reduce<TAG>(a, stream)) != 0) return err;
+  ray_sum_kernel<TAG><<<dim3((unsigned)d.n_rays, (unsigned)d.n_obj), WIDTH, 0, stream>>>(
+      a.g, d.g_stride, d.g_h0, WIDTH, d.s_per_ray, d.n_rays, a.dcond, hit);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace obj

@@ -68,25 +68,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// K3 at 128 / 128 (mlp_obj.cuh): maps and schedule from the Python side.
-static int launch_obj(const float* x, const float* hit, const float* cond_lin, const bf16* w,
-                      const float* b, float* rgb, float* den, bf16* save_x, bf16* save_act,
-                      const obj::ObjDesc& od, const long long* specs, int n_specs,
-                      const long long* slices, int n_slices, cudaStream_t stream) {
-  if (n_slices != obj::fwd_slices(od)) return -1;
-  wide::Plan plan;
-  const void* bases[5] = {save_x, save_act, nullptr, w, nullptr};
-  int err = wide::make_plan(plan, specs, n_specs, slices, n_slices, bases);
-  if (err != 0) return err;
-  const size_t smem = obj::fwd_smem(od);
-  auto kern = od.xc == 1 ? obj::obj_mlp_fwd_kernel<1> : obj::obj_mlp_fwd_kernel<2>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<obj::grid_of(od), wide::THREADS_TILE, smem, stream>>>(x, hit, cond_lin, w, b, rgb, den,
-                                                            save_act != nullptr, plan, od);
-  return (int)cudaGetLastError();
-}
-
 template <int NTW, int NTC>
 static int launch(const float* x, const float* hit, const float* cond_lin, const bf16* w,
                   const float* b, float* rgb, float* den, bf16* save_x, bf16* save_act,
@@ -142,17 +123,15 @@ extern "C" int durf_fused_obj_mlp_fwd(const float* x, const float* hit, const fl
   auto sx = static_cast<durf::bf16*>(save_x);
   auto sa = static_cast<durf::bf16*>(save_act);
   auto s = static_cast<cudaStream_t>(stream);
-  if (width == 128 && wc == 128) {
+  if (width == 128 && wc == 128) {  // mlp_obj.cuh: maps and schedule from the Python side
     durf::obj::ObjDesc od;
     if (durf::obj::make_desc(od, in_dim, width, depth, skip, wc, depth_cond, n_rgb, n_den, w_off,
                              b_off, n_layers, n, n_rays, s_per_ray, n_obj, w_obj_stride,
                              b_obj_stride, act_obj_stride) != 0 ||
-        (sa != nullptr && n_act != depth + 1 + depth_cond))
+        (sa != nullptr && !durf::obj::act_planes(od, act_off, n_act)))
       return -1;
-    for (int i = 0; sa != nullptr && i < n_act; ++i)  // one [n][128] plane per segment
-      if (act_off[i] != (long long)i * width * n) return -1;
-    return durf::launch_obj(x, hit, cond_lin, wb, b, rgb, den, sx, sa, od, specs, n_specs, slices,
-                            n_slices, s);
+    return durf::obj::launch_fwd<3>(x, hit, cond_lin, wb, b, rgb, den, sx, sa, od, specs, n_specs,
+                                    slices, n_slices, s);
   }
   if (width == 256 && wc == 128)
     return durf::launch<8, 4>(x, hit, cond_lin, wb, b, rgb, den, sx, sa, n, n_rays, s_per_ray,

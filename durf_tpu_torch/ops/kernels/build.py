@@ -101,11 +101,13 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def sass_counts(names, opcodes=("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "HMMA")) -> dict:
+def sass_counts(names, opcodes=("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "HMMA"),
+                function: str = "") -> dict:
     """How often each opcode occurs in the built libraries' machine code
     (cuobjdump -sass): wgmma shows as HGMMA, TMA loads and stores as
-    UTMALDG / UTMASTG, mbarrier waits as SYNCS, mma.sync as HMMA. Empty where
-    the toolkit has no cuobjdump."""
+    UTMALDG / UTMASTG, mbarrier waits as SYNCS, mma.sync as HMMA. With
+    `function`, only in the kernels whose mangled name contains it. Empty
+    where the toolkit has no cuobjdump."""
     tool = Path(nvcc_path()).with_name("cuobjdump")
     if not tool.exists():
         return {}
@@ -113,7 +115,14 @@ def sass_counts(names, opcodes=("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "HMMA"))
     for name in names:
         sass = subprocess.run([str(tool), "-sass", str(_lib_path(name))], capture_output=True,
                               text=True, timeout=300).stdout
-        out[name] = {op: sum(line.count(op) for line in sass.splitlines()) for op in opcodes}
+        counts, inside = dict.fromkeys(opcodes, 0), not function
+        for line in sass.splitlines():
+            if "Function :" in line:
+                inside = function in line
+            elif inside:
+                for op in opcodes:
+                    counts[op] += line.count(op)
+        out[name] = counts
     return out
 
 

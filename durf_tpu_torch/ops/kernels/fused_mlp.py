@@ -11,9 +11,14 @@ of bf16 products per sample forward and twice that backward at the flagship
 width (8x256 trunk, head 128); when training, the bytes of the saved
 activations and cotangents. The forward keeps the tile's activations in
 shared memory through all layers and runs the wide layers on the tensor
-cores with fp32 accumulation. At the flagship widths both are wgmma + TMA
-kernels (csrc/mlp_wide.cuh; their maps and schedules in hopper_mlp.py), at
-other widths mma.sync kernels (csrc/mlp_tile.cuh, csrc/mlp_bwd.cuh).
+cores with fp32 accumulation. Both are wgmma + TMA kernels, their maps and
+schedules built in hopper_mlp.py: at the flagship widths (256 / 128) those
+of csrc/mlp_wide.cuh; at 128 / 128 (the object MLPs on the per-object
+route; the width of the 4x128 proposal MLP) the mask-free build of K3's
+and K4's kernels (csrc/mlp_obj.cuh): one object, every tile, no mask, with
+K3's and K4's plans for one object. The forward at other widths ((128,
+256), (256, 256)) runs the mma.sync kernel of csrc/mlp_tile.cuh; the
+backward is not built there (BWD_WIDTHS).
 
 Layouts: x arrives feature-major [F, N] in float32, the coordinate-major
 encode's native layout (N = rays x samples, ray-major); outputs are
@@ -31,7 +36,9 @@ K5 (`csrc/fused_mlp_gated.cu`) and K6 (`csrc/fused_mlp_gated_bwd.cu`)
 replace durf_tpu/ops/pallas/fused_mlp.py:fused_nerf_mlp_gated (the same
 pallas_calls with a gate and a fill row): the MLP on bf16(g * x + (1 - g) *
 fill) blended in the tile from row-major bf16 rows x [N, F], a per-ray gate
-g and one fill row; K6 adds dgate and dfill to K2's outputs.
+g and one fill row; K6 adds dgate and dfill to K2's outputs. Both run the
+mma.sync kernels (csrc/mlp_tile.cuh, csrc/mlp_bwd.cuh; K6 multiplies by the
+transposed weight pack, pack_weights_t).
 `FusedNerfMlpGatedFn` joins them as FusedNerfMlpFn joins K1 and K2.
 """
 
@@ -330,12 +337,13 @@ def pack_weights(weights, config, device):
 
 
 def pack_weights_t(weights, config, in_dim: int, device):
-    """Pack the transposed weights K2/K4 multiply cotangents with (layout in
-    csrc/mlp_bwd.cuh BwdDesc): per kernel layer l with a wide product, the
-    h-part W_l[:K]^T as [J][K] bf16 (K = width, or the head width for head_i
-    with i >= 1) and, for layer 0 and the skip layers, the x-part
-    W_l[x rows]^T as ceil(in_dim / 64) matrices [J][64], zero past in_dim.
-    Returns (buffer, wt_offsets, wtx_offsets, stride); -1 marks no part."""
+    """Pack the transposed weights K6 multiplies cotangents with, and K1 at
+    256 / 128 activations (layout in csrc/mlp_bwd.cuh BwdDesc): per kernel
+    layer l with a wide product, the h-part W_l[:K]^T as [J][K] bf16 (K =
+    width, or the head width for head_i with i >= 1) and, for layer 0 and
+    the skip layers, the x-part W_l[x rows]^T as ceil(in_dim / 64) matrices
+    [J][64], zero past in_dim. Returns (buffer, wt_offsets, wtx_offsets,
+    stride); -1 marks no part."""
     w = config.net_width
     depth, dc = config.net_depth, config.net_depth_condition
     stacked = weights[0].dim() == 3
@@ -528,9 +536,11 @@ def unpack_grads(flat, weights, config, in_dim: int, stacked: bool):
 
 
 def kernel_smem_bytes(config, in_dim: int) -> int:
-    """Shared memory of one forward CTA (mirrors smem_bytes in
-    csrc/mlp_tile.cuh, fwd_smem in csrc/mlp_wide.cuh); the backward CTA of
-    the mma.sync kernels needs less (no input tile), the wide one 230 KB."""
+    """Shared memory of one forward CTA of the mma.sync or wide kernels
+    (mirrors smem_bytes in csrc/mlp_tile.cuh, fwd_smem in csrc/mlp_wide.cuh);
+    the backward CTA of the mma.sync kernels needs less (no input tile), the
+    wide one 230 KB. The object kernels (csrc/mlp_obj.cuh, also K1 and K2 at
+    128 / 128) fit at every in_dim they take (check_obj_config)."""
     if hopper_mlp.is_wide(config):
         xc = hopper_mlp.x_chunks(in_dim)
         return 1024 + 128 * 256 * 2 + xc * 128 * 128 + 4 * hopper_mlp.SLICE_BYTES + 64
@@ -565,9 +575,19 @@ def check_kernel_config(config, in_dim: int) -> None:
         raise ValueError(f"in_dim {in_dim} needs more shared memory than a block has")
 
 
+def check_obj_config(config, in_dim: int) -> None:
+    """Raise if the kernels of csrc/mlp_obj.cuh do not take this MLP shape
+    where they run it (K3, K4, and K1 and K2 at 128 / 128): at that width
+    they take in_dim <= 128."""
+    check_kernel_config(config, in_dim)
+    if hopper_mlp.is_obj(config) and hopper_mlp.x_chunks(in_dim) > hopper_mlp.MAX_X_CHUNKS:
+        raise ValueError(f"the object MLP kernels at width 128 take in_dim <= 128; got {in_dim}")
+
+
 # The (net_width, net_width_condition) pairs each backward kernel is built
-# for (mlp_bwd_launch in csrc/mlp_bwd.cuh): K2 the flagship background MLP
-# and, on the per-object route, the object MLPs; K4 and K6 the object MLPs.
+# for: K2 the flagship background MLP (csrc/mlp_wide.cuh) and the 128-wide
+# MLPs (the object MLPs on the per-object route, the proposal MLP's width;
+# the mask-free build of csrc/mlp_obj.cuh); K4 and K6 the object MLPs.
 BWD_WIDTHS = {
     "fused_mlp_bwd": ((256, 128), (128, 128)),
     "obj_mlp_bwd": ((128, 128),),
@@ -645,7 +665,7 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
     act, act offsets, stride, forward weight pack, in_dim) when `save`, else
     None."""
     in_dim, n = x.shape
-    check_kernel_config(config, in_dim)
+    check_obj_config(config, in_dim)
     check_cuda_operand(x, "x", x.device)
     check_cuda_operand(cond_lin, "cond_lin", x.device, (n // s_per_ray, config.net_width_condition))
     w, b, w_offs, b_offs, w_stride, _ = pack_weights(weights, config, x.device)
@@ -661,6 +681,9 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
     if hopper_mlp.is_wide(config):  # B of the wgmma products: the transposed pack
         wt, wt_offs, wtx_offs, _ = pack_weights_t(weights, config, in_dim, x.device)
         plan = hopper_mlp.c_plan("fwd", config, in_dim, n, (wt_offs, wtx_offs, act_offs))
+    elif hopper_mlp.is_obj(config):  # K3's plan for one object: B is the forward pack
+        plan = hopper_mlp.c_obj_plan("obj_fwd", config, in_dim, n, 1, w_offs, w_stride,
+                                     x_cols(config, in_dim))
     fn = _k1_function()
     with torch.cuda.device(x.device):
         err = fn(
@@ -685,7 +708,7 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
     dx is then always formed. Returns (dx [F, N] or None, d cond_lin [B,
     W_c], flat weight grads, and for K6 (dgate [N] per sample, dfill [F]))."""
     check_bwd_config(config, what)
-    x_save, act, act_offs, _, (w, w_offs, _), in_dim = residuals
+    x_save, act, act_offs, _, (w, w_offs, w_stride), in_dim = residuals
     dev = x_save.device
     n = x_save.shape[0]
     n_rays = n // s_per_ray
@@ -697,23 +720,29 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
     check_cuda_operand(g_den, "g_den", dev, (config.num_density_channels, n))
     need_dx = need_dx or gate is not None
     g_offs, g_size = g_layout(config, n)
-    wide = what == "fused_mlp_bwd" and hopper_mlp.is_wide(config)
-    if wide:  # B of the wgmma products is the forward pack: no transposed pack
+    k2 = what == "fused_mlp_bwd"
+    if k2:  # wgmma + TMA kernels, whose B is the forward pack: no transposed pack
         wt, wt_offs, wtx_offs = None, [-1] * len(w_offs), [-1] * len(w_offs)
-        plan = hopper_mlp.c_plan("bwd", config, in_dim, n, (w_offs, act_offs, g_offs), need_dx)
-    else:
+        if hopper_mlp.is_wide(config):
+            plan = hopper_mlp.c_plan("bwd", config, in_dim, n, (w_offs, act_offs, g_offs), need_dx)
+        else:  # K4's kernels for one object, on its cotangent workspace of whole planes
+            plan = hopper_mlp.c_obj_plan("obj_bwd", config, in_dim, n, 1, w_offs, w_stride, need_dx)
+            g_size = hopper_mlp.obj_g_stride(config, n)
+    else:  # K6: the mma.sync kernels, which multiply by the transposed pack
         wt, wt_offs, wtx_offs, _ = pack_weights_t(weights, config, in_dim, dev)
         plan = _NO_PLAN
     g = torch.empty((g_size,), dtype=torch.bfloat16, device=dev)
     jobs, jobs_host, n_tiles = job_table(config, in_dim, n, 1, dev)
     _, total = grad_layout(config, in_dim)
     chunk = DW_CHUNK
-    if wide:
+    if k2:
         chunk = wide_dw_chunk(n, n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
     n_splits = max(1, -(-n // chunk))
     part = torch.empty((n_splits, total), dtype=torch.float32, device=dev)
     flat = torch.empty((total,), dtype=torch.float32, device=dev)
-    dx = torch.zeros((in_dim, n), dtype=torch.float32, device=dev) if need_dx else None
+    dx = None
+    if need_dx:  # K2's tile kernels store every row of dx, K6's add into it
+        dx = (torch.empty if k2 else torch.zeros)((in_dim, n), dtype=torch.float32, device=dev)
     dcond = torch.empty((n_rays, config.net_width_condition), dtype=torch.float32, device=dev)
     gate_ptrs, gate_out = [None] * 6, ()
     if gate is not None:
@@ -731,7 +760,7 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
             g_rgb.data_ptr(), g_den.data_ptr(), n_rays,
             w.data_ptr(), None if wt is None else wt.data_ptr(), act.data_ptr(),
             x_save.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
-            dcond.data_ptr(), jobs.data_ptr(), jobs_host.data_ptr() if wide else None,
+            dcond.data_ptr(), jobs.data_ptr(), jobs_host.data_ptr() if k2 else None,
             jobs.shape[0], n_tiles, n_splits, chunk,
             part.data_ptr(), flat.data_ptr(), total, n, s_per_ray, in_dim,
             config.net_width, config.net_depth, config.skip_layer,

@@ -28,6 +28,9 @@ covers every layer of every object. Their schedules are one object's
 slices; the producer walks them once per object that the tile runs, adding
 the object to the plane. K3 reads its weights MN-major: a slice is a
 64-row block of W_l [K][128], two 64 x 64 boxes (c0 and c0 + 64).
+
+K1 and K2 at 128 / 128 run the mask-free build of the same kernels (one
+object, every tile) on K3's and K4's plans for N_obj = 1.
 """
 
 from __future__ import annotations
@@ -163,7 +166,8 @@ def bwd_plan(config, in_dim: int, n: int, w_offs, act_offs, g_offs, need_dx: boo
 
 
 def is_obj(config) -> bool:
-    """Whether K3 and K4 run the wgmma + TMA object kernels for this MLP."""
+    """Whether the wgmma + TMA object kernels run this MLP: K3 and K4, and
+    K1 and K2 in their mask-free build."""
     return (config.net_width, config.net_width_condition) == OBJ_WIDTHS
 
 

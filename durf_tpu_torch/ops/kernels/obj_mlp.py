@@ -43,7 +43,7 @@ from durf_tpu_torch.ops.kernels import build, hopper_mlp
 from durf_tpu_torch.ops.kernels.fused_mlp import (
     check_bwd_config,
     check_cuda_operand,
-    check_kernel_config,
+    check_obj_config,
     dot,
     g_layout,
     grad_layout,
@@ -157,14 +157,6 @@ _K4_ARGTYPES = (
     [_P, _P, _P, _L] + [_P] * 8 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 10
     + [_OFFS, _OFFS, _I, _L, _L, _L] + _PLAN + [_P]
 )
-
-
-def check_obj_config(config, in_dim: int) -> None:
-    """Raise if K3 does not take this MLP shape (K4 also checks
-    check_bwd_config): the object kernels at 128 / 128 take in_dim <= 128."""
-    check_kernel_config(config, in_dim)
-    if hopper_mlp.is_obj(config) and hopper_mlp.x_chunks(in_dim) > hopper_mlp.MAX_X_CHUNKS:
-        raise ValueError(f"the object MLP kernels at width 128 take in_dim <= 128; got {in_dim}")
 
 
 def _k3_function():

@@ -33,10 +33,11 @@ import time
 # with the tag 2, 4 or 6; K1 and K2 at the flagship widths run the wide_*
 # kernels (csrc/mlp_wide.cuh), K3 and K4 at the object width the obj_mlp_*
 # kernels (csrc/mlp_obj.cuh) and wide_dw_kernel<4, whose names contain the
-# others'.
+# others'; K1 and K2 at 128 / 128 the same obj_mlp_* kernels with the tag 1
+# or 2 (their mask-free build) and wide_dw_kernel<2.
 GROUPS = (
-    ("K1", ("fused_nerf_mlp_fwd_kernel", "wide_mlp_fwd_kernel<1>")),
-    ("K3", ("obj_mlp_fwd_kernel",)),
+    ("K1", ("fused_nerf_mlp_fwd_kernel", "wide_mlp_fwd_kernel<1>", "obj_mlp_fwd_kernel<1,")),
+    ("K3", ("obj_mlp_fwd_kernel<3,",)),
     ("K5", ("fused_nerf_mlp_gated_fwd_kernel",)),
 ) + tuple(
     (f"K{t}", tuple(f"{k}<{t}" for k in ("mlp_bwd_kernel", "dw_kernel", "reduce_kernel",

@@ -232,21 +232,22 @@ class _Ring:
         assert next(self.it, None) is None, "the schedule has slices no consumer takes"
 
 
-def _fwd_plan(cfg, n, n_obj, w_offs, w_stride):
-    return hm.obj_fwd_plan(cfg, F_IN, n, n_obj, w_offs, w_stride, k1.x_cols(cfg, F_IN))
+def _fwd_plan(cfg, in_dim, n, n_obj, w_offs, w_stride):
+    return hm.obj_fwd_plan(cfg, in_dim, n, n_obj, w_offs, w_stride, k1.x_cols(cfg, in_dim))
 
 
 def _replay_k3(cfg, x, hit, cond_lin, weights, s, plan=_fwd_plan):
-    """K3's tile walk through its maps and schedule, only the kept pairs.
-    Returns (rgb, den, x_save, act)."""
-    n, n_obj = x.shape[1], hit.shape[0]
+    """K3's tile walk through its maps and schedule, only the kept pairs
+    (with a hit mask of ones, K1's mask-free walk at 128 / 128: every tile,
+    gates of 1). Returns (rgb, den, x_save, act)."""
+    (f_in, n), n_obj = x.shape, hit.shape[0]
     d, dc, w = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
-    xc = hm.x_chunks(F_IN)
+    xc = hm.x_chunks(f_in)
     wpack, bpack, w_offs, b_offs, w_stride, b_stride = k1.pack_weights(weights, cfg, "cpu")
-    x_save, act, _, _ = k1.save_buffers(cfg, F_IN, n, n_obj, "cpu")
+    x_save, act, _, _ = k1.save_buffers(cfg, f_in, n, n_obj, "cpu")
     x_save.fill_(NAN)
     act.fill_(NAN)
-    specs, slices = plan(cfg, n, n_obj, w_offs, w_stride)
+    specs, slices = plan(cfg, f_in, n, n_obj, w_offs, w_stride)
     planes = hm.obj_planes(cfg)[0]
     kept = k3.kept_pairs(hit, n, s)
     rgb, den = torch.full((3, n), NAN), torch.full((1, n), NAN)
@@ -257,7 +258,7 @@ def _replay_k3(cfg, x, hit, cond_lin, weights, s, plan=_fwd_plan):
         acc_rgb, acc_den = torch.zeros((ROWS, 3)), torch.zeros((ROWS, 1))
         if kept[ti].any():
             xt = torch.zeros((ROWS, 64 * xc))
-            xt[valid, :F_IN] = _bf(x.T[rows[valid]])
+            xt[valid, :f_in] = _bf(x.T[rows[valid]])
             _store_tile(x_save, specs[hm.O_XSAVE], xt, tile0, 0)
         for o in range(n_obj):
             if not kept[ti, o]:
@@ -294,8 +295,8 @@ def _stage_runs(hit_o, s0, n, s):
     return any(float(hit_o[r]) != 0 for r in range(s0 // s, (min(s0 + 63, n - 1)) // s + 1))
 
 
-def _bwd_plan(cfg, n, n_obj, w_offs, w_stride):
-    return hm.obj_bwd_plan(cfg, F_IN, n, n_obj, w_offs, w_stride, True)
+def _bwd_plan(cfg, in_dim, n, n_obj, w_offs, w_stride):
+    return hm.obj_bwd_plan(cfg, in_dim, n, n_obj, w_offs, w_stride, True)
 
 
 def _replay_k4(cfg, x, hit, cond_lin, weights, s, g_rgb, g_den, chunk, plan=_bwd_plan):
@@ -303,13 +304,14 @@ def _replay_k4(cfg, x, hit, cond_lin, weights, s, g_rgb, g_den, chunk, plan=_bwd
     tile walk of the kept pairs, the dW tiles per object and split over the
     stages that run, the fixed-order reduction and the gated per-ray sums.
     The residuals are the plain version's, written only for the kept pairs
-    (as K3 writes them). Returns (dx, d cond_lin, weight grads, coverage
-    counts [splits, N_obj * per-object total])."""
-    n, n_obj = x.shape[1], hit.shape[0]
+    (as K3 writes them; with a hit mask of ones, K2's mask-free walk at 128
+    / 128). Returns (dx, d cond_lin, weight grads, coverage counts [splits,
+    N_obj * per-object total])."""
+    (f_in, n), n_obj = x.shape, hit.shape[0]
     d, dc, w = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
-    xc = hm.x_chunks(F_IN)
+    xc = hm.x_chunks(f_in)
     wpack, _, w_offs, _, w_stride, _ = k1.pack_weights(weights, cfg, "cpu")
-    x_save, act, act_offs, act_stride = k1.save_buffers(cfg, F_IN, n, n_obj, "cpu")
+    x_save, act, act_offs, act_stride = k1.save_buffers(cfg, f_in, n, n_obj, "cpu")
     x_save.fill_(NAN)
     act.fill_(NAN)
     kept = k3.kept_pairs(hit, n, s)
@@ -320,7 +322,7 @@ def _replay_k4(cfg, x, hit, cond_lin, weights, s, g_rgb, g_den, chunk, plan=_bwd
             r0, r1 = ti * ROWS, min(n, ti * ROWS + ROWS)
             if kept[ti].any():
                 x_save[r0:r1] = 0.0
-                x_save[r0:r1, :F_IN] = xr[r0:r1]
+                x_save[r0:r1, :f_in] = xr[r0:r1]
             if kept[ti, o]:
                 for seg, a in enumerate(trunk + [bneck] + heads):
                     dst = act[o * act_stride + act_offs[seg] :][: n * w].reshape(n, w)
@@ -328,10 +330,10 @@ def _replay_k4(cfg, x, hit, cond_lin, weights, s, g_rgb, g_den, chunk, plan=_bwd
     g_offs, _ = k1.g_layout(cfg, n)
     g_stride = hm.obj_g_stride(cfg, n)
     gbuf = torch.full((n_obj * g_stride,), NAN, dtype=torch.bfloat16)
-    specs, slices = plan(cfg, n, n_obj, w_offs, w_stride)
+    specs, slices = plan(cfg, f_in, n, n_obj, w_offs, w_stride)
     ap, gp = hm.obj_planes(cfg)
     head = lambda o, l, c: wpack[o * w_stride + w_offs[l] :][: w * c].reshape(w, c).float()  # noqa: E731
-    dx = torch.full((F_IN, n), NAN)
+    dx = torch.full((f_in, n), NAN)
     l_rgb = d + 2 + dc
     for ti, tile0 in enumerate(range(0, n, ROWS)):
         rows = torch.arange(tile0, tile0 + ROWS)
@@ -372,11 +374,11 @@ def _replay_k4(cfg, x, hit, cond_lin, weights, s, g_rgb, g_den, chunk, plan=_bwd
                 g = _bf(ring.product(g, w // 64) * (mask > 0)) * valid
                 _store_tile(gbuf, specs[hm.OB_G], g, tile0, o * gp + i - 1)
             ring.done()
-        dx[:, rows[valid[:, 0]]] = dxa[valid[:, 0], :F_IN].T
+        dx[:, rows[valid[:, 0]]] = dxa[valid[:, 0], :f_in].T
 
     # dW: one object's jobs; blocks per (tile, object, split) over the stages that run.
-    jobs, _, n_tiles = k1.job_table(cfg, F_IN, n, 1, "cpu")
-    _, per_obj = k1.grad_layout(cfg, F_IN)
+    jobs, _, n_tiles = k1.job_table(cfg, f_in, n, 1, "cpu")
+    _, per_obj = k1.grad_layout(cfg, f_in)
     total = n_obj * per_obj
     n_splits = -(-n // chunk)
     part = torch.full((n_splits, total), NAN)
@@ -414,7 +416,7 @@ def _replay_k4(cfg, x, hit, cond_lin, weights, s, g_rgb, g_den, chunk, plan=_bwd
     flat = part[0].clone()
     for split in range(1, n_splits):  # reduce_kernel: slices in order
         flat = flat + part[split]
-    grads = k1.unpack_grads(flat, weights, cfg, F_IN, stacked=True)
+    grads = k1.unpack_grads(flat, weights, cfg, f_in, stacked=True)
     dcond = torch.zeros((n_obj, n // s, w))
     for o in range(n_obj):
         g_h0 = gbuf[o * g_stride + g_offs[d + 2] :][: n * w].reshape(-1, s, w).float()
