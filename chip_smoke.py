@@ -75,12 +75,22 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
  15. one step's loss and raw gradients on the kernel path against the
      plain path with the same weights and random stream (batch 1024): loss
      within relative 1e-2, every gradient leaf within relative L2 5e-2;
- 16. a JSON line with every kernel's numbers (launches from the path that
+ 16. proposal levels (bench.py --proposal, configs/waymo_fast.gin's
+     switch): entry.train_entry(proposal=True), the 4x128 proposal MLP on
+     level 0 (K1/K2 at 128/128), the background MLP on the final level;
+     2 warm-up then 10 timed steps at batch 4096 with compaction, beside
+     the flagship compacted step timed in the same phase; K1-K4 must each
+     launch 20 times, K1 and K2 10 at 256/128 and 10 at 128/128; one
+     step against the plain step (as phase 15), one render chunk against
+     the plain render (K1 once at each width, K3 twice), one step at
+     proposal_samples 64 finite with loss/interlevel, a 20-step descent;
+ 17. a JSON line with every kernel's numbers (launches from the path that
      runs the kernel: K1-K4 the main path, K5/K6 phase 8, K1 and K2 at
-     128/128 phase 12; K3 and K4 timed at the compacted step's shape, their bound
-     that of the pairs that ran, with the dense bound, the pair share and
-     the times at each hit share beside it), then the card's name and power
-     limit, and as the last line {"ok": true, "device": {...}}.
+     128/128 phase 16, with phase 12's beside them; K3 and K4 timed at the
+     compacted step's shape, their bound that of the pairs that ran, with
+     the dense bound, the pair share and the times at each hit share beside
+     it), then the card's name and power limit, and as the last line
+     {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when CUDA is not available, or
 when run outside a checkout of the repository.
@@ -124,6 +134,9 @@ GATE_HIT = 0.03
 # (PERF.md section 4), and the kernels' tile.
 HIT_SHARES = (1.0, 0.5, GATE_HIT)
 MAIN_RAYS, MAIN_HITTING, OBJ_TILE = 256, 117, 128
+# The proposal phase's untimed step: proposal levels of 64 samples before
+# the final 128.
+PROPOSAL_SAMPLES = 64
 # Compaction permutes the object pipeline's rays: the same values, float32
 # sums over samples in another order.
 EXACT_LOSS_TOL, EXACT_GRAD_TOL = 1e-5, 1e-3
@@ -965,6 +978,16 @@ def training_launches():
 def reset_launches():
     for fn in _counted().values():
         fn.launches = 0
+        if hasattr(fn, "width_launches"):
+            fn.width_launches.clear()
+
+
+def width_launches():
+    """K1's and K2's launches by (net_width, net_width_condition), as
+    'W/Wc' keys: 256/128 runs the wide kernels, 128/128 the mask-free
+    object kernels."""
+    return {k: {f"{w}/{wc}": n for (w, wc), n in sorted(_counted()[k].width_launches.items())}
+            for k in ("K1", "K2")}
 
 
 def time_steps(step_fn, state, batch):
@@ -1130,27 +1153,31 @@ def check_centering(dev):
     torch.cuda.empty_cache()
 
 
-def check_descent(dev):
-    """DESCENT_STEPS steps on the fixed batch at a constant lr: the loss falls."""
+def check_descent(dev, what="descent", **kw):
+    """DESCENT_STEPS steps of train_entry(**kw) on the fixed batch at a
+    constant lr: the loss falls."""
     import torch
 
     from durf_tpu_torch.entry import train_entry
 
-    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, constant_lr=5e-3)
+    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, constant_lr=5e-3, **kw)
     losses = []
     for _ in range(DESCENT_STEPS):
         state, stats = step_fn(state, batch)
         losses.append(stats["train/loss"])
     losses = [float(v) for v in torch.stack(losses).cpu()]
-    print(f"descent: {DESCENT_STEPS} steps at lr 5e-3: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    print(f"{what}: {DESCENT_STEPS} steps at lr 5e-3: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
     if not losses[-1] < losses[0]:
-        raise SystemExit(f"the training step did not descend: {losses}")
+        raise SystemExit(f"{what}: the training step did not descend: {losses}")
+    del step_fn, state, batch, stats
+    torch.cuda.empty_cache()
 
 
-def check_step_vs_plain(dev):
-    """One step's loss and raw gradients on the kernel path against the same
-    weights and random stream with use_pallas_mlp=False, at batch
-    COMPARE_BATCH (the plain path keeps every fp32 activation for autograd)."""
+def check_step_vs_plain(dev, what="step vs plain", **kw):
+    """One step's loss and raw gradients of train_entry(**kw) on the kernel
+    path against the same weights and random stream with
+    use_pallas_mlp=False, at batch COMPARE_BATCH (the plain path keeps every
+    fp32 activation for autograd)."""
     import copy
 
     import torch
@@ -1159,7 +1186,7 @@ def check_step_vs_plain(dev):
     from durf_tpu_torch.models import MipNerf
     from durf_tpu_torch.train import make_grad_fn
 
-    _, state, batch = train_entry(dev, batch_size=COMPARE_BATCH)
+    _, state, batch = train_entry(dev, batch_size=COMPARE_BATCH, **kw)
     config = state.config
     plain_cfg = copy.deepcopy(config)
     plain_cfg.model.use_pallas_mlp = False
@@ -1171,16 +1198,125 @@ def check_step_vs_plain(dev):
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     worst = max(((rel_err(grads_k[n], grads_p[n]), n) for n in grads_p), key=lambda t: t[0])
     print(
-        f"step vs plain (batch {COMPARE_BATCH}): loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
+        f"{what} (batch {COMPARE_BATCH}): loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
         f"(rel {loss_rel:.3e}); worst gradient leaf {worst[1]} rel L2 {worst[0]:.3e} "
         f"over {len(grads_p)} leaves"
     )
     if loss_rel > 1e-2 or worst[0] > 5e-2:
-        raise SystemExit("the kernel step disagrees with the plain step")
+        raise SystemExit(f"{what}: the kernel step disagrees with the plain step")
+    del state, batch, plain, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def check_proposal(dev, card):
+    """Proposal levels (bench.py --proposal, the switch configs/waymo_fast.gin
+    turns on): level 0 runs the 4x128 proposal MLP on K1/K2 at 128/128, the
+    final level the background MLP on K1/K2 at 256/128, both levels K3/K4.
+    TIMED_STEPS steps at batch TRAIN_BATCH with compaction, timed beside the
+    flagship compacted step; K1-K4 launching levels x steps = 20 times, K1
+    and K2 split 10 + 10 between the widths; one step against the plain step
+    (check_step_vs_plain's tolerances); one render chunk against the plain
+    render; one step at proposal_samples PROPOSAL_SAMPLES; a descent.
+    Returns the launches of K1 and K2 at 128/128 in the timed steps."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from durf_tpu_torch.data.synthetic import example_ray_batch
+    from durf_tpu_torch.entry import (flagship_config, kernel_operating_point, train_entry,
+                                      with_proposal)
+    from durf_tpu_torch.models import MipNerf, construct_model
+    from durf_tpu_torch.rays import camera_rays
+    from durf_tpu_torch.train import make_render_fn
+
+    ms, widths = {}, None
+    for proposal in (True, False):
+        what = "proposal step" if proposal else "flagship step"
+        step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, obj_capacity=OBJ_CAPACITY,
+                                            proposal=proposal)
+        state, stats, dt, launches, peak = time_steps(step_fn, state, batch)
+        expect = state.config.model.num_levels * TIMED_STEPS
+        if proposal:
+            widths = width_launches()
+            print(f"proposal: launches {launches} (expected {expect} each), K1/K2 by width {widths}")
+            split = {"256/128": TIMED_STEPS, "128/128": TIMED_STEPS}
+            if any(v != expect for v in launches.values()) or widths != {"K1": split, "K2": split}:
+                raise SystemExit(f"the proposal step did not go through the kernels: {launches}, "
+                                 f"{widths}")
+            if "loss/interlevel" not in stats:
+                raise SystemExit("the proposal step does not log loss/interlevel")
+        bad = [k for k, v in stats.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+        if bad:
+            raise SystemExit(f"{what}: stats not finite: {bad}")
+        samples = state.config.model.samples_per_ray()
+        ms[proposal] = 1e3 * dt / TIMED_STEPS
+        rays_s = TIMED_STEPS * TRAIN_BATCH / dt
+        inter = f", loss/interlevel {float(stats['loss/interlevel']):.3e}" if proposal else ""
+        print(
+            f"proposal phase, {what}: batch {TRAIN_BATCH}, {TIMED_STEPS} steps in {dt:.4f} s: "
+            f"{ms[proposal]:.3f} ms/step, {rays_s:.1f} rays/s, {rays_s * samples:.1f} ray-samples/s "
+            f"({samples} per ray); peak memory {peak:.2f} GiB; loss "
+            f"{float(stats['train/loss']):.5f}{inter} ({card})"
+        )
+        del step_fn, state, batch, stats
+        torch.cuda.empty_cache()
+    print(f"proposal: {ms[True]:.3f} ms/step against the flagship step's {ms[False]:.3f} in the "
+          f"same phase ({card})")
+
+    check_step_vs_plain(dev, "proposal step vs plain", proposal=True)
+
+    # One render chunk with the kernels against the plain render.
+    config = with_proposal(kernel_operating_point(flagship_config()), True)
+    host = example_ray_batch(batch_size=config.batch_size)
+    model = construct_model(config.model, host, dev, seed=0)
+    plain_cfg = copy.deepcopy(config)
+    plain_cfg.model.use_pallas_mlp = False
+    init = host["init"]
+    plain = MipNerf(plain_cfg.model, init.shape[1], init.shape[0]).to(dev)
+    plain.load_state_dict(model.state_dict())
+    c2w = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]], np.float32)
+    rays = camera_rays(c2w, SLICE_SIZE, SLICE_SIZE, focal=SLICE_SIZE / 2, near=config.near,
+                       far=config.far)
+    chunk = rays.map(lambda r: r.reshape(-1, r.shape[-1])[:SLICE_CHUNK])
+    render = make_render_fn(model, config, dev)
+    render(chunk, host["ext"], 1, 10.0)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    with_k = render(chunk, host["ext"], 1, 10.0)
+    torch.cuda.synchronize()
+    got, got_w = training_launches(), width_launches()
+    with_p = make_render_fn(plain, plain_cfg, dev)(chunk, host["ext"], 1, 10.0)
+    err = max(float((with_k[k] - with_p[k]).abs().max()) for k in ("rgb", "acc"))
+    finite = all(bool(torch.isfinite(v).all()) for v in with_k.values())
+    print(f"proposal render chunk ({SLICE_CHUNK} rays): launches {got}, K1 by width {got_w['K1']}; "
+          f"rgb/acc vs the plain render max_abs_err {err:.3e}, finite={finite}")
+    if got["K1"] != 2 or got["K3"] != 2 or got_w["K1"] != {"256/128": 1, "128/128": 1}:
+        raise SystemExit(f"the proposal render did not go through the kernels: {got}, {got_w}")
+    if not finite or err > TOL:
+        raise SystemExit(f"the proposal render chunk disagrees with the plain render: {err} > {TOL}")
+    del model, plain, with_k, with_p
+    torch.cuda.empty_cache()
+
+    # Fewer proposal samples than fine ones (mip-NeRF 360's split).
+    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, proposal=True,
+                                        proposal_samples=PROPOSAL_SAMPLES)
+    state, stats = step_fn(state, batch)
+    loss, inter = float(stats["train/loss"]), float(stats["loss/interlevel"])
+    print(f"proposal step at proposal_samples {PROPOSAL_SAMPLES} "
+          f"({state.config.model.samples_per_ray()} samples per ray): loss {loss:.5f}, "
+          f"loss/interlevel {inter:.3e}")
+    if not (math.isfinite(loss) and math.isfinite(inter)):
+        raise SystemExit("the proposal step at proposal_samples 64 is not finite")
+    del step_fn, state, batch, stats
+    torch.cuda.empty_cache()
+
+    check_descent(dev, "proposal descent", proposal=True)
+    return {"K1-128": widths["K1"]["128/128"], "K2-128": widths["K2"]["128/128"]}
 
 
 PHASES = ("kernels", "gated", "slice", "train", "exact", "per_object", "centering", "descent",
-          "plain")
+          "plain", "proposal")
 
 
 def main(argv=None) -> int:
@@ -1242,14 +1378,17 @@ def main(argv=None) -> int:
         launches.update(main_launches)
     if "exact" in only:
         check_compaction_exact(dev)
+    per_object = {}
     if "per_object" in only:
-        launches.update(check_per_object(dev, smi))
+        per_object = check_per_object(dev, smi)
     if "centering" in only:
         check_centering(dev)
     if "descent" in only:
         check_descent(dev)
     if "plain" in only:
         check_step_vs_plain(dev)
+    if "proposal" in only:
+        launches.update(check_proposal(dev, smi))
     if only != set(PHASES):
         print(f"chip_smoke: partial run ({sorted(only)}), no result line")
         return 0
@@ -1272,9 +1411,12 @@ def main(argv=None) -> int:
         "K2-128": ("K2 fused_nerf_mlp_bwd at 128/128 (per-object route, proposal MLP)",
                    "durf_tpu_torch/csrc/fused_mlp_bwd.cu", "durf_tpu/ops/pallas/fused_mlp.py:562"),
     }
+    # K1-128 and K2-128: launches from the proposal step, and beside them
+    # those of the per-object route's step.
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=site, launches=launches[k],
-             library_ms=None, **nums[k])
+             library_ms=None, **nums[k],
+             **({"per_object_launches": per_object[k]} if k in per_object else {}))
         for k, (name, src, site) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

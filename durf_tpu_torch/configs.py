@@ -32,10 +32,11 @@ class MLPConfig:
 class ModelConfig:
     """MipNerfModel hyperparameters (reference obbpose_model.py:42-66).
 
-    The port implements the eval forward of the coordinate-major diagonal
-    pipeline; `models.mipnerf.MipNerf` raises NotImplementedError for the
-    fields whose paths are not ported yet (proposal levels, occupancy grid,
-    object-ray compaction, row-major / full-covariance pipelines).
+    The port implements the coordinate-major diagonal pipeline, eval and
+    training forward; `models.mipnerf.check_supported` raises
+    NotImplementedError for the fields whose paths are not ported yet
+    (occupancy grid, row-major / full-covariance pipelines, remat_mlp, the
+    kernels without use_viewdirs).
     """
 
     num_samples: int = 128  # samples per level

@@ -1,6 +1,8 @@
 """Entry points: the flagship eval forward, like the JAX package's
 `__graft_entry__.entry()`, and the flagship training step that bench.py
-builds (bench.py:147-172), with bench.py's object-ray compaction."""
+builds (bench.py:147-172), with bench.py's object-ray compaction; each
+optionally with proposal levels (bench.py --proposal, the switch that
+configs/waymo_fast.gin turns on)."""
 
 from __future__ import annotations
 
@@ -10,7 +12,13 @@ from durf_tpu_torch.configs import Config, MLPConfig, ModelConfig
 from durf_tpu_torch.data.synthetic import example_ray_batch
 from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.models.mipnerf import construct_model
-from durf_tpu_torch.train import batch_to, create_train_state, make_optimizer, make_train_step
+from durf_tpu_torch.train import (
+    batch_to,
+    create_train_state,
+    make_optimizer,
+    make_render_fn,
+    make_train_step,
+)
 
 
 def flagship_config(tiny: bool = False) -> Config:
@@ -82,19 +90,31 @@ def kernel_operating_point(config: Config) -> Config:
     return config
 
 
-def entry(device="cuda"):
+def with_proposal(config: Config, proposal: bool, proposal_samples: int = 0) -> Config:
+    """Turn proposal levels on or off (in place; returned), as bench.py's
+    --proposal and --proposal_samples do (bench.py:159-160): level 0 runs
+    the default 4x128 proposal MLP, with `proposal_samples` samples when
+    positive."""
+    config.model.use_proposal = proposal
+    config.model.proposal_samples = proposal_samples
+    return config
+
+
+def entry(device="cuda", proposal: bool = False):
     """(forward, example_args): the flagship model at the kernel operating
     point with weights from seed 0, and a forward(rays, ext, ts) -> (rgb,
-    depth, acc) of its last level. Runs on the card unless the caller asks
-    for the CPU; raises when there is no card."""
+    depth, acc) of its last level through `train.make_render_fn`.
+    `proposal` renders with proposal levels (the proposal MLP's weights
+    drawn after the others). Runs on the card unless the caller asks for
+    the CPU; raises when there is no card."""
     device = resolve_device(device)
-    config = kernel_operating_point(flagship_config())
+    config = with_proposal(kernel_operating_point(flagship_config()), proposal)
     batch = example_ray_batch(batch_size=config.batch_size)
     model = construct_model(config.model, batch, device)
+    render = make_render_fn(model, config, device)
 
     def forward(rays, ext, ts):
-        with torch.inference_mode():
-            out = model(rays, ext=ext, ts=ts, background="gray", alpha=10.0)[-1]
+        out = render(rays, ext, ts, 10.0)
         return out["rgb"], out["depth"], out["acc"]
 
     example_args = (
@@ -111,6 +131,8 @@ def train_entry(
     constant_lr: float | None = None,
     obj_capacity: float = 0.0625,
     fused_objects: bool = True,
+    proposal: bool = False,
+    proposal_samples: int = 0,
 ):
     """(step_fn, state, batch): the flagship training step at the kernel
     operating point (bf16, K1-K4, recurrent encode, coordinate-major
@@ -120,12 +142,14 @@ def train_entry(
     flagship config sets. `obj_capacity` is bench.py's object-ray compaction
     fraction (bench.py:59-67; 0 turns compaction off); `fused_objects=False`
     takes the per-object route (K1/K2 once per object; `bench.py
-    --no-fused_objects`). `constant_lr` replaces the delayed log-lerp schedule by a
-    constant rate (as __graft_entry__.py:142-144 does for a short run).
+    --no-fused_objects`). `proposal` and `proposal_samples` are bench.py's
+    --proposal and --proposal_samples (see with_proposal). `constant_lr`
+    replaces the delayed log-lerp schedule by a constant rate (as
+    __graft_entry__.py:142-144 does for a short run).
     Runs on the card unless the caller asks for the CPU; raises when there
     is no card."""
     device = resolve_device(device)
-    config = kernel_operating_point(flagship_config())
+    config = with_proposal(kernel_operating_point(flagship_config()), proposal, proposal_samples)
     config.batch_size = batch_size
     config.model.obj_ray_capacity = obj_capacity
     config.model.fused_objects = fused_objects

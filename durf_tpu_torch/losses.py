@@ -1,12 +1,11 @@
 """The training loss stack: RGB, URF depth/near/empty, sky, distortion, pose
-TV and box surface.
+TV, box surface and the proposal levels' interlevel loss.
 
 Counterpart of the JAX package's `losses.py` (reference
 train_boxpose.py:67-252), with the same documented departures: the
 distortion regularizer defaults to the O(S) cumulative-sum form
 (`exact=True` gives the reference's O(S^2) form), and the box boost of the
-depth mask is computed per level. The proposal slice's `interlevel_loss`
-is not ported yet (`use_proposal` is refused by the model).
+depth mask is computed per level.
 """
 
 from __future__ import annotations
@@ -44,6 +43,26 @@ def distortion_loss(weights, t_mids, t_dists, exact: bool = False) -> torch.Tens
         term1 = 2.0 * (weights * (t_mids * w_cum - ws_cum)).sum()
     term2 = (1.0 / 3.0) * (weights**2 * t_dists).sum()
     return term1 + term2
+
+
+def interlevel_loss(t_fine, w_fine, t_prop, w_prop, eps: float = 1e-6) -> torch.Tensor:
+    """Proposal distillation (durf_tpu/losses.py:58-102): the mean of
+    clip(w_fine - outer, 0)^2 / (w_fine + eps), where `outer` is, for each
+    fine interval, the proposal weight over every proposal interval that
+    intersects it. The fine inputs are detached, so the loss trains the
+    proposal toward the fine histogram, never the reverse.
+
+    The overlap is a dense [B, Sf, Sp] mask, as in the reference; it is
+    contracted with w_prop by a float32 product and sum (the reference's
+    HIGHEST precision: no TF32, no bf16).
+
+    t_fine: [B, Sf+1], w_fine: [B, Sf]; t_prop: [B, Sp+1], w_prop: [B, Sp].
+    """
+    t_fine, w_fine = t_fine.detach(), w_fine.detach()
+    a, b = t_fine[:, :-1, None], t_fine[:, 1:, None]  # [B, Sf, 1]
+    overlap = (t_prop[:, None, 1:] > a) & (t_prop[:, None, :-1] < b)  # [B, Sf, Sp]
+    outer = (overlap * w_prop[:, None, :]).sum(dim=-1)
+    return (torch.clamp(w_fine - outer, min=0.0) ** 2 / (w_fine + eps)).mean()
 
 
 def urf_depth_losses(weights, t0_vals, depth, gt_depth, depth_mask, eps):
@@ -133,8 +152,6 @@ def compute_losses(
     box-surface and interlevel scalars and the first ray's sampling
     histogram (viz_t_vals, viz_weights).
     """
-    if getattr(config.model, "use_proposal", False) and len(levels) > 1:
-        raise NotImplementedError("the interlevel loss of proposal levels is not ported yet")
     rays = batch["rays"]
     pixels = batch["pixels"][..., :3]
     gt_depth, gt_sky = _squeeze(batch["depth"]), _squeeze(batch["sky"])
@@ -206,13 +223,27 @@ def compute_losses(
         torch.nn.functional.pad(lv["weights"][0], (0, s_max - 1 - lv["weights"].shape[-1]))
         for lv in levels
     ])
-    aux["interlevel"] = surface.new_zeros(())
+    # Proposal levels carry no meaningful rgb: the rgb-dependent coarse
+    # term is zeroed and the interlevel loss against the final level added;
+    # the weight-histogram losses keep their coarse multipliers
+    # (durf_tpu/losses.py:370-418).
+    use_prop = config.model.use_proposal and len(levels) > 1
+    if use_prop:
+        final = levels[-1]
+        aux["interlevel"] = torch.stack([
+            interlevel_loss(final["t_vals"], final["weights"], lv["t_vals"], lv["weights"])
+            for lv in levels[:-1]
+        ]).sum()
+    else:
+        aux["interlevel"] = surface.new_zeros(())
 
     # Aggregation weights follow reference train_boxpose.py:211-220.
-    def agg(vals, final_mult, coarse_mult):
+    def agg(vals, final_mult, coarse_mult, rgb_dependent=False):
+        if use_prop and rgb_dependent:
+            coarse_mult = 0.0
         return final_mult * vals[-1] + coarse_mult * vals[:-1].sum()
 
-    total = agg(aux["rgb"], 1.0, config.coarse_loss_mult)
+    total = agg(aux["rgb"], 1.0, config.coarse_loss_mult, rgb_dependent=True)
     total = total + agg(aux["sky"], 10.0 * config.sky_loss_mult, config.sky_loss_mult)
     total = total + agg(aux["depth"], config.depth_loss_mult, 0.1 * config.depth_loss_mult)
     total = total + agg(aux["near"], config.near_loss_mult, 0.1 * config.near_loss_mult)
@@ -223,4 +254,5 @@ def compute_losses(
     )
     total = total + agg(aux["distortion"], config.distortion_loss_mult, config.distortion_loss_mult)
     total = total + config.box_surface_loss_mult * aux["box_surface"]
+    total = total + config.proposal_loss_mult * aux["interlevel"]
     return total, aux

@@ -7,8 +7,10 @@ coordinate-major diagonal pipeline, eval and training forward. Per level:
   (dynamic) windowed IPE + object MLPs on the composite rays ->
   background mask, contraction, IPE, background MLP -> additive raw merge ->
   density noise -> activations -> compositing.
-With `use_pallas_mlp` the background MLP runs K1/K2, and the object MLPs
-run K3/K4 (`fused_objects`, all objects in one launch) or, on the
+With proposal levels (`use_proposal`) every level but the last runs the
+small `proposal_mlp` in place of the background MLP; the objects run on
+every level. With `use_pallas_mlp` the background and proposal MLPs run
+K1/K2, and the object MLPs run K3/K4 (`fused_objects`, all objects in one launch) or, on the
 per-object route, K1/K2 once per object on the blended input
 (ops/kernels/, forward and backward); without it everything runs the plain
 path in `compute_dtype`. With `obj_ray_capacity > 0` the object pipeline
@@ -17,8 +19,8 @@ compaction), and every dynamic level reads out `obj_centroid`, the
 object-centering prior. A randomized (training) forward draws all its
 randomness from one `torch.Generator`, threaded through the levels.
 
-Not ported yet, and refused with NotImplementedError: proposal levels,
-occupancy-grid sampling, the row-major and full-covariance pipelines.
+Not ported yet, and refused with NotImplementedError: occupancy-grid
+sampling, the row-major and full-covariance pipelines.
 """
 
 from __future__ import annotations
@@ -52,7 +54,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config that asks for a path the port
     does not have yet."""
     unported = {
-        "use_proposal": cfg.use_proposal and cfg.num_levels > 1,
         "grid_sampling": cfg.grid_sampling,
         "diag_covariance=False (full covariance)": not cfg.diag_covariance,
         "coord_major=False (row-major samples)": not cfg.coord_major,
@@ -92,6 +93,15 @@ class MipNerf(nn.Module):
                 num_objects,
             )
             self.box_centers = nn.Parameter(torch.zeros((timesteps, num_objects, 6)))
+        # Proposal levels (durf_tpu/models/mipnerf.py:108-123): every level
+        # but the last swaps the background MLP for this small one, whose
+        # histogram only places the next level's samples (distilled by
+        # losses.interlevel_loss).
+        self.use_proposal = config.use_proposal and config.num_levels > 1
+        if self.use_proposal:
+            self.proposal_mlp = NerfMLP(
+                config.proposal_mlp, bg_in, cond_dim, config.compute_dtype, config.use_pallas_mlp
+            )
 
     def forward(
         self,
@@ -233,7 +243,9 @@ class MipNerf(nn.Module):
                 safe=not cfg.fast_trig,
                 recurrent=cfg.recurrent_encode,
             )
-            raw_rgb, raw_density = self.background_mlp(samples_enc, viewdirs_enc)
+            proposal_level = self.use_proposal and i_level < cfg.num_levels - 1
+            level_mlp = self.proposal_mlp if proposal_level else self.background_mlp
+            raw_rgb, raw_density = level_mlp(samples_enc, viewdirs_enc)
             if self.dynamic:
                 raw_rgb = raw_rgb + obj_rgbs
                 raw_density = raw_density + obj_densities
@@ -364,7 +376,9 @@ def construct_model(config: ModelConfig, example_batch: dict, device="cuda", see
     """Build the model on `device` with fresh weights drawn from `seed`:
     glorot-uniform kernels and zero biases from a CPU torch.Generator, and
     the pose table from example_batch['init'] (a [T, N_obj, 6] array, or
-    None for the static model). Runs on the card unless the caller asks
+    None for the static model). The proposal MLP draws after every other
+    leaf, so turning proposal levels on leaves the other weights of a seed
+    as they were. Runs on the card unless the caller asks
     for the CPU. Returned in eval mode; the train step switches it to
     train mode."""
     device = resolve_device(device)
@@ -377,6 +391,8 @@ def construct_model(config: ModelConfig, example_batch: dict, device="cuda", see
         model.object_mlps.reset_parameters(gen)
         with torch.no_grad():
             model.box_centers.copy_(torch.as_tensor(np.asarray(init, np.float32)))
+    if model.use_proposal:
+        model.proposal_mlp.reset_parameters(gen)
     return model.to(device).eval()
 
 

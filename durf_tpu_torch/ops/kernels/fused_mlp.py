@@ -44,6 +44,7 @@ transposed weight pack, pack_weights_t).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -697,6 +698,7 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
         )
     build.check(err, "fused_nerf_mlp")
     fused_nerf_mlp.launches += 1
+    fused_nerf_mlp.width_launches[(config.net_width, config.net_width_condition)] += 1
     return rgb, den, res
 
 
@@ -784,10 +786,14 @@ def fused_nerf_mlp_bwd(residuals, g_rgb, g_den, weights, config, s_per_ray: int,
         weights, config, s_per_ray, need_dx,
     )
     fused_nerf_mlp_bwd.launches += 1
+    fused_nerf_mlp_bwd.width_launches[(config.net_width, config.net_width_condition)] += 1
     return dx, dcond, unpack_grads(flat, weights, config, residuals[5], stacked=False)
 
 
 fused_nerf_mlp_bwd.launches = 0
+# The same launches by (net_width, net_width_condition): 256/128 runs the
+# wide kernels, 128/128 the mask-free object kernels.
+fused_nerf_mlp_bwd.width_launches = collections.Counter()
 
 
 def take_residuals(ctx, what: str):
@@ -864,6 +870,7 @@ def fused_nerf_mlp(x, cond, weights, config, s_per_ray: int):
 
 
 fused_nerf_mlp.launches = 0
+fused_nerf_mlp.width_launches = collections.Counter()  # by (net_width, net_width_condition)
 
 
 # ---- K5 / K6: the MLP on an input gated in the tile ----

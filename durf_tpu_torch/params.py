@@ -2,6 +2,7 @@
 
 The flax tree (as numpy arrays) has `background_mlp/<layer>/{kernel,bias}`,
 `object_mlps/<layer>/{kernel,bias}` with every leaf stacked [N_obj, ...],
+with proposal levels `proposal_mlp/<layer>/{kernel,bias}` (unstacked),
 and the pose table `box_centers` [T, N_obj, 6]; layer names are trunk_i,
 density_head, bottleneck, head_i and rgb_head. The port keeps the same
 leaves under `<mlp>.layers.<layer>.{kernel,bias}` in its state dict, in the
@@ -16,7 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-_MLPS = ("background_mlp", "object_mlps")
+_MLPS = ("background_mlp", "object_mlps", "proposal_mlp")
 
 
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

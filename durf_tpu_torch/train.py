@@ -9,7 +9,7 @@ log-lerp learning rate lr(count + 1). The schedules run on the host from the
 step count. The step's randomness comes from a `torch.Generator` seeded
 from (seed, step), where the JAX package folds the step into a key.
 
-Not ported yet: proposal levels, the occupancy grid, checkpoints and the
+Not ported yet: the occupancy grid, checkpoints and the
 training CLI, with `resolve_obj_capacity` (the auto-sizing of object-ray
 compaction from scene statistics, which needs the scene data layer).
 """
@@ -267,6 +267,8 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
             stats[f"viz/t_vals_{i}"] = aux["viz_t_vals"][i]
             stats[f"viz/weights_{i}"] = aux["viz_weights"][i]
         stats["loss/box_surface"] = aux["box_surface"]
+        if config.model.use_proposal:
+            stats["loss/interlevel"] = aux["interlevel"]
         if "obj_hit_rays" in aux:
             # Compaction safety: rays over the obj_ray_capacity budget (> 0
             # means object content was dropped this batch).

@@ -6,7 +6,7 @@
     launch counter stays 0 there;
   * configs that ask for unported paths raise NotImplementedError; the
     paths ported since (the randomized forward, compaction, the centering
-    readout, the per-object kernel route) are accepted.
+    readout, the per-object kernel route, proposal levels) are accepted.
 """
 
 import ast
@@ -115,7 +115,6 @@ def test_other_devices_raise_instead_of_falling_back():
 @pytest.mark.parametrize(
     "field,value",
     [
-        ("use_proposal", True),
         ("grid_sampling", True),
         ("use_viewdirs", False),
         ("diag_covariance", False),
@@ -131,11 +130,16 @@ def test_unported_paths_raise(field, value):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("obj_ray_capacity", 0.25), ("obj_ray_capacity", -1.0), ("fused_objects", False)],
+    [
+        ("obj_ray_capacity", 0.25),
+        ("obj_ray_capacity", -1.0),
+        ("fused_objects", False),
+        ("use_proposal", True),
+    ],
 )
 def test_lifted_paths_are_supported(field, value):
-    """Object-ray compaction (any capacity; <= 0 means off) and the
-    per-object route with the kernels on are ported."""
+    """Object-ray compaction (any capacity; <= 0 means off), the per-object
+    route and proposal levels with the kernels on are ported."""
     check_supported(ModelConfig(use_pallas_mlp=True, **{field: value}))
 
 
