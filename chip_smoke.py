@@ -7,8 +7,9 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
   1. print the card's name and power limit;
   2. build the CUDA kernels from durf_tpu_torch/csrc/ with nvcc, all
      sources at once; print ptxas's registers and spills, and how often the
-     K1, K2, K3 and K4 libraries' machine code holds wgmma (HGMMA), TMA
-     (UTMALDG / UTMASTG) and mbarrier (SYNCS) instructions;
+     K1-K6 libraries' machine code holds wgmma (HGMMA), TMA (UTMALDG /
+     UTMASTG) and mbarrier (SYNCS) instructions, also in the kernels of the
+     mask-free builds at 128/128 (TAG 1, 2, 5, 6) alone;
   3. K1 (fused background MLP forward, the wgmma + TMA kernel at the
      flagship widths) against its plain PyTorch version at N = 8192 x 128
      (a render chunk) and at an N that is not a tile multiple, atol 2e-2
@@ -41,10 +42,13 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      K1, K2 on what it saved like K2 (two calls bitwise equal), at 8x128 and
      4096 x 128 their Function against autograd of the plain forward; each
      timed at 4096 x 128 beside its bound and plain version; K5 (gated MLP
-     forward, the input blended in the tile) and K6 (its backward) against
-     their plain versions at the object width (8x128, F_in 63) on row-major
-     features with a 3% hit gate, at N = 4096 x 128 and 1000 x 77; their
-     Function against autograd of the plain forward;
+     forward, the input blended in the tile; at 128/128 the mask-free
+     object kernel's TAG 5) and K6 (its backward, TAG 6) against their plain
+     versions at the object width (8x128, F_in 63) on row-major features
+     with a per-ray 0/1 gate letting 100%, 50% and 3% of the rays in, at N =
+     4096 x 128 and 1000 x 77, two K6 calls bitwise equal; at 4096 x 128
+     and 3% their Function against autograd of the plain forward, and their
+     times;
   8. the gated stacked object MLPs: NerfMLP(num_stack=2,
      pallas_gate_in_kernel=True) on row-major flagship features through
      forward and backward, against the same module on the plain path; K5
@@ -716,21 +720,23 @@ def check_k2_object_width(dev, gen):
     return dict(out["8x128"], proposal_4x128=out["4x128"])
 
 
-def gate_inputs(b, s, f_in, gen, dev):
-    """Row-major features x [N, F] in [-1, 1], a per-ray 0/1 gate with
-    GATE_HIT ones, and a fill row."""
+def gate_inputs(b, s, f_in, gen, dev, share=GATE_HIT):
+    """Row-major features x [N, F] in [-1, 1], a per-ray 0/1 gate letting
+    about `share` of the rays in, and a fill row."""
     import torch
 
     x = (2 * torch.rand((b * s, f_in), generator=gen) - 1).to(dev)
-    gate = (torch.rand((b,), generator=gen) < GATE_HIT).float().to(dev)
+    gate = (torch.rand((b,), generator=gen) < share).float().to(dev)
     fill = (2 * torch.rand((f_in,), generator=gen) - 1).to(dev)
     return x, gate, fill
 
 
 def check_k5_k6(dev, gen):
-    """K5 and K6 against their plain versions at the object width; K6's
-    Function against autograd of the plain forward; times at N = 4096 x
-    128. Returns the K5 and K6 result entries."""
+    """K5 and K6 against their plain versions at the object width, at every
+    gate share of HIT_SHARES and both BWD_SHAPES, two K6 calls bitwise
+    equal; at the step's shape and GATE_HIT, K6's Function against autograd
+    of the plain forward and the times. Returns the K5 and K6 result
+    entries."""
     import torch
 
     from durf_tpu_torch.configs import MLPConfig
@@ -740,66 +746,76 @@ def check_k5_k6(dev, gen):
     w = random_mlp(cfg, f_in, f_c, None, gen, dev)
     per_sample, per_ray, params = mlp_macs(cfg, f_in, f_c)
     k5 = k6 = None
+    worst5 = worst6 = 0.0
     for i, (b, s) in enumerate(BWD_SHAPES):
         n = b * s
-        x, gate, fill = gate_inputs(b, s, f_in, gen, dev)
-        cond = (2 * torch.rand((b, f_c), generator=gen) - 1).to(dev)
-        cond_lin = k1.cond_linear(cond, w[k1.head0_index(cfg)], cfg).contiguous()
-        out = k1.fused_nerf_mlp_gated(x, gate, fill, cond, w, cfg, s)
-        torch.cuda.synchronize()
-        ref = k1.fused_nerf_mlp_gated_reference(x, gate, fill, cond, w, cfg, s)
-        err5 = max_err(out, ref)
-        finite = all(bool(torch.isfinite(t).all()) for t in out)
-        print(f"K5 fused_nerf_mlp_gated_fwd N={n} (B={b}, S={s}): max_abs_err {err5:.3e} "
-              f"finite={finite}, {int(gate.sum())} of {b} rays gated in")
-        if not finite or err5 > TOL:
-            raise SystemExit(f"K5 disagrees with its plain version: {err5} > {TOL}")
-        g_rgb = torch.randn((n, 3), generator=gen).to(dev)
-        g_den = torch.randn((n, 1), generator=gen).to(dev)
-        _, _, res = k1._k5_launch(x, gate, fill, cond_lin, w, cfg, s, save=True)
-        got = k1.fused_nerf_mlp_gated_bwd(res, g_rgb, g_den, w, cfg, s)
-        torch.cuda.synchronize()
-        ref = k1.fused_nerf_mlp_gated_bwd_reference(x, gate, fill, cond_lin, w, cfg, s, g_rgb, g_den)
-        err6 = compare_grads(
-            f"K6 fused_nerf_mlp_gated_bwd N={n} (B={b}, S={s})",
-            [got[0], got[1], got[2], got[3], *got[4]], [ref[0], ref[1], ref[2], ref[3], *ref[4]],
-            names=("dx", "dgate", "dfill", "dcond_lin"),
-        )
-        del got, ref
-        if i == 0:
-            check_function(
-                f"K6 through FusedNerfMlpGatedFn vs autograd of the plain forward N={n}",
-                lambda x_, g_, f_, c_, *w_: k1.fused_nerf_mlp_gated(x_, g_, f_, c_, w_, cfg, s),
-                lambda x_, g_, f_, c_, *w_: k1.fused_nerf_mlp_gated_reference(x_, g_, f_, c_, w_, cfg, s),
-                [x, gate, fill, cond, *w], ("dx", "dgate", "dfill", "dcond"), g_rgb, g_den,
-            )
-            ms5 = time_ms(lambda: k1.fused_nerf_mlp_gated(x, gate, fill, cond, w, cfg, s), iters=10)
-            plain5 = time_ms(
-                lambda: k1.fused_nerf_mlp_gated_reference(x, gate, fill, cond, w, cfg, s), 3, 1
-            )
-            flops = 2.0 * (per_sample * n + per_ray * b)
-            nbytes = 2.0 * f_in * n + 4.0 * (b + f_in + f_c * b + params + 4 * n)
-            bound5, by5 = bound(flops, nbytes)
-            ms6 = time_ms(lambda: k1.fused_nerf_mlp_gated_bwd(res, g_rgb, g_den, w, cfg, s), iters=10)
-            plain6 = time_ms(
-                lambda: k1.fused_nerf_mlp_gated_bwd_reference(
-                    x, gate, fill, cond_lin, w, cfg, s, g_rgb, g_den), 3, 1,
-            )
-            flops6 = 4.0 * per_sample * n
-            nbytes6 = (2.0 * 2 * f_in * n + 4.0 * (f_in * n + 4 * n + n + b + 2 * f_in
-                       + 2 * cfg.net_width_condition * b + 2 * params))
-            bound6, by6 = bound(flops6, nbytes6)
-            print(
-                f"K5 N={n}: kernel {ms5:.3f} ms ({flops / ms5 / 1e9:.1f} TFLOP/s), plain "
-                f"{plain5:.3f} ms, bound {bound5:.3f} ms ({by5}); K6: kernel {ms6:.3f} ms "
-                f"({flops6 / ms6 / 1e9:.1f} TFLOP/s), plain {plain6:.3f} ms, bound {bound6:.3f} ms "
-                f"({by6})"
-            )
-            k5 = dict(max_abs_err=err5, ms=ms5, plain_ms=plain5, bound_ms=bound5, bound_by=by5)
-            k6 = dict(max_abs_err=err6, ms=ms6, plain_ms=plain6, bound_ms=bound6, bound_by=by6)
-        del x, gate, fill, cond, cond_lin, g_rgb, g_den, res, out
-        torch.cuda.empty_cache()
-    return k5, k6
+        for share in HIT_SHARES:
+            x, gate, fill = gate_inputs(b, s, f_in, gen, dev, share)
+            cond = (2 * torch.rand((b, f_c), generator=gen) - 1).to(dev)
+            cond_lin = k1.cond_linear(cond, w[k1.head0_index(cfg)], cfg).contiguous()
+            what = f"N={n} (B={b}, S={s}), {int(gate.sum())} of {b} rays gated in"
+            out = k1.fused_nerf_mlp_gated(x, gate, fill, cond, w, cfg, s)
+            torch.cuda.synchronize()
+            ref = k1.fused_nerf_mlp_gated_reference(x, gate, fill, cond, w, cfg, s)
+            err5 = max_err(out, ref)
+            finite = all(bool(torch.isfinite(t).all()) for t in out)
+            print(f"K5 fused_nerf_mlp_gated_fwd {what}: max_abs_err {err5:.3e} finite={finite}")
+            if not finite or err5 > TOL:
+                raise SystemExit(f"K5 disagrees with its plain version: {err5} > {TOL}")
+            g_rgb = torch.randn((n, 3), generator=gen).to(dev)
+            g_den = torch.randn((n, 1), generator=gen).to(dev)
+            _, _, res = k1._k5_launch(x, gate, fill, cond_lin, w, cfg, s, save=True)
+            got = k1.fused_nerf_mlp_gated_bwd(res, g_rgb, g_den, w, cfg, s)
+            again = k1.fused_nerf_mlp_gated_bwd(res, g_rgb, g_den, w, cfg, s)
+            torch.cuda.synchronize()
+            flat = lambda r: [r[0], r[1], r[2], r[3], *r[4]]  # noqa: E731
+            same = all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+            print(f"K6 {what}: two calls on the same inputs bitwise equal: {same}")
+            if not same:
+                raise SystemExit("K6 is not bitwise reproducible")
+            del again
+            ref = k1.fused_nerf_mlp_gated_bwd_reference(x, gate, fill, cond_lin, w, cfg, s, g_rgb,
+                                                        g_den)
+            err6 = compare_grads(f"K6 fused_nerf_mlp_gated_bwd {what}", flat(got), flat(ref),
+                                 names=("dx", "dgate", "dfill", "dcond_lin"))
+            worst5, worst6 = max(worst5, err5), max(worst6, err6)
+            del got, ref
+            if i == 0 and share == GATE_HIT:
+                check_function(
+                    f"K6 through FusedNerfMlpGatedFn vs autograd of the plain forward N={n}",
+                    lambda x_, g_, f_, c_, *w_: k1.fused_nerf_mlp_gated(x_, g_, f_, c_, w_, cfg, s),
+                    lambda x_, g_, f_, c_, *w_: k1.fused_nerf_mlp_gated_reference(x_, g_, f_, c_, w_,
+                                                                                  cfg, s),
+                    [x, gate, fill, cond, *w], ("dx", "dgate", "dfill", "dcond"), g_rgb, g_den,
+                )
+                ms5 = time_ms(lambda: k1.fused_nerf_mlp_gated(x, gate, fill, cond, w, cfg, s), iters=10)
+                plain5 = time_ms(
+                    lambda: k1.fused_nerf_mlp_gated_reference(x, gate, fill, cond, w, cfg, s), 3, 1
+                )
+                flops = 2.0 * (per_sample * n + per_ray * b)
+                nbytes = 2.0 * f_in * n + 4.0 * (b + f_in + f_c * b + params + 4 * n)
+                bound5, by5 = bound(flops, nbytes)
+                ms6 = time_ms(lambda: k1.fused_nerf_mlp_gated_bwd(res, g_rgb, g_den, w, cfg, s),
+                              iters=10)
+                plain6 = time_ms(
+                    lambda: k1.fused_nerf_mlp_gated_bwd_reference(
+                        x, gate, fill, cond_lin, w, cfg, s, g_rgb, g_den), 3, 1,
+                )
+                flops6 = 4.0 * per_sample * n
+                nbytes6 = (2.0 * 2 * f_in * n + 4.0 * (f_in * n + 4 * n + n + b + 2 * f_in
+                           + 2 * cfg.net_width_condition * b + 2 * params))
+                bound6, by6 = bound(flops6, nbytes6)
+                print(
+                    f"K5 N={n}: kernel {ms5:.3f} ms ({flops / ms5 / 1e9:.1f} TFLOP/s), plain "
+                    f"{plain5:.3f} ms, bound {bound5:.3f} ms ({by5}); K6: kernel {ms6:.3f} ms "
+                    f"({flops6 / ms6 / 1e9:.1f} TFLOP/s), plain {plain6:.3f} ms, bound {bound6:.3f} ms "
+                    f"({by6})"
+                )
+                k5 = dict(ms=ms5, plain_ms=plain5, bound_ms=bound5, bound_by=by5)
+                k6 = dict(ms=ms6, plain_ms=plain6, bound_ms=bound6, bound_by=by6)
+            del x, gate, fill, cond, cond_lin, g_rgb, g_den, res, out
+            torch.cuda.empty_cache()
+    return dict(max_abs_err=worst5, **k5), dict(max_abs_err=worst6, **k6)
 
 
 def check_gated_stack(dev, gen):
@@ -1352,10 +1368,14 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    for name, counts in build.sass_counts(("fused_mlp", "fused_mlp_bwd", "obj_mlp", "obj_mlp_bwd")).items():
+    for name, counts in build.sass_counts(("fused_mlp", "fused_mlp_bwd", "obj_mlp", "obj_mlp_bwd",
+                                            "fused_mlp_gated", "fused_mlp_gated_bwd")).items():
         print(f"  sass {name}: {counts}")
-    # K1 and K2 at 128/128: the mask-free object kernels (TAG 1 and 2).
-    for name, fn in (("fused_mlp", "obj_mlp_fwd_kernelILi1E"), ("fused_mlp_bwd", "obj_mlp_bwd_kernelILi2E")):
+    # K1, K2, K5 and K6 at 128/128: the mask-free object kernels (TAG 1, 2, 5, 6).
+    for name, fn in (("fused_mlp", "obj_mlp_fwd_kernelILi1E"),
+                     ("fused_mlp_bwd", "obj_mlp_bwd_kernelILi2E"),
+                     ("fused_mlp_gated", "obj_mlp_fwd_kernelILi5E"),
+                     ("fused_mlp_gated_bwd", "obj_mlp_bwd_kernelILi6E")):
         counts = build.sass_counts((name,), function=fn)
         print(f"  sass {name}, kernels {fn}*: {counts.get(name, {})}")
 

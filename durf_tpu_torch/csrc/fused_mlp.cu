@@ -84,7 +84,8 @@ static int launch_wide(const float* x, const float* cond, const bf16* w, const f
                        const long long* slices, int n_slices, cudaStream_t stream) {
   wide::WideDesc wd;
   wide::fill_desc(wd, d, n, s_per_ray);
-  if (wt == nullptr || wd.xc > 2 || n_slices != wide::fwd_slices(wd)) return -1;
+  if (wt == nullptr || wd.xc > 2 || n >= wide::MAX_SAMPLES || n_slices != wide::fwd_slices(wd))
+    return -1;
   wide::Plan plan;
   const void* bases[5] = {save_x, save_act, nullptr, nullptr, wt};
   int err = wide::make_plan(plan, specs, n_specs, slices, n_slices, bases);

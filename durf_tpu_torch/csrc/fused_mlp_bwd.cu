@@ -42,32 +42,22 @@
 
 namespace durf {
 
-// K2 at 128 / 128: one object of K4's launches, reading no mask.
-static int narrow_bwd_launch(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e,
-                             const WideArgs& wa, cudaStream_t stream) {
-  obj::ObjDesc od;
-  if (obj::make_desc(od, d.in_dim, d.width, d.depth, d.skip, d.wc, d.depth_cond, d.n_rgb, d.n_den,
-                     d.w_off, nullptr, d.depth + d.depth_cond + 3, a.n, a.n_rays, a.s_per_ray, 1,
-                     0, 0, 0) != 0 ||
-      !obj::act_planes(od, d.act_off, od.act_planes) ||
-      obj::set_g_layout(od, e.g_off, od.g_planes * obj::WIDTH * a.n) != 0)
-    return -1;
-  return obj::launch_bwd<2>(a, nullptr, od, wa, stream);
-}
-
 // K2: at 256 / 128 the wide tile kernel, the dW products, their reduction
-// and the per-ray sums; at 128 / 128 narrow_bwd_launch.
+// and the per-ray sums; at 128 / 128 one object of K4's launches
+// (obj::launch_narrow_bwd).
 template <>
-int hopper_bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const WideArgs& wa,
-                         cudaStream_t stream) {
-  if (d.width == 128 && d.wc == 128) return narrow_bwd_launch(a, d, e, wa, stream);
+int bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const GateArgs& ga,
+                  const WideArgs& wa, cudaStream_t stream) {
+  if (ga.gate != nullptr) return -1;
+  if (d.width == 128 && d.wc == 128) return obj::launch_narrow_bwd<2>(a, d, e, ga, wa, stream);
   if (d.width != 256 || d.wc != 128) return -2;
   wide::WideDesc wd;
   wide::fill_desc(wd, d, a.n, a.s_per_ray);
   wd.act_last = d.act_off[d.depth + d.depth_cond];
   wd.g_rgb = e.g_off[d.depth + 2 + d.depth_cond];
   wd.g_den = e.g_off[d.depth];
-  if (a.jobs_host == nullptr || wd.xc > 2 || wa.n_slices != wide::bwd_slices(wd, a.dx != nullptr))
+  if (a.jobs_host == nullptr || wd.xc > 2 || a.n >= wide::MAX_SAMPLES ||
+      wa.n_slices != wide::bwd_slices(wd, a.dx != nullptr))
     return -1;
   wide::Plan plan;
   const void* bases[5] = {a.x_save, a.act, a.g, a.w, nullptr};

@@ -11,20 +11,27 @@
 //
 // Bound on the H100: operations, as K1. At the object width (8x128 trunk,
 // F_in 63, head 128) a sample costs 0.33 MFLOP of bf16 products against
-// ~150 bytes of input and output. The design is K1's (mlp_tile.cuh): the
-// whole MLP on a 128-sample tile in shared memory, mma.sync with fp32
-// accumulation, the per-ray condition product hoisted out; only the
-// prologue differs. The blend rounds exactly where the JAX kernel does: x
-// and fill arrive in bf16, g * x + (1 - g) * fill is formed in fp32 (no
-// fused multiply-add, as the plain version computes it) and rounded to bf16.
-// Outputs are row-major rgb [n][n_rgb] and density [n][n_den], the layout
-// of the JAX kernel's gated call.
+// ~150 bytes of input and output. The blend rounds exactly where the JAX
+// kernel does: x and fill arrive in bf16, g * x + (1 - g) * fill is formed
+// in fp32 (no fused multiply-add, as the plain version computes it) and
+// rounded to bf16. Outputs are row-major rgb [n][n_rgb] and density
+// [n][n_den], the layout of the JAX kernel's gated call. No tile is
+// skipped: a row whose gate is 0 runs the MLP on the fill row.
+//
+// Two builds. At 128 / 128, the object MLPs' width and the only one K6 is
+// built for, the mask-free build of K3's kernel (mlp_obj.cuh,
+// obj_mlp_fwd_kernel<5>): K1's 128 / 128 build, a persistent wgmma + TMA
+// kernel on K3's plan for one object, whose prologue blends the input tile
+// from the bf16 rows (plain coalesced loads: a 126-byte row stride is not a
+// TMA stride). At other widths the mma.sync tile code of mlp_tile.cuh (the
+// whole MLP on a 128-sample tile in shared memory, the per-ray condition
+// product hoisted out), whose prologue load_x_tile_gated is the same blend.
 //
 // Called from the autograd Function's forward (ops/kernels/fused_mlp.py) it
 // also writes the blended tile and every stored activation in bf16 to device
 // memory, the residuals K6 (fused_mlp_gated_bwd.cu) reads.
 
-#include "mlp_tile.cuh"
+#include "mlp_obj.cuh"
 
 namespace durf {
 
@@ -98,6 +105,8 @@ static int launch(const bf16* x, const float* gate, const bf16* fill, const floa
 
 using durf::MlpDesc;
 
+// The plan (specs .. n_slices) is K3's for one object
+// (hopper_mlp.obj_fwd_plan), read at 128 / 128 only.
 extern "C" int durf_fused_nerf_mlp_gated_fwd(const void* x, const float* gate, const void* fill,
                                              const float* cond, const void* w, const float* b,
                                              float* rgb, float* den, long long n, int s_per_ray,
@@ -105,7 +114,9 @@ extern "C" int durf_fused_nerf_mlp_gated_fwd(const void* x, const float* gate, c
                                              int depth_cond, int n_rgb, int n_den,
                                              const long long* w_off, const long long* b_off,
                                              int n_layers, void* save_x, void* save_act,
-                                             const long long* act_off, int n_act, void* stream) {
+                                             const long long* act_off, int n_act,
+                                             const long long* specs, int n_specs,
+                                             const long long* slices, int n_slices, void* stream) {
   MlpDesc d;
   if (durf::make_fwd_desc(d, in_dim, width, depth, skip, wc, depth_cond, n_rgb, n_den, w_off, b_off,
                           n_layers, save_act != nullptr, act_off, n_act) != 0)
@@ -116,8 +127,16 @@ extern "C" int durf_fused_nerf_mlp_gated_fwd(const void* x, const float* gate, c
   auto sx = static_cast<durf::bf16*>(save_x);
   auto sa = static_cast<durf::bf16*>(save_act);
   auto s = static_cast<cudaStream_t>(stream);
-  if (width == 128 && wc == 128)
-    return durf::launch<4, 4>(xb, gate, fb, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
+  if (width == 128 && wc == 128) {  // one object of K3's kernel, reading no mask
+    durf::obj::ObjDesc od;
+    if (durf::obj::make_desc(od, in_dim, width, depth, skip, wc, depth_cond, n_rgb, n_den, w_off,
+                             b_off, n_layers, n, n / s_per_ray, s_per_ray, 1, 0, 0, 0) != 0 ||
+        (sa != nullptr && !durf::obj::act_planes(od, act_off, n_act)))
+      return -1;
+    const durf::GateArgs ga{xb, gate, fb, nullptr, nullptr, nullptr};
+    return durf::obj::launch_fwd<5>(nullptr, nullptr, cond, wb, b, rgb, den, sx, sa, od, specs,
+                                    n_specs, slices, n_slices, s, ga);
+  }
   if (width == 128 && wc == 256)
     return durf::launch<4, 8>(xb, gate, fb, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
   if (width == 256 && wc == 128)

@@ -51,15 +51,26 @@
 //    hit_o; dx of the x-parts (layer 0, the skip layer) summed over objects
 //    in registers in walk and object order and stored once per tile.
 //
-// The mask-free build. At 128 / 128, K1 is K3 with one object whose hit
-// mask is all ones, and K2 is K4 for that object. The kernels' TAG picks
-// the build: 3 and 4 (K3, K4) read `hit`, evaluate the pair predicate and
-// scale by the gates; 1 and 2 (K1 and K2 at 128 / 128, fused_mlp.cu and
-// fused_mlp_bwd.cu) run their one object on every tile, read no mask and
-// scale nothing, and K2's weight gradients take wide_dw_kernel without the
-// object axis, which skips no stage. The TAG also names the launch in a
-// profile (profile.py), so that K1's and K2's time is not counted as K3's
-// and K4's.
+// The mask-free builds. At 128 / 128, K1 is K3 with one object whose hit
+// mask is all ones, and K2 is K4 for that object; K5 and K6, the MLP with
+// its input gated in the kernel, are K1 and K2 with the blend. The kernels'
+// TAG picks the build: 3 and 4 (K3, K4) read `hit`, evaluate the pair
+// predicate and scale by the gates; 1 and 2 (K1 and K2 at 128 / 128,
+// fused_mlp.cu and fused_mlp_bwd.cu) run their one object on every tile,
+// read no mask and scale nothing, and their weight gradients take
+// wide_dw_kernel without the object axis, which skips no stage; 5 and 6
+// (K5 and K6, fused_mlp_gated.cu and fused_mlp_gated_bwd.cu) are 1 and 2
+// with the gate (GateArgs):
+//  * TAG 5 forms its input tile from bf16 rows x [n][F] as bf16(g x + (1 -
+//    g) fill) in the prologue (gated_input), saves that blended tile for
+//    K6's dW, and writes row-major outputs [n][C];
+//  * TAG 6 runs TAG 2's walk on the blended residuals, then the gate's vjp
+//    in registers on the x-parts' summed dx (gate_epilogue): dgate per
+//    sample, per-tile partials of dfill that feature_sum_kernel adds in a
+//    fixed order, and dx = g dxe.
+// No tile is skipped: a row with gate 0 still runs the MLP on the fill row.
+// The TAG also names the launch in a profile (profile.py), so that each
+// kernel's time is counted as its own.
 
 #pragma once
 
@@ -77,6 +88,7 @@ constexpr int TILE_BYTES = ROWS * WIDTH * 2;     // a 128 x 128 bf16 tile
 constexpr int SLICE = 16384;                     // one ring stage
 constexpr int STAGES = 4;
 constexpr int HEADS_FLOATS = 2 * WIDTH * 4;  // K3: one warpgroup's staged head weights
+constexpr int RED_FLOATS = 8 * WIDTH;        // K6: the gate epilogue's per-warp dfill sums
 // Map slots (hopper_mlp.py O_* and OB_*).
 enum { O_XSAVE = 0, O_ACT = 1, O_W = 2 };
 enum { OB_ACT = 0, OB_G = 1, OB_W = 2, OB_WX = 3 };
@@ -116,7 +128,8 @@ __device__ __forceinline__ bool tile_runs(const float* hit_o, long long tile0, l
   return false;
 }
 
-// This block's tiles are blockIdx.x + k gridDim.x, k < block_tiles(d).
+// This block's tiles are blockIdx.x + k gridDim.x, k < block_tiles(d). The
+// kernels walk them by stride (no 64-bit division on the device).
 __host__ __device__ inline long long block_tiles(const ObjDesc& d, long long block, long long grid) {
   const long long tiles = (d.n + ROWS - 1) / ROWS;
   return (tiles - block + grid - 1) / grid;
@@ -142,10 +155,10 @@ template <int BOXES, bool HIT>
 __device__ void produce(const Plan& plan, const unsigned char* runs, const ObjDesc& d,
                         unsigned char* stages, uint64_t* full, uint64_t* empty) {
   int i = 0;
-  const long long tiles = block_tiles(d, blockIdx.x, gridDim.x);
-  for (long long k = 0; k < tiles; ++k) {
+  const long long n_tiles = (d.n + ROWS - 1) / ROWS;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, runs += d.n_obj) {
     for (int o = 0; o < d.n_obj; ++o) {
-      if (HIT && !runs[k * d.n_obj + o]) continue;
+      if (HIT && !runs[o]) continue;
       for (int k = 0; k < plan.n_slices; ++k, ++i) {
         const int s = i % STAGES;
         hop::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
@@ -223,30 +236,81 @@ __device__ __forceinline__ void small_head(const unsigned char* tile, const floa
   }
 }
 
+// TAG 5's input tile, the warpgroup's 64 rows of bf16(g x + (1 - g) fill)
+// from the bf16 rows x [n][in_dim] and the fill row, g the row's per-ray
+// gate, formed in fp32 without fused multiply-add (as the plain version
+// computes it); zero past in_dim and n. A warp takes every fourth row, four
+// rows at a time, its lanes neighbouring features: coalesced 2-byte loads
+// along the row (126 bytes at F_in 63, a stride TMA does not take), one
+// gate load a row.
+template <int XC>
+__device__ __forceinline__ void gated_input(unsigned char* xt, const GateArgs& ga,
+                                            const ObjDesc& d, long long tile0, int wg, int t) {
+  const int lane = t & 31, warp = t >> 5;
+  float fill[2 * XC];
+#pragma unroll
+  for (int q = 0; q < 2 * XC; ++q) {
+    const int f = lane + 32 * q;
+    fill[q] = f < d.in_dim ? __bfloat162float(ga.fill[f]) : 0.f;
+  }
+#pragma unroll 1
+  for (int k0 = 0; k0 < 16; k0 += 4) {
+    float g[4], v[4][2 * XC];
+    bool ok[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long s = tile0 + 64 * wg + warp + 4 * (k0 + u);
+      ok[u] = s < d.n;
+      g[u] = ok[u] ? ga.gate[wide::ray_of(s, d.s_per_ray)] : 0.f;
+      const bf16* xr = ga.x + (ok[u] ? s : 0) * d.in_dim;
+#pragma unroll
+      for (int q = 0; q < 2 * XC; ++q) {
+        const int f = lane + 32 * q;
+        v[u][q] = ok[u] && f < d.in_dim ? __bfloat162float(xr[f]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int row = 64 * wg + warp + 4 * (k0 + u);
+#pragma unroll
+      for (int q = 0; q < 2 * XC; ++q) {
+        const int f = lane + 32 * q;
+        const float e = __fadd_rn(__fmul_rn(g[u], v[u][q]), __fmul_rn(1.f - g[u], fill[q]));
+        *reinterpret_cast<bf16*>(xt + hop::swz(ROWS, row, f)) =
+            __float2bfloat16_rn(ok[u] && f < d.in_dim ? e : 0.f);
+      }
+    }
+  }
+}
+
 // One tile of K3 on the consumer warpgroups: the shared input tile (if
 // some object runs), each running object's MLP, the gated sums. Without
-// HIT (K1): the one object's MLP, its outputs as they are, and the heads'
-// weights staged once per block by the caller.
-template <int XC, bool HIT>
+// HIT (K1, K5): the one object's MLP, its outputs as they are, and the
+// heads' weights staged once per block by the caller; K5 (GATE) blends its
+// input tile and writes row-major outputs.
+template <int TAG, int XC>
 __device__ __forceinline__ void fwd_tile(long long tile0, const unsigned char* runs,
                                          const float* __restrict__ x,
                                          const float* __restrict__ hit,
                                          const float* __restrict__ cond_lin,
                                          const bf16* __restrict__ w, const float* __restrict__ b,
                                          float* __restrict__ rgb_out, float* __restrict__ den_out,
-                                         int save, const Plan& plan, const ObjDesc& d,
-                                         unsigned char* act, unsigned char* xt, float* heads,
-                                         wide::Ring<STAGES, SLICE>& ring, int wg, int t) {
+                                         int save, const GateArgs& ga, const Plan& plan,
+                                         const ObjDesc& d, unsigned char* act, unsigned char* xt,
+                                         float* heads, wide::Ring<STAGES, SLICE>& ring, int wg,
+                                         int t) {
+  constexpr bool HIT = TAG == 3, GATE = TAG == 5;
   const long long n = d.n;
   const long long sample = tile0 + 64 * wg + (t >> 1);  // this thread's row of the heads
-  const long long ray = sample < n ? sample / d.s_per_ray : 0;
+  const int ray = sample < n ? wide::ray_of(sample, d.s_per_ray) : 0;
   float rgb_acc[4] = {0.f, 0.f, 0.f, 0.f}, den_acc[4] = {0.f, 0.f, 0.f, 0.f};
   bool any = !HIT;
   for (int o = 0; HIT && o < d.n_obj; ++o) any |= runs[o] != 0;
   if (any) {
     wide::before_overwrite(wg, t);  // the last tile's stores have read the x and activation tiles
-    // The input tile: feature-major fp32 -> bf16 rows, zero past in_dim and n.
-    for (int i0 = t; i0 < XC * 64 * 64; i0 += 8 * 128) {
+    if constexpr (GATE) gated_input<XC>(xt, ga, d, tile0, wg, t);
+    // Else the input tile: feature-major fp32 -> bf16 rows, zero past in_dim and n.
+    for (int i0 = t; !GATE && i0 < XC * 64 * 64; i0 += 8 * 128) {
       float v[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
@@ -307,20 +371,21 @@ __device__ __forceinline__ void fwd_tile(long long tile0, const unsigned char* r
       }
     }
   }
-  if ((t & 1) == 0 && sample < n) {
-    for (int c = 0; c < d.n_rgb; ++c) rgb_out[c * n + sample] = rgb_acc[c];
-    for (int c = 0; c < d.n_den; ++c) den_out[c * n + sample] = den_acc[c];
+  if ((t & 1) == 0 && sample < n) {  // K5: row-major [n][C]; else feature-major [C][n]
+    for (int c = 0; c < d.n_rgb; ++c) rgb_out[GATE ? sample * d.n_rgb + c : c * n + sample] = rgb_acc[c];
+    for (int c = 0; c < d.n_den; ++c) den_out[GATE ? sample * d.n_den + c : c * n + sample] = den_acc[c];
   }
 }
 
-// TAG 3: K3; TAG 1: K1 at 128 / 128 (one object, every tile, hit unread).
+// TAG 3: K3; TAG 1: K1 at 128 / 128 (one object, every tile, hit unread);
+// TAG 5: K5 at 128 / 128 (TAG 1 on the input gated in the tile, x unread).
 template <int TAG, int XC>
 __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
     obj_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ hit,
                        const float* __restrict__ cond_lin, const bf16* __restrict__ w,
                        const float* __restrict__ b, float* __restrict__ rgb_out,
-                       float* __restrict__ den_out, int save, const __grid_constant__ Plan plan,
-                       const __grid_constant__ ObjDesc d) {
+                       float* __restrict__ den_out, int save, const __grid_constant__ GateArgs ga,
+                       const __grid_constant__ Plan plan, const __grid_constant__ ObjDesc d) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* act = wide::align1024(smem_raw);
   unsigned char* xt = act + TILE_BYTES;
@@ -352,11 +417,10 @@ __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
     hop::named_sync(1 + wg, 128);
   }
   if (wg == 1) hop::named_arrive(3, 256);  // warpgroup 0 takes the first turn
-  const long long tiles = block_tiles(d, blockIdx.x, gridDim.x);
-  for (long long k = 0; k < tiles; ++k)
-    fwd_tile<XC, HIT>((blockIdx.x + k * gridDim.x) * ROWS, runs + k * d.n_obj, x, hit, cond_lin, w,
-                      b, rgb_out, den_out, save, plan, d, act, xt, heads + wg * HEADS_FLOATS, ring, wg,
-                      t);
+  const long long n_tiles = (d.n + ROWS - 1) / ROWS;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, runs += d.n_obj)
+    fwd_tile<TAG, XC>(tile * ROWS, runs, x, hit, cond_lin, w, b, rgb_out, den_out, save, ga, plan,
+                      d, act, xt, heads + wg * HEADS_FLOATS, ring, wg, t);
   if (wg == 0) hop::named_sync(3, 256);  // warpgroup 1's arrival after its last turn
   if (t == 0) hop::tma_store_wait_read();
 }
@@ -390,19 +454,112 @@ __device__ __forceinline__ void bwd_step(float (&acc)[WIDTH / 2], unsigned char*
   wide::store_rows(&plan.maps[OB_G], gt, WIDTH / 64, tile0, g_plane, wg, t);
 }
 
+// K6's gate epilogue: the gate's vjp on the tile, in registers, once the
+// reverse walk has summed the blend's cotangent dxe over the x-parts into
+// dxa (this thread's rows 64 wg + acc_row(t, i), columns 64 c + acc_col(t,
+// j) and the next, in the wgmma accumulator's layout):
+//  * dgate[s] = sum_f (x'[s][f] - fill'[f]) dxe[s][f]: the thread's columns
+//    in order, then the quad of lanes that shares the row (xor 1, 2);
+//  * dfill_part[f][tile] = sum over the tile's rows of (1 - g) dxe[., f]:
+//    the thread's two rows, the 8 lanes that share its columns (xor 4, 8,
+//    16), then the 8 consumer warps in order through `red` ([8][128] fp32),
+//    between two barriers of both warpgroups. Indexed by tile, not block: a
+//    persistent block walks many tiles;
+//  * dxa scaled by g, which the caller stores as dx.
+// Rows at or past n add 0 to both sums; columns at or past in_dim (whose
+// dxa holds the next pack rows' products) are read by neither.
+template <int XC>
+__device__ __forceinline__ void gate_epilogue(float (&dxa)[XC][32], const GateArgs& ga,
+                                              const ObjDesc& d, long long tile0, float* red,
+                                              int wg, int t) {
+  const int lane = t & 31, warp = t >> 5;
+  long long sample[2];
+  bool valid[2];
+  float g[2], omg[2], dg[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sample[i] = tile0 + 64 * wg + hop::acc_row(t, i);
+    valid[i] = sample[i] < d.n;
+    g[i] = valid[i] ? ga.gate[wide::ray_of(sample[i], d.s_per_ray)] : 0.f;
+    omg[i] = valid[i] ? 1.f - g[i] : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < XC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int f = 64 * c + hop::acc_col(t, j);
+      float fl[2], xv[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        fl[e] = f + e < d.in_dim ? __bfloat162float(ga.fill[f + e]) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          xv[i][e] = valid[i] && f + e < d.in_dim
+                         ? __bfloat162float(ga.x[sample[i] * d.in_dim + f + e])
+                         : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (valid[i] && f + e < d.in_dim)
+            dg[i] = fmaf(xv[i][e] - fl[e], dxa[c][4 * j + 2 * i + e], dg[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 1);
+    dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 2);
+    if ((t & 3) == 0 && valid[i]) ga.dgate[sample[i]] = dg[i];
+  }
+  float* mine = red + (4 * wg + warp) * WIDTH;
+  hop::named_sync(3, 256);  // the last tile's sums have read red
+#pragma unroll
+  for (int c = 0; c < XC; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = fmaf(omg[1], dxa[c][4 * j + 2 + e], omg[0] * dxa[c][4 * j + e]);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (lane < 4) mine[64 * c + hop::acc_col(t, j) + e] = v;
+      }
+  hop::named_sync(3, 256);  // red holds every warp's sums
+  const int f = 128 * wg + t;
+  if (f < 64 * XC && f < d.in_dim) {
+    float s = 0.f;
+    for (int k = 0; k < 8; ++k) s += red[k * WIDTH + f];
+    ga.dfill_part[(long long)f * ((d.n + ROWS - 1) / ROWS) + tile0 / ROWS] = s;
+  }
+#pragma unroll
+  for (int c = 0; c < XC; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        dxa[c][4 * j + 2 * i] *= g[i];
+        dxa[c][4 * j + 2 * i + 1] *= g[i];
+      }
+}
+
 // One tile of K4's tile kernel on the consumer warpgroups: each running
 // object's reverse walk, then the tile's dx rows (zeros if none runs).
-// Without HIT (K2): the one object's walk, its cotangents unscaled.
-template <int XC, bool HIT>
+// Without HIT (K2, K6): the one object's walk, its cotangents unscaled; K6
+// (GATE) runs the gate epilogue before dx is stored.
+template <int TAG, int XC>
 __device__ __forceinline__ void bwd_tile(long long tile0, const unsigned char* runs,
                                          const float* __restrict__ g_rgb,
                                          const float* __restrict__ g_den,
                                          const float* __restrict__ hit, const bf16* __restrict__ w,
                                          const bf16* __restrict__ act, bf16* __restrict__ g,
-                                         float* __restrict__ dx, const Plan& plan,
-                                         const ObjDesc& d, unsigned char* gt, unsigned char* mt,
+                                         float* __restrict__ dx, const GateArgs& ga,
+                                         const Plan& plan, const ObjDesc& d, unsigned char* gt,
+                                         unsigned char* mt, float* red,
                                          wide::Ring<STAGES, SLICE>& ring, uint64_t* bar,
                                          int& mphase, int wg, int t) {
+  constexpr bool HIT = TAG == 4;
   const long long n = d.n;
   const int l_h0 = d.depth + 2;
   float acc[WIDTH / 2];
@@ -434,21 +591,17 @@ __device__ __forceinline__ void bwd_tile(long long tile0, const unsigned char* r
                               zg + d.depth - 1, g_den, wo + d.w_off[d.depth], d.n_den, hit_o,
                               d.s_per_ray, tile0, n, wg, t);
     for (int i = d.depth - 1; i >= 0; --i) {
-      if (reads_x(d, i) && dx != nullptr) {
+      if (reads_x(d, i) && dx != nullptr) {  // the products accumulate onto dxa
 #pragma unroll
-        for (int c = 0; c < XC; ++c) {
-          float accx[32];
-          wide::zero(accx);
-          wide::product<64, STAGES, false, false, SLICE>(accx, gt, WIDTH / 64, ring, wg);
-#pragma unroll
-          for (int e = 0; e < 32; ++e) dxa[c][e] += accx[e];
-        }
+        for (int c = 0; c < XC; ++c)
+          wide::product<64, STAGES, false, false, SLICE>(dxa[c], gt, WIDTH / 64, ring, wg);
       }
       if (i == 0) break;
       bwd_step<true, false, HIT>(acc, gt, mt, plan, ring, bar, mphase, za + i - 1, zg + i - 1, g_den,
                                  wo, 0, hit_o, d.s_per_ray, tile0, n, wg, t);
     }
   }
+  if constexpr (TAG == 6) gate_epilogue<XC>(dxa, ga, d, tile0, red, wg, t);
   if (dx != nullptr) {
 #pragma unroll
     for (int c = 0; c < XC; ++c) wide::dx_accumulate(dxa[c], dx, c, d.in_dim, tile0, n, true, wg, t);
@@ -456,13 +609,14 @@ __device__ __forceinline__ void bwd_tile(long long tile0, const unsigned char* r
 }
 
 // TAG 4: K4's tile kernel; TAG 2: K2's at 128 / 128 (one object, every
-// tile, hit unread).
+// tile, hit unread); TAG 6: K6's (TAG 2 and the gate epilogue).
 template <int TAG, int XC>
 __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
     obj_mlp_bwd_kernel(const float* __restrict__ g_rgb, const float* __restrict__ g_den,
                        const float* __restrict__ hit, const bf16* __restrict__ w,
                        const bf16* __restrict__ act, bf16* __restrict__ g, float* __restrict__ dx,
-                       const __grid_constant__ Plan plan, const __grid_constant__ ObjDesc d) {
+                       const __grid_constant__ GateArgs ga, const __grid_constant__ Plan plan,
+                       const __grid_constant__ ObjDesc d) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* gt = wide::align1024(smem_raw);
   unsigned char* mt = gt + TILE_BYTES;
@@ -470,7 +624,8 @@ __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * SLICE);
   uint64_t* empty = full + STAGES;
   uint64_t* mbar = empty + STAGES;  // one per warpgroup: its activation rows
-  unsigned char* runs = reinterpret_cast<unsigned char*>(mbar + 2);
+  float* red = reinterpret_cast<float*>(mbar + 2);  // K6: the gate epilogue's [8][128] sums
+  unsigned char* runs = reinterpret_cast<unsigned char*>(red + (TAG == 6 ? RED_FLOATS : 0));
   constexpr bool HIT = TAG == 4;
   if (threadIdx.x == 0) {
     init_ring(full, empty);
@@ -491,10 +646,10 @@ __global__ void __launch_bounds__(wide::THREADS_TILE, 1)
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   wide::Ring<STAGES, SLICE> ring{stages, full, empty, 0};
   int mphase = 0;
-  const long long tiles = block_tiles(d, blockIdx.x, gridDim.x);
-  for (long long k = 0; k < tiles; ++k)
-    bwd_tile<XC, HIT>((blockIdx.x + k * gridDim.x) * ROWS, runs + k * d.n_obj, g_rgb, g_den, hit, w,
-                      act, g, dx, plan, d, gt, mt, ring, &mbar[wg], mphase, wg, t);
+  const long long n_tiles = (d.n + ROWS - 1) / ROWS;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, runs += d.n_obj)
+    bwd_tile<TAG, XC>(tile * ROWS, runs, g_rgb, g_den, hit, w, act, g, dx, ga, plan, d, gt, mt, red,
+                      ring, &mbar[wg], mphase, wg, t);
   if (t == 0) hop::tma_store_wait_read();
 }
 
@@ -514,8 +669,9 @@ inline size_t fwd_smem(const ObjDesc& d) {
   return 1024 + TILE_BYTES + (size_t)d.xc * ROWS * 128 + STAGES * SLICE + 2 * HEADS_FLOATS * 4 +
          2 * STAGES * 8 + runs_bytes(d);
 }
-inline size_t bwd_smem(const ObjDesc& d) {
-  return 1024 + 2 * TILE_BYTES + STAGES * SLICE + (2 * STAGES + 2) * 8 + runs_bytes(d);
+inline size_t bwd_smem(const ObjDesc& d, bool gated) {
+  return 1024 + 2 * TILE_BYTES + STAGES * SLICE + (2 * STAGES + 2) * 8 + (gated ? RED_FLOATS * 4 : 0) +
+         runs_bytes(d);
 }
 
 // The descriptor from the entry points' arguments; -1 where the kernels do
@@ -524,7 +680,9 @@ inline int make_desc(ObjDesc& d, int in_dim, int width, int depth, int skip, int
                      int n_rgb, int n_den, const long long* w_off, const long long* b_off,
                      int n_layers, long long n, long long n_rays, int s_per_ray, int n_obj,
                      long long w_stride, long long b_stride, long long act_stride) {
-  if (width != WIDTH || wc != WIDTH || n_layers != depth + dc + 3 || n_layers > MAX_LAYERS) return -1;
+  if (width != WIDTH || wc != WIDTH || n_layers != depth + dc + 3 || n_layers > MAX_LAYERS ||
+      n >= wide::MAX_SAMPLES)
+    return -1;
   d = ObjDesc{};
   d.in_dim = in_dim;
   d.xc = (in_dim + 63) / 64;
@@ -578,14 +736,19 @@ inline int set_g_layout(ObjDesc& d, const long long* g_off, long long g_stride) 
 }
 
 // The forward (TAG 3: K3, gated by `hit`; TAG 1: K1 at 128 / 128, hit
-// nullptr) on the maps and one object's slice schedule the Python side
-// built (hopper_mlp.obj_fwd_plan).
+// nullptr; TAG 5: K5 at 128 / 128, x and hit nullptr, its input from `ga`)
+// on the maps and one object's slice schedule the Python side built
+// (hopper_mlp.obj_fwd_plan).
 template <int TAG>
 int launch_fwd(const float* x, const float* hit, const float* cond_lin, const bf16* w,
                const float* b, float* rgb, float* den, bf16* save_x, bf16* save_act,
                const ObjDesc& d, const long long* specs, int n_specs, const long long* slices,
-               int n_slices, cudaStream_t stream) {
-  if ((hit != nullptr) != (TAG == 3) || n_slices != fwd_slices(d)) return -1;
+               int n_slices, cudaStream_t stream, const GateArgs& ga = GateArgs{}) {
+  constexpr bool GATE = TAG == 5;
+  if ((hit != nullptr) != (TAG == 3) || (x == nullptr) != GATE ||
+      (GATE && (ga.x == nullptr || ga.gate == nullptr || ga.fill == nullptr)) ||
+      n_slices != fwd_slices(d))
+    return -1;
   Plan plan;
   const void* bases[5] = {save_x, save_act, nullptr, w, nullptr};
   int err = wide::make_plan(plan, specs, n_specs, slices, n_slices, bases);
@@ -595,21 +758,25 @@ int launch_fwd(const float* x, const float* hit, const float* cond_lin, const bf
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid_of(d), wide::THREADS_TILE, smem, stream>>>(x, hit, cond_lin, w, b, rgb, den,
-                                                         save_act != nullptr, plan, d);
+                                                         save_act != nullptr, ga, plan, d);
   return (int)cudaGetLastError();
 }
 
 // The backward's launches (TAG 4: K4, gated by `hit`; TAG 2: K2 at 128 /
-// 128, hit nullptr): the tile kernel, the dW products over `a`'s job table
-// (one object's jobs; with HIT per object, skipping the stages no ray of
-// the object hits), their fixed-order reduction, and the per-ray d cond_lin
-// sums. a.total: the gradients of all objects.
+// 128, hit nullptr; TAG 6: K6, TAG 2 with the gate's vjp from `ga`): the
+// tile kernel, the dW products over `a`'s job table (one object's jobs;
+// with HIT per object, skipping the stages no ray of the object hits),
+// their fixed-order reduction, the per-ray d cond_lin sums and (K6) the
+// fixed-order dfill sum over tiles. a.total: the gradients of all objects.
 template <int TAG>
 int launch_bwd(const BwdArgs& a, const float* hit, const ObjDesc& d, const WideArgs& wa,
-               cudaStream_t stream) {
-  constexpr bool HIT = TAG == 4;
+               cudaStream_t stream, const GateArgs& ga = GateArgs{}) {
+  constexpr bool HIT = TAG == 4, GATE = TAG == 6;
   if ((hit != nullptr) != HIT || a.jobs_host == nullptr ||
-      wa.n_slices != bwd_slices(d, a.dx != nullptr))
+      wa.n_slices != bwd_slices(d, a.dx != nullptr) ||
+      (ga.gate != nullptr) != GATE ||
+      (GATE && (a.dx == nullptr || ga.x == nullptr || ga.fill == nullptr || ga.dgate == nullptr ||
+                ga.dfill_part == nullptr || ga.dfill == nullptr)))
     return -1;
   Plan plan;
   const void* bases[5] = {a.x_save, a.act, a.g, a.w, nullptr};
@@ -620,12 +787,12 @@ int launch_bwd(const BwdArgs& a, const float* hit, const ObjDesc& d, const WideA
                                 d.act_stride, d.g_stride)) != 0)
     return err;
 
-  const size_t smem = bwd_smem(d);
+  const size_t smem = bwd_smem(d, GATE);
   auto tile = d.xc == 1 ? obj_mlp_bwd_kernel<TAG, 1> : obj_mlp_bwd_kernel<TAG, 2>;
   cudaError_t ce = cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
   tile<<<grid_of(d), wide::THREADS_TILE, smem, stream>>>(a.g_rgb, a.g_den, hit, a.w, a.act, a.g,
-                                                        a.dx, plan, d);
+                                                        a.dx, ga, plan, d);
   if ((err = (int)cudaGetLastError()) != 0) return err;
 
   const size_t dsmem = wide::dw_smem(HIT ? (size_t)((a.chunk + wide::DW_BK - 1) / wide::DW_BK) : 0);
@@ -639,7 +806,26 @@ int launch_bwd(const BwdArgs& a, const float* hit, const ObjDesc& d, const WideA
   if ((err = launch_reduce<TAG>(a, stream)) != 0) return err;
   ray_sum_kernel<TAG><<<dim3((unsigned)d.n_rays, (unsigned)d.n_obj), WIDTH, 0, stream>>>(
       a.g, d.g_stride, d.g_h0, WIDTH, d.s_per_ray, d.n_rays, a.dcond, hit);
+  if ((err = (int)cudaGetLastError()) != 0 || !GATE) return err;
+  feature_sum_kernel<TAG><<<(unsigned)d.in_dim, THREADS, 0, stream>>>(
+      ga.dfill_part, (int)((d.n + ROWS - 1) / ROWS), ga.dfill);
   return (int)cudaGetLastError();
+}
+
+// K2 (TAG 2) and K6 (TAG 6) at 128 / 128: one object of K4's launches on
+// the residuals K1 or K5 saved, one [n][128] plane per segment, and the
+// cotangent workspace of whole planes; -1 for another layout.
+template <int TAG>
+int launch_narrow_bwd(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const GateArgs& ga,
+                      const WideArgs& wa, cudaStream_t stream) {
+  ObjDesc od;
+  if (make_desc(od, d.in_dim, d.width, d.depth, d.skip, d.wc, d.depth_cond, d.n_rgb, d.n_den,
+                d.w_off, nullptr, d.depth + d.depth_cond + 3, a.n, a.n_rays, a.s_per_ray, 1, 0, 0,
+                0) != 0 ||
+      !act_planes(od, d.act_off, od.act_planes) ||
+      set_g_layout(od, e.g_off, od.g_planes * WIDTH * a.n) != 0)
+    return -1;
+  return launch_bwd<TAG>(a, nullptr, od, wa, stream, ga);
 }
 
 }  // namespace obj

@@ -14,8 +14,9 @@
 //
 // Warp layout: 8 warps as 2 (rows) x 4 (columns); a warp owns 64 rows and
 // N/4 columns of a layer's output, i.e. 4 x NT m16n8 accumulator tiles with
-// NT = N / 32. Widths 128 and 256 are instantiated (K1 at 256 / 128 runs
-// the wgmma + TMA kernel of mlp_wide.cuh instead).
+// NT = N / 32. Widths 128 and 256 are instantiated, for the width pairs
+// the wgmma + TMA kernels do not take (those of mlp_wide.cuh run K1 at 256 /
+// 128; those of mlp_obj.cuh K1, K3 and K5 at 128 / 128).
 
 #pragma once
 

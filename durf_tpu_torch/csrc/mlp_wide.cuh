@@ -1,13 +1,13 @@
 // K1 and K2 at the flagship widths (8x256 trunk, head 128) on Hopper's
-// wgmma with operands staged by TMA (sm_90a). K3 and K4 at the object width
-// (mlp_obj.cuh) build on the same ring, products and epilogues, and K4's
-// weight gradients are wide_dw_kernel with the object axis (OBJ).
+// wgmma with operands staged by TMA (sm_90a). The object-width kernels
+// (mlp_obj.cuh: K3 and K4, and K1, K2, K5 and K6 at 128 / 128) build on the
+// same ring, products and epilogues; their weight gradients are
+// wide_dw_kernel, K4's with the object axis (OBJ).
 //
 // The tile kernels run three warpgroups: two consumers and a producer, which
-// gives registers up to the consumers (setmaxnreg 40 and 232; ptxas still
-// compiles the consumers within the kernel's budget of 168, so K2's tile
-// kernel spills a few hundred bytes); the dW kernel two consumers and a
-// producer warp. The producer walks a schedule of weight (or operand)
+// gives registers up to the consumers (setmaxnreg 40 and 232: ptxas reports
+// the launch's 168 a thread, and the consumers' code uses up to 232); the dW
+// kernel two consumers and a producer warp. The producer walks a schedule of weight (or operand)
 // slices that the Python side builds (ops/kernels/hopper_mlp.py) and keeps
 // TMA loads in flight through a ring of shared-memory stages, each guarded
 // by a `full` mbarrier (the TMA's bytes arrived) and an `empty` one (all 8
@@ -29,7 +29,7 @@
 //    arrives by TMA while layer l's product runs, so the relu mask is read
 //    from shared memory; G_{l-1} goes out by a TMA store from the tile the
 //    next product reads.
-//  * wide_dw_kernel (K2's and K4's weight gradients): dW = A^T G over a slice of
+//  * wide_dw_kernel (K2's, K4's and K6's weight gradients): dW = A^T G over a slice of
 //    samples per block, 128 x N output tiles (N = the layer's 64, 128 or
 //    256 columns) over the two warpgroups, both operands MN-major (samples
 //    are rows in device memory), 64 samples a stage, 4 stages. The row tiles
@@ -115,8 +115,13 @@ __host__ inline int bwd_slices(const WideDesc& d, bool dx) {
   return s;
 }
 
+// The first 1024-byte aligned address at or after p in shared memory. An
+// offset added to p, not a round trip through an integer, keeps every
+// pointer derived from the result known to the compiler as shared: 32-bit
+// addresses and shared loads and stores rather than generic ones, which
+// frees the registers whose lack made the tile kernels spill.
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+  return p + ((1024u - (hop::smem_u32(p) & 1023u)) & 1023u);
 }
 
 // ---- the producer warp and the consumers' side of the ring ----
@@ -236,6 +241,14 @@ __device__ __forceinline__ void load_rows(const CUtensorMap* map, unsigned char*
     hop::tma_load(tile + b * ROWS * 128 + wg * 64 * 128, map, bar, 64 * b, (int)(tile0 + 64 * wg), z);
 }
 
+// The ray of a sample, S samples a ray, in 32-bit arithmetic: the launchers
+// refuse n >= 2^31 samples (MAX_SAMPLES), and a 64-bit division is a
+// subroutine call whose live registers spill.
+constexpr long long MAX_SAMPLES = 1LL << 31;
+__device__ __forceinline__ int ray_of(long long sample, int s_per_ray) {
+  return (int)sample / s_per_ray;
+}
+
 __device__ __forceinline__ float ld_bf(const unsigned char* tile, int row, int col) {
   return __bfloat162float(*reinterpret_cast<const bf16*>(tile + swz(ROWS, row, col)));
 }
@@ -252,7 +265,7 @@ __device__ void fwd_epilogue(const float (&acc)[N / 2], unsigned char* __restric
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const long long sample = tile0 + 64 * wg + acc_row(t, i);
-    crow[i] = cond + (sample < n ? sample / s_per_ray : 0) * N;
+    crow[i] = cond + (long long)(sample < n ? ray_of(sample, s_per_ray) : 0) * N;
   }
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
@@ -416,7 +429,7 @@ __device__ void bwd_epilogue(const float (&acc)[N / 2], unsigned char* __restric
   for (int i = 0; i < 2; ++i) {
     const long long sample = tile0 + 64 * wg + acc_row(t, i);
     valid[i] = sample < n;
-    const float h = (HIT && DEN && valid[i]) ? hit[sample / s_per_ray] : 1.f;
+    const float h = (HIT && DEN && valid[i]) ? hit[ray_of(sample, s_per_ray)] : 1.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       gd[i][c] = (DEN && valid[i] && c < n_den) ? bf16_round(h * g_den[c * n + sample]) : 0.f;
@@ -501,7 +514,7 @@ __device__ void rgb_head_bwd_wide(unsigned char* gt, float* scratch, const bf16*
   const int row = 64 * wg + (t >> 1), half = t & 1;
   const long long sample = tile0 + row;
   const bool valid = sample < n;
-  const float h = (HIT && valid) ? hit[sample / s_per_ray] : 1.f;
+  const float h = (HIT && valid) ? hit[ray_of(sample, s_per_ray)] : 1.f;
   float gr[4] = {0.f, 0.f, 0.f, 0.f};
   for (int c = 0; valid && c < n_rgb; ++c) gr[c] = bf16_round(h * g_rgb[c * n + sample]);
   const int k0 = half * (WC / 2);
@@ -634,7 +647,7 @@ __global__ void __launch_bounds__(THREADS_TILE, 1)
   if (t == 0) hop::tma_store_wait_read();
 }
 
-// ---- K2's and K4's weight gradients ----
+// ---- K2's, K4's and K6's weight gradients ----
 
 // Job fields (ops/kernels/fused_mlp.py:dw_jobs, JOB_FIELDS): A buffer (0
 // x_save, 1 act), A offset, lda, G offset, ldg, k, j, out, bias, first

@@ -56,7 +56,7 @@ extern "C" int durf_fused_obj_mlp_bwd(
                            act_stride) != 0 ||
       durf::obj::set_g_layout(od, g_off, g_stride) != 0)
     return -1;
-  const durf::BwdArgs a{g_rgb, g_den, n_rays, static_cast<const durf::bf16*>(w), nullptr,
+  const durf::BwdArgs a{g_rgb, g_den, n_rays, static_cast<const durf::bf16*>(w),
                         static_cast<const durf::bf16*>(act), static_cast<const durf::bf16*>(x_save),
                         static_cast<durf::bf16*>(g), dx, dcond, jobs, jobs_host, n_jobs, n_tiles,
                         n_splits, chunk, part, dw, n_obj * per_obj, n, s_per_ray};

@@ -36,9 +36,10 @@ K5 (`csrc/fused_mlp_gated.cu`) and K6 (`csrc/fused_mlp_gated_bwd.cu`)
 replace durf_tpu/ops/pallas/fused_mlp.py:fused_nerf_mlp_gated (the same
 pallas_calls with a gate and a fill row): the MLP on bf16(g * x + (1 - g) *
 fill) blended in the tile from row-major bf16 rows x [N, F], a per-ray gate
-g and one fill row; K6 adds dgate and dfill to K2's outputs. Both run the
-mma.sync kernels (csrc/mlp_tile.cuh, csrc/mlp_bwd.cuh; K6 multiplies by the
-transposed weight pack, pack_weights_t).
+g and one fill row; K6 adds dgate and dfill to K2's outputs. At 128 / 128
+both are K1's and K2's builds there with the gate (csrc/mlp_obj.cuh, TAG 5
+and 6), on K3's and K4's plans for one object; K5 at other widths runs the
+mma.sync kernel, and K6 is built only at 128 / 128 (BWD_WIDTHS).
 `FusedNerfMlpGatedFn` joins them as FusedNerfMlpFn joins K1 and K2.
 """
 
@@ -57,7 +58,6 @@ _KERNEL_WIDTHS = (128, 256)
 HEAD_COLS = 8  # padded width of the density / rgb head cotangent rows
 DW_TILE = 128  # output rows (and columns, below 256 / 128) of a weight-gradient tile
 WIDE_DW_COLS = 256  # output columns of a tile of the wide dW kernel (csrc/mlp_wide.cuh)
-DW_CHUNK = 16384  # samples per split of the weight-gradient reduction
 JOB_FIELDS = 12
 
 
@@ -338,11 +338,11 @@ def pack_weights(weights, config, device):
 
 
 def pack_weights_t(weights, config, in_dim: int, device):
-    """Pack the transposed weights K6 multiplies cotangents with, and K1 at
-    256 / 128 activations (layout in csrc/mlp_bwd.cuh BwdDesc): per kernel
-    layer l with a wide product, the h-part W_l[:K]^T as [J][K] bf16 (K =
-    width, or the head width for head_i with i >= 1) and, for layer 0 and
-    the skip layers, the x-part W_l[x rows]^T as ceil(in_dim / 64) matrices
+    """Pack the transposed weights K1 at 256 / 128 multiplies activations
+    with (hopper_mlp.fwd_plan's maps): per kernel layer l with a wide
+    product, the h-part W_l[:K]^T as [J][K] bf16 (K = width, or the head
+    width for head_i with i >= 1) and, for layer 0 and the skip layers, the
+    x-part W_l[x rows]^T as ceil(in_dim / 64) matrices
     [J][64], zero past in_dim. Returns (buffer, wt_offsets, wtx_offsets,
     stride); -1 marks no part."""
     w = config.net_width
@@ -440,7 +440,7 @@ def grad_layout(config, in_dim: int):
 def dw_jobs(config, in_dim, n_obj, act_offs, act_stride, g_offs, g_stride, x_cols,
             tile_cols=DW_TILE):
     """The weight-gradient products as the dW kernels' job table (int64
-    rows of JOB_FIELDS, fields in csrc/mlp_bwd.cuh) and the number of output
+    rows of JOB_FIELDS, fields in csrc/mlp_wide.cuh) and the number of output
     tiles (DW_TILE rows x tile_cols columns). Each job is dW = A^T G over all
     samples, A a saved activation (or the saved input, x_cols wide), G a
     cotangent workspace block; both are given by element offsets from their
@@ -539,9 +539,9 @@ def unpack_grads(flat, weights, config, in_dim: int, stacked: bool):
 def kernel_smem_bytes(config, in_dim: int) -> int:
     """Shared memory of one forward CTA of the mma.sync or wide kernels
     (mirrors smem_bytes in csrc/mlp_tile.cuh, fwd_smem in csrc/mlp_wide.cuh);
-    the backward CTA of the mma.sync kernels needs less (no input tile), the
-    wide one 230 KB. The object kernels (csrc/mlp_obj.cuh, also K1 and K2 at
-    128 / 128) fit at every in_dim they take (check_obj_config)."""
+    the wide backward CTA needs 230 KB. The object kernels (csrc/mlp_obj.cuh,
+    also K1, K2, K5 and K6 at 128 / 128) fit at every in_dim they take
+    (check_obj_config)."""
     if hopper_mlp.is_wide(config):
         xc = hopper_mlp.x_chunks(in_dim)
         return 1024 + 128 * 256 * 2 + xc * 128 * 128 + 4 * hopper_mlp.SLICE_BYTES + 64
@@ -578,8 +578,8 @@ def check_kernel_config(config, in_dim: int) -> None:
 
 def check_obj_config(config, in_dim: int) -> None:
     """Raise if the kernels of csrc/mlp_obj.cuh do not take this MLP shape
-    where they run it (K3, K4, and K1 and K2 at 128 / 128): at that width
-    they take in_dim <= 128."""
+    where they run it (K3, K4, and K1, K2, K5 and K6 at 128 / 128): at that
+    width they take in_dim <= 128."""
     check_kernel_config(config, in_dim)
     if hopper_mlp.is_obj(config) and hopper_mlp.x_chunks(in_dim) > hopper_mlp.MAX_X_CHUNKS:
         raise ValueError(f"the object MLP kernels at width 128 take in_dim <= 128; got {in_dim}")
@@ -641,15 +641,17 @@ def save_buffers(config, in_dim: int, n: int, n_obj: int, device):
 _c = ctypes
 _P, _I, _L = _c.c_void_p, _c.c_int, _c.c_longlong
 _OFFS = _c.POINTER(_c.c_longlong)
-# The forward entry points' shared arguments (K5 prefixes its gate, K1
-# appends the wide kernel's transposed pack and plan); the last is the stream.
+# The forward entry points' shared arguments (K5 prefixes its gate and
+# appends its plan, K1 appends the wide kernel's transposed pack and its
+# plan); the last is the stream.
 _FWD_ARGTYPES = [_P] * 6 + [_L] + [_I] * 9 + [_OFFS, _OFFS, _I, _P, _P, _OFFS, _I, _P]
 _PLAN_ARGTYPES = [_OFFS, _I, _OFFS, _I]
 _K1_ARGTYPES = _FWD_ARGTYPES[:-1] + [_P] + _PLAN_ARGTYPES + [_P]
+_K5_ARGTYPES = [_P, _P] + _FWD_ARGTYPES[:-1] + _PLAN_ARGTYPES + [_P]
 # The K2 / K6 entry point (DURF_DEFINE_BWD_ENTRY in csrc/mlp_bwd.cuh).
 BWD_ARGTYPES = (
-    [_P, _P, _L] + [_P] * 9 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 9
-    + [_OFFS] * 5 + [_I] + [_P] * 6 + _PLAN_ARGTYPES + [_P]
+    [_P, _P, _L] + [_P] * 8 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 9
+    + [_OFFS] * 3 + [_I] + [_P] * 6 + _PLAN_ARGTYPES + [_P]
 )
 _NO_PLAN = (None, 0, None, 0)
 
@@ -705,7 +707,9 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
 def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, need_dx,
                gate=None):
     """Allocate the backward's workspace and launch K2 or K6 (the C entry
-    point `name` of csrc/<what>.cu) on the residuals the forward saved.
+    point `name` of csrc/<what>.cu) on the residuals the forward saved: the
+    wgmma + TMA kernels, whose B is the forward pack, on the plan of the
+    wide kernels (256 / 128) or K4's for one object (128 / 128).
     `gate` = (x rows [N, F] bf16, gate [B] fp32, fill [F] bf16) for K6, whose
     dx is then always formed. Returns (dx [F, N] or None, d cond_lin [B,
     W_c], flat weight grads, and for K6 (dgate [N] per sample, dfill [F]))."""
@@ -722,29 +726,20 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
     check_cuda_operand(g_den, "g_den", dev, (config.num_density_channels, n))
     need_dx = need_dx or gate is not None
     g_offs, g_size = g_layout(config, n)
-    k2 = what == "fused_mlp_bwd"
-    if k2:  # wgmma + TMA kernels, whose B is the forward pack: no transposed pack
-        wt, wt_offs, wtx_offs = None, [-1] * len(w_offs), [-1] * len(w_offs)
-        if hopper_mlp.is_wide(config):
-            plan = hopper_mlp.c_plan("bwd", config, in_dim, n, (w_offs, act_offs, g_offs), need_dx)
-        else:  # K4's kernels for one object, on its cotangent workspace of whole planes
-            plan = hopper_mlp.c_obj_plan("obj_bwd", config, in_dim, n, 1, w_offs, w_stride, need_dx)
-            g_size = hopper_mlp.obj_g_stride(config, n)
-    else:  # K6: the mma.sync kernels, which multiply by the transposed pack
-        wt, wt_offs, wtx_offs, _ = pack_weights_t(weights, config, in_dim, dev)
-        plan = _NO_PLAN
+    if hopper_mlp.is_wide(config):
+        plan = hopper_mlp.c_plan("bwd", config, in_dim, n, (w_offs, act_offs, g_offs), need_dx)
+    else:  # K4's kernels for one object, on its cotangent workspace of whole planes
+        plan = hopper_mlp.c_obj_plan("obj_bwd", config, in_dim, n, 1, w_offs, w_stride, need_dx)
+        g_size = hopper_mlp.obj_g_stride(config, n)
     g = torch.empty((g_size,), dtype=torch.bfloat16, device=dev)
     jobs, jobs_host, n_tiles = job_table(config, in_dim, n, 1, dev)
     _, total = grad_layout(config, in_dim)
-    chunk = DW_CHUNK
-    if k2:
-        chunk = wide_dw_chunk(n, n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    chunk = wide_dw_chunk(n, n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
     n_splits = max(1, -(-n // chunk))
     part = torch.empty((n_splits, total), dtype=torch.float32, device=dev)
     flat = torch.empty((total,), dtype=torch.float32, device=dev)
-    dx = None
-    if need_dx:  # K2's tile kernels store every row of dx, K6's add into it
-        dx = (torch.empty if k2 else torch.zeros)((in_dim, n), dtype=torch.float32, device=dev)
+    # The tile kernels store every row of dx.
+    dx = torch.empty((in_dim, n), dtype=torch.float32, device=dev) if need_dx else None
     dcond = torch.empty((n_rays, config.net_width_condition), dtype=torch.float32, device=dev)
     gate_ptrs, gate_out = [None] * 6, ()
     if gate is not None:
@@ -759,17 +754,15 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
     fn.restype = _c.c_int
     with torch.cuda.device(dev):
         err = fn(
-            g_rgb.data_ptr(), g_den.data_ptr(), n_rays,
-            w.data_ptr(), None if wt is None else wt.data_ptr(), act.data_ptr(),
+            g_rgb.data_ptr(), g_den.data_ptr(), n_rays, w.data_ptr(), act.data_ptr(),
             x_save.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
-            dcond.data_ptr(), jobs.data_ptr(), jobs_host.data_ptr() if k2 else None,
+            dcond.data_ptr(), jobs.data_ptr(), jobs_host.data_ptr(),
             jobs.shape[0], n_tiles, n_splits, chunk,
             part.data_ptr(), flat.data_ptr(), total, n, s_per_ray, in_dim,
             config.net_width, config.net_depth, config.skip_layer,
             config.net_width_condition, config.net_depth_condition,
             config.num_rgb_channels, config.num_density_channels,
-            build.offsets(w_offs), build.offsets(act_offs), build.offsets(wt_offs),
-            build.offsets(wtx_offs), build.offsets(g_offs), len(w_offs),
+            build.offsets(w_offs), build.offsets(act_offs), build.offsets(g_offs), len(w_offs),
             *gate_ptrs, *plan, stream_of(dev),
         )
     build.check(err, what)
@@ -933,16 +926,14 @@ def fused_nerf_mlp_gated_bwd_reference(
     return g * dxe, dgate, dfill, dcond, grads
 
 
-_K5_ARGTYPES = [_P, _P] + _FWD_ARGTYPES
-
-
 def _k5_launch(x, gate, fill, cond_lin, weights, config, s_per_ray: int, save: bool):
     """Launch K5 on x [N, F] (rounded to bf16 here), gate [B] and the fill
-    row. Returns (rgb [N, C_rgb], den [N, C_den], residuals) with residuals
-    = (K2-style residuals of the blended input, (x rows bf16, gate, fill
-    bf16)) when `save`, else None."""
+    row; at 128 / 128 with K3's plan for one object. Returns (rgb [N,
+    C_rgb], den [N, C_den], residuals) with residuals = (K2-style residuals
+    of the blended input, (x rows bf16, gate, fill bf16)) when `save`, else
+    None."""
     n, in_dim = x.shape
-    check_kernel_config(config, in_dim)
+    check_obj_config(config, in_dim)
     dev = x.device
     x_rows = x.detach().to(torch.bfloat16).contiguous()
     fill_row = fill.detach().reshape(-1).to(torch.bfloat16).contiguous()
@@ -962,6 +953,10 @@ def _k5_launch(x, gate, fill, cond_lin, weights, config, s_per_ray: int, save: b
             (x_rows, gate, fill_row),
         )
         ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs))
+    plan = _NO_PLAN
+    if hopper_mlp.is_obj(config):
+        plan = hopper_mlp.c_obj_plan("obj_fwd", config, in_dim, n, 1, w_offs, w_stride,
+                                     x_cols(config, in_dim))
     fn = build.load("fused_mlp_gated").durf_fused_nerf_mlp_gated_fwd
     fn.argtypes = _K5_ARGTYPES
     fn.restype = _c.c_int
@@ -972,7 +967,7 @@ def _k5_launch(x, gate, fill, cond_lin, weights, config, s_per_ray: int, save: b
             config.net_width, config.net_depth, config.skip_layer,
             config.net_width_condition, config.net_depth_condition,
             config.num_rgb_channels, config.num_density_channels,
-            build.offsets(w_offs), build.offsets(b_offs), len(w_offs), *ptrs,
+            build.offsets(w_offs), build.offsets(b_offs), len(w_offs), *ptrs, *plan,
             stream_of(dev),
         )
     build.check(err, "fused_nerf_mlp_gated")

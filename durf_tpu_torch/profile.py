@@ -38,17 +38,25 @@ import time
 # with the tag 2, 4 or 6; K1 and K2 at the flagship widths run the wide_*
 # kernels (csrc/mlp_wide.cuh), K3 and K4 at the object width the obj_mlp_*
 # kernels (csrc/mlp_obj.cuh) and wide_dw_kernel<4, whose names contain the
-# others'; K1 and K2 at 128 / 128 the same obj_mlp_* kernels with the tag 1
-# or 2 (their mask-free build) and wide_dw_kernel<2.
+# others'; K1, K2, K5 and K6 at 128 / 128 the same obj_mlp_* kernels with
+# the tag 1, 2, 5 or 6 (their mask-free builds) and wide_dw_kernel<2 or <6.
 GROUPS = (
     ("K1", ("fused_nerf_mlp_fwd_kernel", "wide_mlp_fwd_kernel<1>", "obj_mlp_fwd_kernel<1,")),
     ("K3", ("obj_mlp_fwd_kernel<3,",)),
-    ("K5", ("fused_nerf_mlp_gated_fwd_kernel",)),
+    ("K5", ("fused_nerf_mlp_gated_fwd_kernel", "obj_mlp_fwd_kernel<5,")),
 ) + tuple(
     (f"K{t}", tuple(f"{k}<{t}" for k in ("mlp_bwd_kernel", "dw_kernel", "reduce_kernel",
                                           "ray_sum_kernel", "feature_sum_kernel")))
     for t in (2, 4, 6)
 )
+
+
+def group_of(kernel: str) -> str:
+    """The hand-written kernel (K1-K6) a device kernel's name belongs to, or
+    "other"."""
+    return next((g for g, keys in GROUPS if any(k in kernel for k in keys)), "other")
+
+
 # K2's and K4's device time by launch (their tile kernels' names end in
 # mlp_bwd_kernel<T, their dW kernels' in dw_kernel<T).
 PARTS = {
@@ -169,8 +177,7 @@ def main(argv=None) -> None:
         n_device += evt.count if us > 0 else 0
         if us == 0 and evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
             n_sync += evt.count
-        group = next((g for g, keys in GROUPS if any(k in evt.key for k in keys)), "other")
-        groups[group] += us
+        groups[group_of(evt.key)] += us
         for k, keys in PARTS.items():
             part = next((p for p, key in keys if key in evt.key), None)
             if part is not None:

@@ -8,8 +8,11 @@
   * the stacked NerfMLP with pallas_gate_in_kernel against the JAX
     package's nn.vmap'd NerfMLP with the same switch, built here;
   * which route a NerfMLP call takes;
-  * a replay of K6's gate epilogue through the layouts the kernel writes
-    (per-sample dgate, per-tile dfill partials summed in a fixed order).
+  * a replay of K6's gate epilogue (csrc/mlp_obj.cuh, TAG 6) through the
+    layouts the kernel writes (per-sample dgate, dfill partials per tile in
+    the persistent blocks' order, summed in a fixed order), GateEpilogue,
+    which test_torch_narrow_layout.py also runs on the replayed walk;
+  * that profile.py counts the launches of K5's and K6's builds as theirs.
 
 Tolerances: values atol 2e-2, gradients atol 8e-2 / rtol 2e-2 (bf16
 operands, float32 sums in other orders; test_pallas_mlp.py:51,81); the
@@ -27,6 +30,7 @@ from durf_tpu.configs import MLPConfig as JMLPConfig
 from durf_tpu.models.mlp import NerfMLP as JNerfMLP
 from durf_tpu.ops.pallas.fused_mlp import fused_nerf_mlp_gated as j_gated
 from durf_tpu.ops.pallas.fused_mlp import mlp_params_from_flax
+from durf_tpu_torch import profile
 from durf_tpu_torch.configs import MLPConfig
 from durf_tpu_torch.models.mlp import NerfMLP
 from durf_tpu_torch.ops.kernels import fused_mlp as k1
@@ -200,46 +204,93 @@ def test_nerf_mlp_routes(monkeypatch, stacked):
     np.testing.assert_allclose(off[0].numpy(), row[0].numpy(), **VALUE_TOL)
 
 
-def _replay_gate_epilogue(dxe_fm, x_rows, gate, fill_row, s_per_ray):
-    """K6's gate epilogue and feature_sum_kernel (csrc/mlp_bwd.cuh) over the
-    buffers they address: dx [in_dim, n] holding dxe, dgate [n], dfill_part
-    [in_dim * tiles] (element f * tiles + tile), dfill [in_dim]."""
-    in_dim, n = dxe_fm.shape
-    tiles = -(-n // 128)
-    g = gate.repeat_interleave(s_per_ray)
-    dx = dxe_fm.clone()
-    dgate = torch.empty(n)
-    part = torch.full((in_dim * tiles,), float("nan"))
-    for t in range(tiles):
-        rows = range(128 * t, min(128 * t + 128, n))
-        for s in rows:  # one thread per sample, features in order
-            acc = torch.zeros(())
-            for f in range(in_dim):
-                acc = acc + (x_rows[s, f] - fill_row[f]) * dx[f, s]
-            dgate[s] = acc
-        for f in range(in_dim):  # a warp per feature: lanes, then an xor tree
-            lanes = torch.zeros(32)
-            for r in range(128):
-                s = 128 * t + r
-                if s < n:
-                    lanes[r % 32] += (1 - g[s]) * dx[f, s]
-            for o in (16, 8, 4, 2, 1):
-                lanes = lanes + lanes[torch.arange(32) ^ o]
-            part[f * tiles + t] = lanes[0]
-        for s in rows:
-            dx[:, s] *= g[s]
-    dfill = torch.empty(in_dim)
-    for f in range(in_dim):  # 256 threads, strided, then a shared-memory tree
-        red = torch.zeros(256)
-        for t in range(tiles):
-            red[t % 256] += part[f * tiles + t]
-        w = 128
-        while w > 0:
-            red[:w] = red[:w] + red[w : 2 * w]
-            w //= 2
-        dfill[f] = red[0]
-    assert not torch.isnan(part).any(), "a partial no tile writes"
-    return dx, dgate, dfill
+class GateEpilogue:
+    """K6's gate epilogue (csrc/mlp_obj.cuh gate_epilogue) on the tiles the
+    tile kernel walks, and feature_sum_kernel, over the buffers they
+    address: dgate [n] and dfill_part [in_dim * tiles] (element f * tiles +
+    tile, or `index(tile, block)`), both from NaN.
+
+    A call takes one tile's dxe, dxa [128, 64 xc] (the x-parts' summed
+    products, columns past in_dim holding the next pack rows' products),
+    and returns dxa scaled by the rows' gates, the dx rows the kernel
+    stores. The sums run in the kernel's order: a thread owns rows 64 wg +
+    16 w + k + 8 i (i = 0, 1; k = lane / 4) and the columns 64 c + 8 j + 2 q
+    + e (q = lane % 4); dgate adds the thread's columns in order, then the
+    quad (xor 1, 2); dfill the thread's two rows, the lanes sharing q (xor
+    4, 8, 16), then the 8 warps in order."""
+
+    def __init__(self, x_rows, gate, fill_row, s_per_ray, index=lambda tile, block: tile):
+        self.n, self.in_dim = x_rows.shape
+        self.tiles = -(-self.n // 128)
+        self.x, self.fill = x_rows, fill_row
+        self.g = gate.repeat_interleave(s_per_ray)
+        self.index = index
+        self.dgate = torch.full((self.n,), float("nan"))
+        self.part = torch.full((self.in_dim * self.tiles,), float("nan"))
+
+    def __call__(self, tile0, dxa, block=None):
+        n, in_dim = self.n, self.in_dim
+        rows = torch.arange(tile0, tile0 + 128)
+        valid = rows < n
+        rc = torch.clamp(rows, max=n - 1)
+        g = torch.where(valid, self.g[rc], torch.zeros(()))
+        omg = torch.where(valid, 1 - self.g[rc], torch.zeros(()))
+        x = torch.where(valid[:, None], self.x[rc], torch.zeros(()))
+        p = torch.zeros((128, 4))  # dgate partials per (row, q)
+        for c in range(dxa.shape[1] // 64):
+            for j in range(8):
+                for e in range(2):
+                    f = 64 * c + 8 * j + 2 * torch.arange(4) + e
+                    ok = (f < in_dim)[None, :] & valid[:, None]
+                    fc = torch.clamp(f, max=in_dim - 1)
+                    p = p + torch.where(ok, (x[:, fc] - self.fill[fc]) * dxa[:, f], torch.zeros(()))
+        p = p + p[:, [1, 0, 3, 2]]
+        p = p + p[:, [2, 3, 0, 1]]
+        self.dgate[rows[valid]] = p[valid, 0]
+        # [wg, warp, i, k, column]: row 64 wg + 16 warp + 8 i + k
+        w = (omg[:, None] * dxa).reshape(2, 4, 2, 8, -1)
+        v = w[:, :, 1] + w[:, :, 0]
+        for bit in (1, 2, 4):
+            v = v + v[:, :, torch.arange(8) ^ bit]
+        v = v[:, :, 0].reshape(8, -1)
+        s = v[0]
+        for k in range(1, 8):
+            s = s + v[k]
+        tile = tile0 // 128
+        at = self.index(tile, block) + self.tiles * torch.arange(in_dim)
+        self.part[at] = s[:in_dim]
+        return dxa * g[:, None]
+
+    def dfill(self):
+        """feature_sum_kernel: 256 threads, strided over the tiles, then a
+        shared-memory tree."""
+        assert not torch.isnan(self.part).any(), "a partial no tile writes"
+        out = torch.empty(self.in_dim)
+        for f in range(self.in_dim):
+            red = torch.zeros(256)
+            for t in range(self.tiles):
+                red[t % 256] += self.part[f * self.tiles + t]
+            w = 128
+            while w > 0:
+                red[:w] = red[:w] + red[w : 2 * w]
+                w //= 2
+            out[f] = red[0]
+        return out
+
+
+def _replay_persistent(epi, dxe_rows, grid):
+    """The tile kernel's persistent blocks (block b walks tiles b, b + grid,
+    ...) running the gate epilogue on dxe [n, in_dim]. Returns dx [n,
+    in_dim]."""
+    n, in_dim = dxe_rows.shape
+    dx = torch.full((n, in_dim), float("nan"))
+    for block in range(grid):
+        for tile in range(block, epi.tiles, grid):
+            r0, r1 = 128 * tile, min(n, 128 * tile + 128)
+            dxa = torch.zeros((128, 64 * -(-in_dim // 64)))
+            dxa[: r1 - r0, :in_dim] = dxe_rows[r0:r1]
+            dx[r0:r1] = epi(128 * tile, dxa, block)[: r1 - r0, :in_dim]
+    return dx
 
 
 def test_k6_gate_epilogue_layout_replay_matches_plain_backward():
@@ -250,7 +301,7 @@ def test_k6_gate_epilogue_layout_replay_matches_plain_backward():
     m.reset_parameters(torch.Generator().manual_seed(2))
     w = [t.detach() for t in m.operands()]
     x = torch.from_numpy(rng.normal(size=(b * s, in_dim)).astype(np.float32))
-    gate = torch.from_numpy(rng.integers(0, 2, size=(b,)).astype(np.float32))
+    gate = torch.from_numpy(rng.choice(np.array([0.0, 1.0, 0.25, 0.7], np.float32), size=(b,)))
     fill = torch.from_numpy(rng.normal(size=(in_dim,)).astype(np.float32))
     cond_lin = torch.from_numpy(rng.normal(size=(b, cfg.net_width_condition)).astype(np.float32))
     g_rgb = torch.from_numpy(rng.normal(size=(b * s, 3)).astype(np.float32))
@@ -258,14 +309,42 @@ def test_k6_gate_epilogue_layout_replay_matches_plain_backward():
     dx, dgate, dfill, dcond, grads = k1.fused_nerf_mlp_gated_bwd_reference(
         x, gate, fill, cond_lin, w, cfg, s, g_rgb, g_den
     )
-    # The reverse walk's dxe (K2's dataflow, replayed in test_torch_kernel_layout.py)
+    # The reverse walk's dxe (K2's dataflow, replayed in test_torch_narrow_layout.py)
     # on the blended input K5 saves.
     xe = k1.gated_blend(x, gate, fill, s)
     dxe, _, _ = k1.split_matmul_backward(cfg, xe, cond_lin.repeat_interleave(s, 0), w, g_rgb, g_den)
     x_rows = x.to(torch.bfloat16).float()
     fill_row = fill.to(torch.bfloat16).float()
-    r_dx, r_dgate_s, r_dfill = _replay_gate_epilogue(dxe.T.contiguous(), x_rows, gate, fill_row, s)
+    # Two persistent blocks: block 0 walks tiles 0 and 2.
+    epi = GateEpilogue(x_rows, gate, fill_row, s)
+    r_dx = _replay_persistent(epi, dxe, grid=2)
     rel = lambda a, c: float((a - c).norm() / c.norm())  # noqa: E731
-    assert rel(r_dx.T, dx) < 1e-5
-    assert rel(r_dgate_s.reshape(b, s).sum(1), dgate) < 1e-5  # the wrapper's per-ray sum
-    assert rel(r_dfill, dfill) < 1e-5
+    assert rel(r_dx, dx) < 1e-5
+    assert rel(epi.dgate.reshape(b, s).sum(1), dgate) < 1e-5  # the wrapper's per-ray sum
+    assert rel(epi.dfill(), dfill) < 1e-5
+    # Partials indexed by block, not tile: block 0's second tile overwrites
+    # its first, and tile 2's slot stays unwritten.
+    by_block = GateEpilogue(x_rows, gate, fill_row, s, index=lambda tile, block: block)
+    _replay_persistent(by_block, dxe, grid=2)
+    with pytest.raises(AssertionError, match="no tile writes"):
+        by_block.dfill()
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("void durf::obj::obj_mlp_fwd_kernel<5, 1>(float const*, float const*)", "K5"),
+    ("void durf::fused_nerf_mlp_gated_fwd_kernel<4, 8>(__nv_bfloat16 const*)", "K5"),
+    ("void durf::obj::obj_mlp_fwd_kernel<1, 1>(float const*, float const*)", "K1"),
+    ("void durf::obj::obj_mlp_fwd_kernel<3, 2>(float const*, float const*)", "K3"),
+    ("void durf::obj::obj_mlp_bwd_kernel<6, 1>(float const*, float const*)", "K6"),
+    ("void durf::obj::obj_mlp_bwd_kernel<2, 1>(float const*, float const*)", "K2"),
+    ("void durf::wide::wide_dw_kernel<6, false>(long long const*, int)", "K6"),
+    ("void durf::wide::wide_dw_kernel<4, true>(long long const*, int)", "K4"),
+    ("void durf::reduce_kernel<6>(float const*, int, long long, float*)", "K6"),
+    ("void durf::ray_sum_kernel<6>(__nv_bfloat16 const*, long long)", "K6"),
+    ("void durf::feature_sum_kernel<6>(float const*, int, float*)", "K6"),
+])
+def test_profile_names_the_gated_kernels_launches(kernel, group):
+    """profile.py counts each launch of K5's and K6's builds as theirs: the
+    object kernels' TAG 5 and 6, and K6's dW, reduction, ray and d fill
+    sums; TAG 5 is not K1's, TAG 6 not K2's."""
+    assert profile.group_of(kernel) == group

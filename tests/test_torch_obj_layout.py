@@ -236,10 +236,11 @@ def _fwd_plan(cfg, in_dim, n, n_obj, w_offs, w_stride):
     return hm.obj_fwd_plan(cfg, in_dim, n, n_obj, w_offs, w_stride, k1.x_cols(cfg, in_dim))
 
 
-def _replay_k3(cfg, x, hit, cond_lin, weights, s, plan=_fwd_plan):
+def _replay_k3(cfg, x, hit, cond_lin, weights, s, plan=_fwd_plan, prologue=None):
     """K3's tile walk through its maps and schedule, only the kept pairs
     (with a hit mask of ones, K1's mask-free walk at 128 / 128: every tile,
-    gates of 1). Returns (rgb, den, x_save, act)."""
+    gates of 1). prologue(rows, valid) gives a tile's input rows [128, 64
+    xc] in place of x's (K5's blend). Returns (rgb, den, x_save, act)."""
     (f_in, n), n_obj = x.shape, hit.shape[0]
     d, dc, w = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
     xc = hm.x_chunks(f_in)
@@ -259,6 +260,8 @@ def _replay_k3(cfg, x, hit, cond_lin, weights, s, plan=_fwd_plan):
         if kept[ti].any():
             xt = torch.zeros((ROWS, 64 * xc))
             xt[valid, :f_in] = _bf(x.T[rows[valid]])
+            if prologue is not None:
+                xt = prologue(rows, valid)
             _store_tile(x_save, specs[hm.O_XSAVE], xt, tile0, 0)
         for o in range(n_obj):
             if not kept[ti, o]:
@@ -299,14 +302,17 @@ def _bwd_plan(cfg, in_dim, n, n_obj, w_offs, w_stride):
     return hm.obj_bwd_plan(cfg, in_dim, n, n_obj, w_offs, w_stride, True)
 
 
-def _replay_k4(cfg, x, hit, cond_lin, weights, s, g_rgb, g_den, chunk, plan=_bwd_plan):
+def _replay_k4(cfg, x, hit, cond_lin, weights, s, g_rgb, g_den, chunk, plan=_bwd_plan,
+               epilogue=None):
     """K4's four launches through their maps, schedule and job table: the
     tile walk of the kept pairs, the dW tiles per object and split over the
     stages that run, the fixed-order reduction and the gated per-ray sums.
     The residuals are the plain version's, written only for the kept pairs
     (as K3 writes them; with a hit mask of ones, K2's mask-free walk at 128
-    / 128). Returns (dx, d cond_lin, weight grads, coverage counts [splits,
-    N_obj * per-object total])."""
+    / 128). epilogue(tile0, dxa) maps a tile's summed x-part products [128,
+    64 xc] to the dx rows stored (K6's gate epilogue). Returns (dx, d
+    cond_lin, weight grads, coverage counts [splits, N_obj * per-object
+    total])."""
     (f_in, n), n_obj = x.shape, hit.shape[0]
     d, dc, w = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
     xc = hm.x_chunks(f_in)
@@ -374,6 +380,8 @@ def _replay_k4(cfg, x, hit, cond_lin, weights, s, g_rgb, g_den, chunk, plan=_bwd
                 g = _bf(ring.product(g, w // 64) * (mask > 0)) * valid
                 _store_tile(gbuf, specs[hm.OB_G], g, tile0, o * gp + i - 1)
             ring.done()
+        if epilogue is not None:
+            dxa = epilogue(tile0, dxa)
         dx[:, rows[valid[:, 0]]] = dxa[valid[:, 0], :f_in].T
 
     # dW: one object's jobs; blocks per (tile, object, split) over the stages that run.
