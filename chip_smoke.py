@@ -88,13 +88,26 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      step against the plain step (as phase 15), one render chunk against
      the plain render (K1 once at each width, K3 twice), one step at
      proposal_samples 64 finite with loss/interlevel, a 20-step descent;
- 17. a JSON line with every kernel's numbers (launches from the path that
+ 17. the training application (`app`): a synthetic scene written by
+     data.synthetic.generate_scene at Waymo's front-camera size (5
+     timesteps x 5 cameras of 1920x1280 at factor 4: 25 images of
+     480x320, 3.84 M rays), trained by durf_tpu_torch.train.main with
+     configs/waymo_fast.gin as shipped (batch 512) and gin overrides that
+     log, save and render at least twice (and lr_delay_steps 0): compaction
+     auto-sized from the scene into (0, 1], device-resident pools, K1-K4
+     launched on every step and every eval chunk (K1/K2 split between the
+     widths), finite losses that fall, metrics.jsonl with the train, loss,
+     obj and test keys, the newest checkpoint_keep checkpoints; a run to
+     the saved step restores the checkpoint's weights bitwise, a run to a
+     later step resumes there, and a few steps on the host prefetch path;
+     steps/s, rays/s, ray-samples/s and the eval render's rays/s;
+ 18. a JSON line with every kernel's numbers (launches from the path that
      runs the kernel: K1-K4 the main path, K5/K6 phase 8, K1 and K2 at
-     128/128 phase 16, with phase 12's beside them; K3 and K4 timed at the
-     compacted step's shape, their bound that of the pairs that ran, with
-     the dense bound, the pair share and the times at each hit share beside
-     it), then the card's name and power limit, and as the last line
-     {"ok": true, "device": {...}}.
+     128/128 phase 16, with phase 12's and phase 17's beside them; K3 and
+     K4 timed at the compacted step's shape, their bound that of the pairs
+     that ran, with the dense bound, the pair share and the times at each
+     hit share beside it), then the card's name and power limit, and as the
+     last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when CUDA is not available, or
 when run outside a checkout of the repository.
@@ -141,6 +154,15 @@ MAIN_RAYS, MAIN_HITTING, OBJ_TILE = 256, 117, 128
 # The proposal phase's untimed step: proposal levels of 64 samples before
 # the final 128.
 PROPOSAL_SAMPLES = 64
+# The app phase: a synthetic scene at Waymo's front-camera size (1920x1280,
+# 5 cameras a timestep) at the training factor 4 (480x320 images), trained
+# by durf_tpu_torch.train.main with configs/waymo_fast.gin and these gin
+# overrides (lr_delay_steps 0 so that the loss can fall within the run);
+# then a resume to APP_RESUME_STEPS and APP_HOST_STEPS on the host path.
+APP_SCENE = dict(timesteps=5, width=1920, height=1280, focal=1680.0, factors=(4,))
+APP_STEPS, APP_RESUME_STEPS, APP_HOST_STEPS = 60, 80, 10
+APP_PARAMS = dict(max_steps=APP_RESUME_STEPS, print_every=10, save_every=20, render_every=30,
+                  checkpoint_keep=2, lr_delay_steps=0)
 # Compaction permutes the object pipeline's rays: the same values, float32
 # sums over samples in another order.
 EXACT_LOSS_TOL, EXACT_GRAD_TOL = 1e-5, 1e-3
@@ -1331,8 +1353,173 @@ def check_proposal(dev, card):
     return {"K1-128": widths["K1"]["128/128"], "K2-128": widths["K2"]["128/128"]}
 
 
+def _app_logs(log_lines, key):
+    """The floats after `key` in the training loop's log lines."""
+    return [float(line.split(key)[1].split()[0]) for line in log_lines if key in line]
+
+
+def _train_cli(argv, log_lines):
+    """durf_tpu_torch.train.main(argv) with its log lines kept in
+    `log_lines` (and printed). Returns (state, seconds)."""
+    from durf_tpu_torch import train
+
+    def keep(line):
+        log_lines.append(line)
+        print(f"  train: {line}")
+
+    t0 = time.perf_counter()
+    state = train.main(argv, log_fn=keep)
+    return state, time.perf_counter() - t0
+
+
+def check_app(dev, card):
+    """The training application (python -m durf_tpu_torch.train) on a
+    synthetic scene at Waymo's front-camera size, with
+    configs/waymo_fast.gin as shipped: auto-sized compaction, random-box
+    init poses, use_box_nearfar, proposal levels, device-resident pools,
+    logging, eval renders, checkpoints, then a resume and the host prefetch
+    path. Returns the launches of the first run by kernel (K1-128 and
+    K2-128 for K1/K2 at 128/128)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from durf_tpu_torch.checkpoints import CheckpointManager
+    from durf_tpu_torch.data.synthetic import generate_scene
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "app_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    scene, train_dir = os.path.join(root, "scene"), os.path.join(root, "train")
+    t0 = time.perf_counter()
+    generate_scene(scene, **APP_SCENE)
+    t_gen = time.perf_counter() - t0
+    width, height = (APP_SCENE[k] // APP_SCENE["factors"][0] for k in ("width", "height"))
+    print(f"app: generated {APP_SCENE['timesteps']} timesteps x 5 cameras of {width}x{height} "
+          f"({APP_SCENE['timesteps'] * 5 * width * height} rays) in {t_gen:.3f} s")
+
+    gin = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "waymo_fast.gin")
+    params = [f"Config.{k} = {v}" for k, v in APP_PARAMS.items()]
+    print(f"app: configs/waymo_fast.gin with the overrides {params}")
+
+    def cli(train, max_steps, extra=()):
+        argv = ["--data_dir", scene, "--train_dir", train, "--gin_file", gin,
+                "--max_steps", str(max_steps), "--device", str(dev)]
+        for p in params + list(extra):
+            argv += ["--gin_param", p]
+        return argv
+
+    # 1. Train from scratch, the launch counts set to 0 just before.
+    logs = []
+    torch.cuda.synchronize()
+    reset_launches()
+    state, secs = _train_cli(cli(train_dir, APP_STEPS), logs)
+    torch.cuda.synchronize()
+    launches, widths = training_launches(), width_launches()
+    levels = state.config.model.num_levels
+    evals = APP_STEPS // APP_PARAMS["render_every"]
+    chunks = math.ceil(width * height / state.config.chunk)
+    fwd = levels * APP_STEPS + levels * evals * chunks
+    expect = {"K1": fwd, "K2": levels * APP_STEPS, "K3": fwd, "K4": levels * APP_STEPS}
+    split = {"K1": {"256/128": fwd // 2, "128/128": fwd // 2},
+             "K2": {"256/128": APP_STEPS, "128/128": APP_STEPS}}
+    print(f"app: {APP_STEPS} steps in {secs:.3f} s (loading, upload and evals included); "
+          f"launches {launches} (expected {expect}), K1/K2 by width {widths}")
+    if launches != expect or widths != split:
+        raise SystemExit(f"the training app did not go through the kernels on every step: "
+                         f"{launches}, {widths}")
+    caps = _app_logs(logs, "-> capacity ")
+    if (len(caps) != 1 or not 0.0 < caps[0] <= 1.0
+            or abs(state.config.model.obj_ray_capacity - caps[0]) > 1e-4):
+        raise SystemExit(f"the app did not auto-size compaction into (0, 1]: {caps}")
+    if not any(line.startswith("device-resident data") for line in logs):
+        raise SystemExit("the app did not take the device-resident data path")
+    losses = _app_logs(logs, "loss=")
+    if len(losses) != APP_STEPS // APP_PARAMS["print_every"] or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"the app's logged losses are missing or not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"the app's loss did not fall: {losses}")
+    lines = [json.loads(line) for line in open(os.path.join(train_dir, "metrics.jsonl"))]
+    keys = set().union(*lines)
+    want = {"train/loss", "train/psnr", "loss/interlevel", "obj/hit_frac", "test/psnr",
+            "test/ssim"}
+    if not want <= keys or not all(math.isfinite(v) for line in lines for v in line.values()):
+        raise SystemExit(f"metrics.jsonl lacks {sorted(want - keys)} or holds a non-finite value")
+    mgr = CheckpointManager(train_dir)
+    saved = mgr.all_steps()
+    every = APP_PARAMS["save_every"]
+    expect_saved = list(range(every, APP_STEPS + 1, every))[-APP_PARAMS["checkpoint_keep"]:]
+    if saved != expect_saved:
+        raise SystemExit(f"checkpoints {saved}, expected the newest {expect_saved}")
+    perf = [line for line in lines if "perf/steps_per_sec" in line]
+    evals_m = [line for line in lines if "test/rays_per_sec" in line]
+    samples = state.config.model.samples_per_ray()
+    print(f"app: capacity {caps[0]:.4f}; loss {losses[0]:.5f} -> {losses[-1]:.5f}; test psnr "
+          f"{[round(e['test/psnr'], 3) for e in evals_m]}, ssim "
+          f"{[round(e['test/ssim'], 4) for e in evals_m]}; checkpoints {saved}")
+    for line in perf:
+        print(f"app: throughput to step {line['step']}: {line['perf/steps_per_sec']} steps/s, "
+              f"{line['perf/rays_per_sec']} rays/s, {line['perf/ray_samples_per_sec']} "
+              f"ray-samples/s ({samples} per ray, batch {state.config.batch_size}) ({card})")
+    for line in evals_m:
+        print(f"app: eval render at step {line['step']}: {width}x{height} in chunks of "
+              f"{state.config.chunk}, {line['test/rays_per_sec']} rays/s ({card})")
+    print(f"app: {[line for line in logs if line.startswith(('scene:', 'device-resident'))]}")
+    del state
+    torch.cuda.empty_cache()
+
+    # 2. Resume: a run to the saved step restores it and trains nothing,
+    # then a run to a later step carries on from it.
+    last = saved[-1]
+    raw = mgr.restore_raw(last)
+    logs = []
+    state, _ = _train_cli(cli(train_dir, last), logs)
+    weights = state.model.state_dict()
+    same = all(torch.equal(weights[k].cpu(), v) for k, v in raw["model"].items())
+    if state.step != last or state.optimizer.count != raw["count"] or not same:
+        raise SystemExit(f"the restored state is not the checkpoint of step {last}: step "
+                         f"{state.step}, count {state.optimizer.count}, weights equal {same}")
+    del state, weights
+    logs = []
+    state, secs = _train_cli(cli(train_dir, APP_RESUME_STEPS), logs)
+    losses = _app_logs(logs, "loss=")
+    resumed = [line for line in logs if line.startswith("resumed from")]
+    steps = [int(line.split("step ")[1].split("/")[0]) for line in logs if "loss=" in line]
+    print(f"app: resumed at step {last} (weights bitwise the checkpoint's) and trained to "
+          f"{state.step} in {secs:.3f} s: {resumed}, losses {losses} at steps {steps}")
+    if (not resumed or f"step {last} " not in resumed[0] or state.step != APP_RESUME_STEPS
+            or not steps or steps[0] <= last or not all(map(math.isfinite, losses))):
+        raise SystemExit("the resumed run did not restart at the saved step or is not finite")
+    del state
+    torch.cuda.empty_cache()
+
+    # 3. The host prefetch path.
+    logs = []
+    torch.cuda.synchronize()
+    reset_launches()
+    state, secs = _train_cli(
+        cli(os.path.join(root, "host"), APP_HOST_STEPS,
+            ["Config.device_resident_data = False", "Config.render_every = 0"]), logs)
+    torch.cuda.synchronize()
+    host_launches = training_launches()
+    losses = _app_logs(logs, "loss=")
+    print(f"app: host prefetch path, {APP_HOST_STEPS} steps in {secs:.3f} s: launches "
+          f"{host_launches}, losses {losses}")
+    expect = levels * APP_HOST_STEPS
+    if (any(line.startswith("device-resident") for line in logs) or not losses
+            or not all(map(math.isfinite, losses)) or any(v != expect for v in host_launches.values())):
+        raise SystemExit("the host prefetch path did not train through the kernels")
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return {"K1": launches["K1"], "K2": launches["K2"], "K3": launches["K3"],
+            "K4": launches["K4"], "K1-128": widths["K1"]["128/128"],
+            "K2-128": widths["K2"]["128/128"]}
+
+
 PHASES = ("kernels", "gated", "slice", "train", "exact", "per_object", "centering", "descent",
-          "plain", "proposal")
+          "plain", "proposal", "app")
 
 
 def main(argv=None) -> int:
@@ -1409,6 +1596,9 @@ def main(argv=None) -> int:
         check_step_vs_plain(dev)
     if "proposal" in only:
         launches.update(check_proposal(dev, smi))
+    app = {}
+    if "app" in only:
+        app = check_app(dev, smi)
     if only != set(PHASES):
         print(f"chip_smoke: partial run ({sorted(only)}), no result line")
         return 0
@@ -1436,7 +1626,8 @@ def main(argv=None) -> int:
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=site, launches=launches[k],
              library_ms=None, **nums[k],
-             **({"per_object_launches": per_object[k]} if k in per_object else {}))
+             **({"per_object_launches": per_object[k]} if k in per_object else {}),
+             **({"app_launches": app[k]} if k in app else {}))
         for k, (name, src, site) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -145,3 +145,58 @@ def sorted_piecewise_constant_pdf(
 
     t = torch.clamp(torch.nan_to_num((u - cdf_g0) / (cdf_g1 - cdf_g0), nan=0.0), 0, 1)
     return bins_g0 + t * (bins_g1 - bins_g0)
+
+
+def compute_ssim(
+    img0: torch.Tensor,
+    img1: torch.Tensor,
+    max_val: float,
+    filter_size: int = 11,
+    filter_sigma: float = 1.5,
+    k1: float = 0.01,
+    k2: float = 0.03,
+    return_map: bool = False,
+) -> torch.Tensor:
+    """SSIM between two [..., H, W, C] float32 images, as tf.image.ssim and
+    the JAX package's `mathx.compute_ssim` compute it (reference
+    math.py:66-137, from Google's Apache-2.0 mip-NeRF): Gaussian-windowed
+    means, variances and covariance, the window applied as two 1-D "valid"
+    blurs (along W, then H) with conv2d; the mean SSIM over (H, W, C), or
+    the map with `return_map`."""
+    hw = filter_size // 2
+    shift = (2 * hw - filter_size + 1) / 2
+    t = ((torch.arange(filter_size, dtype=torch.float32) - hw + shift) / filter_sigma) ** 2
+    filt = torch.exp(-0.5 * t)
+    filt = (filt / filt.sum()).to(img0.device)
+    lead = img0.shape[:-3]
+    height, width, channels = img0.shape[-3:]
+
+    def blur(z):
+        # [..., H, W, C] -> [N * C, 1, H, W] planes, blurred, and back.
+        planes = z.reshape((-1, height, width, channels)).permute(0, 3, 1, 2)
+        planes = planes.reshape(-1, 1, height, width)
+        planes = torch.nn.functional.conv2d(planes, filt.view(1, 1, 1, -1))
+        planes = torch.nn.functional.conv2d(planes, filt.view(1, 1, -1, 1))
+        h, w = planes.shape[-2:]
+        planes = planes.reshape(-1, channels, h, w).permute(0, 2, 3, 1)
+        return planes.reshape(lead + (h, w, channels))
+
+    mu0, mu1 = blur(img0), blur(img1)
+    mu00, mu11, mu01 = mu0 * mu0, mu1 * mu1, mu0 * mu1
+    sigma00 = blur(img0**2) - mu00
+    sigma11 = blur(img1**2) - mu11
+    sigma01 = blur(img0 * img1) - mu01
+
+    # Clamp (co)variances to physically valid values.
+    sigma00 = torch.clamp(sigma00, min=0.0)
+    sigma11 = torch.clamp(sigma11, min=0.0)
+    sigma01 = torch.sign(sigma01) * torch.minimum(torch.sqrt(sigma00 * sigma11), sigma01.abs())
+
+    c1 = (k1 * max_val) ** 2
+    c2 = (k2 * max_val) ** 2
+    numer = (2 * mu01 + c1) * (2 * sigma01 + c2)
+    denom = (mu00 + mu11 + c1) * (sigma00 + sigma11 + c2)
+    ssim_map = numer / denom
+    if return_map:
+        return ssim_map
+    return ssim_map.mean(dim=(-3, -2, -1))

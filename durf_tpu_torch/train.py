@@ -1,5 +1,5 @@
-"""The training step and the eval forward (counterparts of the JAX
-package's `train.py`).
+"""The training step, the eval forward and the training loop with its CLI
+(counterparts of the JAX package's `train.py`).
 
 The train step is eager PyTorch around the hand-written kernels: the
 randomized forward (K1 and K3 through their autograd Functions), the loss
@@ -9,28 +9,46 @@ log-lerp learning rate lr(count + 1). The schedules run on the host from the
 step count. The step's randomness comes from a `torch.Generator` seeded
 from (seed, step), where the JAX package folds the step into a key.
 
-Not ported yet: the occupancy grid, checkpoints and the
-training CLI, with `resolve_obj_capacity` (the auto-sizing of object-ray
-compaction from scene statistics, which needs the scene data layer).
+`run_training` is the loop: a scene directory's RayDataset, compaction
+auto-sized from the scene (`resolve_obj_capacity`), batches drawn on the
+card from device-resident pools (or the host prefetch thread), periodic
+logging, checkpoints, eval renders with PSNR and SSIM, and resume from the
+latest checkpoint. Not ported yet: the occupancy grid, multi-GPU training.
+
+CLI:
+  python -m durf_tpu_torch.train --data_dir=... --train_dir=... \
+      --gin_file=configs/waymo_fast.gin [--gin_param='Config.x = 1' ...] \
+      [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
+import gc
 import math
+import time
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
-from durf_tpu_torch import mathx
-from durf_tpu_torch.configs import Config
+from durf_tpu_torch import mathx, metrics, vis
+from durf_tpu_torch.checkpoints import CheckpointManager
+from durf_tpu_torch.configs import Config, load_config
+from durf_tpu_torch.data import device_data, get_dataset
+from durf_tpu_torch.data.scene import max_hit_fraction
 from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.losses import compute_losses, weight_l2
-from durf_tpu_torch.models.mipnerf import MipNerf, obj_capacity_k
+from durf_tpu_torch.models.mipnerf import MipNerf, construct_model, obj_capacity_k, render_image
 from durf_tpu_torch.rays import Rays
 
 POSE_PARAM = "box_centers"
+# Seeds of the training loop: the initial weights and each step's random
+# stream, and the device-side batch draws (the JAX package's keys,
+# durf_tpu/train.py:524, :555).
+TRAIN_SEED, SAMPLE_SEED = 20200823, 20201473
 
 
 def make_lr_schedule(config: Config):
@@ -316,3 +334,254 @@ def make_render_fn(model: MipNerf, config: Config, device="cuda"):
         return {"rgb": out["rgb"], "depth": out["depth"], "acc": out["acc"]}
 
     return render_chunk
+
+
+def evaluate_image(render_chunk, test_case: dict, alpha: float, chunk: int) -> Dict[str, np.ndarray]:
+    """Render one full test image (a host test batch: [H, W, ...] rays, ext,
+    ts) through the chunked renderer of make_render_fn."""
+    ext, ts = test_case.get("ext"), test_case.get("ts")
+    ts = None if ts is None else int(ts)
+    return render_image(lambda rays: render_chunk(rays, ext, ts, alpha), test_case["rays"], chunk)
+
+
+def resolve_obj_capacity(config: Config, dataset, log_fn=print) -> float:
+    """Size object-ray compaction from the scene (ModelConfig.obj_ray_capacity
+    == -1, the flagship .gin files' setting; durf_tpu/train.py:445-478).
+
+    capacity = margin * the largest over timesteps and pyramid factors of
+    the share of rays hitting any box, with the box extents grown by the
+    pose noise (Config.box_noise under random_box: joint pose optimization
+    moves the boxes by up to that much). Returns 0.0 (compaction off) for a
+    scene without objects and at most 1.0 (k == batch, the uncompacted
+    path), so the auto mode never drops a ray at startup; warn_obj_overflow
+    stays the loud guard if training drifts past the margin.
+    """
+    inflate = config.box_noise if config.random_box else 0.0
+    frac = max(
+        max_hit_fraction(s, use_off=config.random_box, inflate=inflate)
+        for s in dataset.scenes.values()
+    )
+    if frac == 0.0:
+        return 0.0
+    cap = min(1.0, config.model.obj_capacity_margin * frac)
+    k = obj_capacity_k(config.batch_size, cap)
+    log_fn(
+        f"obj_ray_capacity auto: max hit fraction {frac:.4f} "
+        f"(extents +{inflate:.2f} m) * margin {config.model.obj_capacity_margin} "
+        f"-> capacity {cap:.4f} (k={k} of batch {config.batch_size})"
+    )
+    return cap
+
+
+def _host_stats(stats: Dict[str, Any]):
+    """(scalars, viz arrays) of a step's stats on the host, with one copy
+    from the device for all the scalar tensors."""
+    viz = {k: v.detach().cpu().numpy() for k, v in stats.items() if k.startswith("viz/")}
+    keys = [k for k, v in stats.items() if torch.is_tensor(v) and not k.startswith("viz/")]
+    values = torch.stack([stats[k].detach().float() for k in keys]).cpu().tolist() if keys else []
+    scalars = {k: float(v) for k, v in stats.items() if not torch.is_tensor(v)}
+    scalars.update(zip(keys, values))
+    return scalars, viz
+
+
+def run_training(
+    config: Config,
+    data_dir: str,
+    train_dir: str,
+    max_steps: Optional[int] = None,
+    log_fn=print,
+    device="cuda",
+) -> TrainState:
+    """The training loop (durf_tpu/train.py:500-670), on the card unless the
+    caller asks for the CPU. Resumes from the latest checkpoint in
+    `train_dir`; returns the final state."""
+    device = resolve_device(device)
+    max_steps = config.max_steps if max_steps is None else max_steps
+
+    t0 = time.perf_counter()
+    dataset = get_dataset("train", data_dir, config)
+    test_dataset = get_dataset("test", data_dir, config)
+    log_fn(
+        f"scene: {dataset.size} train and {test_dataset.size} test images loaded in "
+        f"{time.perf_counter() - t0:.3f} s"
+    )
+
+    if config.model.obj_ray_capacity < 0.0:
+        config.model.obj_ray_capacity = resolve_obj_capacity(config, dataset, log_fn)
+
+    example = dataset.peek()
+    model = construct_model(config.model, example, device, seed=TRAIN_SEED)
+    num_params = sum(p.numel() for p in model.parameters())
+    log_fn(f"params being optimized: {num_params}")
+
+    optimizer = make_optimizer(config, model)
+    state = create_train_state(config, model, optimizer)
+    ckpt = CheckpointManager(train_dir, keep=config.checkpoint_keep)
+    state = ckpt.restore(state)
+    init_step = state.step
+    if init_step > 0:
+        log_fn(f"resumed from the checkpoint of step {init_step} in {train_dir}")
+
+    train_step = make_train_step(model, config, optimizer, seed=TRAIN_SEED)
+
+    # Device-resident fast path: the pools go to the device once and each
+    # step draws its batch there (data/device_data.py); under c2f every
+    # pyramid level's pools stay resident. Host streaming otherwise.
+    use_device_data = (
+        config.device_resident_data
+        and config.batching == "timestep"
+        and device_data.pool_bytes(dataset) <= config.device_data_max_bytes
+    )
+    if use_device_data:
+        t0 = time.perf_counter()
+        pools = (
+            device_data.build_pools_c2f(dataset, device)
+            if config.use_c2f
+            else [device_data.build_pools(dataset, device)]
+        )
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        c2f_steps = tuple(config.c2f_steps)
+        log_fn(
+            f"device-resident data: {device_data.pool_bytes(dataset) >> 20} MiB of pools "
+            f"uploaded in {time.perf_counter() - t0:.3f} s"
+        )
+
+        def next_batch(step: int) -> Dict[str, Any]:
+            return device_data.sample_batch_c2f(
+                pools, step, c2f_steps, SAMPLE_SEED, config.batch_size
+            )
+    else:
+
+        def next_batch(step: int) -> Dict[str, Any]:
+            return batch_to(next(dataset), device)
+
+    render_chunk = make_render_fn(model, config, device)
+    alpha_fn = make_alpha_schedule(config)
+    writer = metrics.MetricsWriter(train_dir)
+    throughput = metrics.Throughput(config.batch_size, config.model.samples_per_ray())
+
+    # Periodic manual collection instead of ambient ones mid-step
+    # (reference train_boxpose.py:416, 441-442).
+    gc.disable()
+    try:
+        for step in range(init_step, max_steps):
+            # The c2f schedule keys on the 1-indexed step number
+            # (reference train_boxpose.py:421).
+            dataset.set_step(step + 1)
+            test_dataset.set_step(step + 1)
+            state, stats = train_step(state, next_batch(step))
+            throughput.tick()
+
+            if (step + 1) % config.gc_every == 0:
+                gc.collect()
+
+            if (step + 1) % config.print_every == 0:
+                host_stats, viz = _host_stats(stats)
+                host_stats.update(throughput.report())
+                writer.scalars(step + 1, host_stats)
+                if viz:
+                    n_levels = config.model.num_levels
+                    writer.image(
+                        step + 1,
+                        "train/nerf_weights",
+                        vis.render_weight_bars(
+                            [viz[f"viz/t_vals_{i}"] for i in range(n_levels)],
+                            [viz[f"viz/weights_{i}"] for i in range(n_levels)],
+                        ),
+                    )
+                log_fn(
+                    f"step {step + 1}/{max_steps}: loss={host_stats['train/loss']:.4f} "
+                    f"psnr={host_stats['train/psnr']:.2f} "
+                    f"{host_stats['perf/rays_per_sec']:.0f} rays/s"
+                )
+                warn_obj_overflow(host_stats, step + 1, log_fn)
+
+            if (step + 1) % config.save_every == 0:
+                ckpt.save(step + 1, state)
+
+            if config.render_every > 0 and (step + 1) % config.render_every == 0:
+                t0 = time.time()
+                test_case = next(test_dataset)
+                out = evaluate_image(
+                    render_chunk, test_case, float(alpha_fn(step + 1)), chunk=config.chunk
+                )
+                pixels = test_case["pixels"]
+                psnr = float(mathx.mse_to_psnr(torch.tensor(((out["rgb"] - pixels) ** 2).mean())))
+                ssim = float(
+                    mathx.compute_ssim(
+                        torch.from_numpy(np.asarray(out["rgb"], np.float32)),
+                        torch.from_numpy(np.asarray(pixels, np.float32)),
+                        max_val=1.0,
+                    )
+                )
+                n_rays = int(np.prod(pixels.shape[:2]))
+                writer.scalars(
+                    step + 1,
+                    {
+                        "test/psnr": psnr,
+                        "test/ssim": ssim,
+                        "test/rays_per_sec": n_rays / (time.time() - t0),
+                    },
+                )
+                writer.image(step + 1, "test/pred_rgb", out["rgb"])
+                writer.image(step + 1, "test/target_rgb", pixels)
+                for k, v in vis.visualize_suite(out["depth"], out["acc"]).items():
+                    writer.image(step + 1, f"test/{k}", v)
+                log_fn(f"eval step {step + 1}: psnr={psnr:.2f} ssim={ssim:.3f}")
+                throughput.reset()  # eval time is not training time
+    finally:
+        gc.enable()
+    if max_steps % config.save_every != 0 and ckpt.latest_step != max_steps:
+        ckpt.save(max_steps, state, force=True)
+    ckpt.wait()
+    writer.close()
+    return state
+
+
+def main(argv=None, log_fn=print) -> TrainState:
+    """The training CLI (see the module docstring); returns the final state.
+    `log_fn` receives the loop's log lines."""
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--data_dir", required=True)
+    p.add_argument("--train_dir", required=True)
+    p.add_argument("--gin_file", action="append", default=[])
+    p.add_argument("--gin_param", action="append", default=[])
+    p.add_argument("--chunk", type=int, default=None)
+    p.add_argument("--render_every", type=int, default=None)
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument(
+        "--multihost",
+        action="store_true",
+        help="multi-host training: not ported (one process trains on one card)",
+    )
+    p.add_argument(
+        "--profile_dir",
+        default=None,
+        help="trace the run with torch.profiler and write trace.json here",
+    )
+    args = p.parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost: multi-GPU training is not ported yet (ROADMAP queue 1 item 6)"
+        )
+    config = load_config(args.gin_file, args.gin_param)
+    if args.chunk is not None:
+        config.chunk = args.chunk
+    if args.render_every is not None:
+        config.render_every = args.render_every
+    profiler = metrics.start_profiler(args.profile_dir) if args.profile_dir else None
+    try:
+        return run_training(
+            config, args.data_dir, args.train_dir, max_steps=args.max_steps, log_fn=log_fn,
+            device=args.device,
+        )
+    finally:
+        if profiler is not None:
+            metrics.stop_profiler(profiler, args.profile_dir)
+
+
+if __name__ == "__main__":
+    main()

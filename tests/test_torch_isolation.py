@@ -1,6 +1,8 @@
 """The port stands alone and never carries on quietly on the CPU:
-  * no file of durf_tpu_torch/ nor chip_smoke.py imports jax, flax or
-    durf_tpu;
+  * no file of durf_tpu_torch/ nor chip_smoke.py imports jax, flax,
+    durf_tpu, PIL (images go through the port's own PNG codec) or
+    tensorboardX (MetricsWriter loads it by name, only where it is
+    installed);
   * the entry points raise when CUDA is asked for and there is no card;
   * a kernel wrapper takes its plain version only for CPU tensors, and its
     launch counter stays 0 there;
@@ -23,7 +25,7 @@ from durf_tpu_torch.ops.kernels import fused_mlp as k1
 from durf_tpu_torch.ops.kernels import obj_mlp as k3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "durf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "durf_tpu", "PIL", "tensorboardX")
 
 
 def _port_files():
