@@ -101,13 +101,27 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      the saved step restores the checkpoint's weights bitwise, a run to a
      later step resumes there, and a few steps on the host prefetch path;
      steps/s, rays/s, ray-samples/s and the eval render's rays/s;
- 18. a JSON line with every kernel's numbers (launches from the path that
+ 18. the eval, render and pose-eval applications (`apps`) on phase 17's
+     scene and checkpoint (alone: a new scene and 20 steps of train.main),
+     configs/waymo_fast.gin as shipped: `eval.main` with LPIPS on random
+     weights scores every test view, K1 and K3 launched levels x chunks x
+     views times (K1 half at each width), K2/K4 never, every file written
+     and every metric finite; one view again on a copy of the model on the
+     plain versions (atol 2e-2, PSNR within 0.05 dB); LPIPS on the card
+     (TF32 allowed around the call) against the CPU (rtol 1e-4);
+     `render.main` on a spiral of 8 and an interpolated path of 4 frames,
+     then a trajectory file of 2 frames without and with box poses (the
+     second moved 0.5 across: its frame must change, the first not), each
+     with K1/K3 on every chunk of every frame; `pose_eval.main` with a
+     noised init (random_box) and one error per timestep; eval rays/s,
+     render frames/s and rays/s, LPIPS ms per image, peak memory;
+ 19. a JSON line with every kernel's numbers (launches from the path that
      runs the kernel: K1-K4 the main path, K5/K6 phase 8, K1 and K2 at
-     128/128 phase 16, with phase 12's and phase 17's beside them; K3 and
-     K4 timed at the compacted step's shape, their bound that of the pairs
-     that ran, with the dense bound, the pair share and the times at each
-     hit share beside it), then the card's name and power limit, and as the
-     last line {"ok": true, "device": {...}}.
+     128/128 phase 16, with phase 12's, phase 17's and phase 18's beside
+     them; K3 and K4 timed at the compacted step's shape, their bound that
+     of the pairs that ran, with the dense bound, the pair share and the
+     times at each hit share beside it), then the card's name and power
+     limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when CUDA is not available, or
 when run outside a checkout of the repository.
@@ -163,6 +177,16 @@ APP_SCENE = dict(timesteps=5, width=1920, height=1280, focal=1680.0, factors=(4,
 APP_STEPS, APP_RESUME_STEPS, APP_HOST_STEPS = 60, 80, 10
 APP_PARAMS = dict(max_steps=APP_RESUME_STEPS, print_every=10, save_every=20, render_every=30,
                   checkpoint_keep=2, lr_delay_steps=0)
+# The apps phase: on the app phase's scene and checkpoint (or, alone, after
+# APPS_TRAIN_STEPS of its own), the render app's paths and frames, and how
+# far (world units, x and y) the trajectory's second box pose moves the
+# boxes; one LPIPS image timed over APPS_LPIPS_CALLS calls; the plain
+# view's PSNR tolerance (dB).
+APPS_TRAIN_STEPS = 20
+APPS_PATHS = (("spiral", 8), ("interp", 4))
+APPS_BOX_SHIFT = 0.5
+APPS_LPIPS_CALLS = 5
+APPS_PSNR_TOL = 0.05
 # Compaction permutes the object pipeline's rays: the same values, float32
 # sums over samples in another order.
 EXACT_LOSS_TOL, EXACT_GRAD_TOL = 1e-5, 1e-3
@@ -1372,6 +1396,43 @@ def _train_cli(argv, log_lines):
     return state, time.perf_counter() - t0
 
 
+def app_paths():
+    """(root, scene, train_dir, gin) of the app and apps phases: build/app_smoke
+    in the checkout, removed at the end of the apps phase."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "app_smoke")
+    return (root, os.path.join(root, "scene"), os.path.join(root, "train"),
+            os.path.join(here, "configs", "waymo_fast.gin"))
+
+
+def new_app_scene(root, scene):
+    """Write the app phase's synthetic scene into an emptied `root`; returns
+    the images' (width, height)."""
+    import shutil
+
+    from durf_tpu_torch.data.synthetic import generate_scene
+
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_scene(scene, **APP_SCENE)
+    t_gen = time.perf_counter() - t0
+    width, height = (APP_SCENE[k] // APP_SCENE["factors"][0] for k in ("width", "height"))
+    print(f"app: generated {APP_SCENE['timesteps']} timesteps x 5 cameras of {width}x{height} "
+          f"({APP_SCENE['timesteps'] * 5 * width * height} rays) in {t_gen:.3f} s")
+    return width, height
+
+
+def app_cli(scene, train, gin, dev, max_steps, extra=()):
+    """train.main's arguments for the app phase's runs."""
+    argv = ["--data_dir", scene, "--train_dir", train, "--gin_file", gin,
+            "--max_steps", str(max_steps), "--device", str(dev)]
+    for p in [f"Config.{k} = {v}" for k, v in APP_PARAMS.items()] + list(extra):
+        argv += ["--gin_param", p]
+    return argv
+
+
 def check_app(dev, card):
     """The training application (python -m durf_tpu_torch.train) on a
     synthetic scene at Waymo's front-camera size, with
@@ -1381,34 +1442,18 @@ def check_app(dev, card):
     path. Returns the launches of the first run by kernel (K1-128 and
     K2-128 for K1/K2 at 128/128)."""
     import os
-    import shutil
 
-    import numpy as np
     import torch
 
     from durf_tpu_torch.checkpoints import CheckpointManager
-    from durf_tpu_torch.data.synthetic import generate_scene
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "app_smoke")
-    shutil.rmtree(root, ignore_errors=True)
-    scene, train_dir = os.path.join(root, "scene"), os.path.join(root, "train")
-    t0 = time.perf_counter()
-    generate_scene(scene, **APP_SCENE)
-    t_gen = time.perf_counter() - t0
-    width, height = (APP_SCENE[k] // APP_SCENE["factors"][0] for k in ("width", "height"))
-    print(f"app: generated {APP_SCENE['timesteps']} timesteps x 5 cameras of {width}x{height} "
-          f"({APP_SCENE['timesteps'] * 5 * width * height} rays) in {t_gen:.3f} s")
-
-    gin = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "waymo_fast.gin")
+    root, scene, train_dir, gin = app_paths()
+    width, height = new_app_scene(root, scene)
     params = [f"Config.{k} = {v}" for k, v in APP_PARAMS.items()]
     print(f"app: configs/waymo_fast.gin with the overrides {params}")
 
     def cli(train, max_steps, extra=()):
-        argv = ["--data_dir", scene, "--train_dir", train, "--gin_file", gin,
-                "--max_steps", str(max_steps), "--device", str(dev)]
-        for p in params + list(extra):
-            argv += ["--gin_param", p]
-        return argv
+        return app_cli(scene, train, gin, dev, max_steps, extra)
 
     # 1. Train from scratch, the launch counts set to 0 just before.
     logs = []
@@ -1512,14 +1557,212 @@ def check_app(dev, card):
         raise SystemExit("the host prefetch path did not train through the kernels")
     del state
     torch.cuda.empty_cache()
-    shutil.rmtree(root, ignore_errors=True)
     return {"K1": launches["K1"], "K2": launches["K2"], "K3": launches["K3"],
             "K4": launches["K4"], "K1-128": widths["K1"]["128/128"],
             "K2-128": widths["K2"]["128/128"]}
 
 
+def _app_run(name, fn, argv, logs):
+    """fn(argv, log_fn=...) of one app with the launch counts set to 0 just
+    before and read just after. Returns (result, seconds, launches, K1 by
+    width, peak memory GiB)."""
+    import torch
+
+    def keep(line):
+        logs.append(line)
+        if not line.startswith("frame "):
+            print(f"  {name}: {line}")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(argv, log_fn=keep)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (out, secs, training_launches(), width_launches()["K1"],
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def check_apps(dev, card, trained: bool):
+    """The eval, render and pose-eval applications (python -m
+    durf_tpu_torch.eval / .render / .pose_eval) on the app phase's scene and
+    its configs/waymo_fast.gin checkpoint (`trained`), or on a new scene
+    after APPS_TRAIN_STEPS of train.main. Asserts K1 (by width) and K3 on
+    every chunk of every view and frame and K2/K4 not at all, holds one eval
+    view against the plain versions and LPIPS on the card against the CPU;
+    prints eval rays/s, render frames/s and rays/s, LPIPS ms per image and
+    peak memory. Returns the apps' launches of K1, K1-128 and K3."""
+    import copy
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from durf_tpu_torch import eval as app_eval
+    from durf_tpu_torch import mathx, pose_eval
+    from durf_tpu_torch import render as app_render
+    from durf_tpu_torch.checkpoints import CheckpointManager
+    from durf_tpu_torch.configs import load_config
+    from durf_tpu_torch.data import load_scene
+    from durf_tpu_torch.data.format import read_png
+    from durf_tpu_torch.data.scene import DATASET_SPECS
+    from durf_tpu_torch.lpips import load_lpips, save_random_weights
+    from durf_tpu_torch.models import MipNerf
+    from durf_tpu_torch.train import evaluate_image, make_alpha_schedule, make_render_fn
+
+    t_phase = time.perf_counter()
+    root, scene, train_dir, gin = app_paths()
+    if not trained:
+        new_app_scene(root, scene)
+        _train_cli(app_cli(scene, train_dir, gin, dev, APPS_TRAIN_STEPS), [])
+    step = CheckpointManager(train_dir).latest_step
+    config = load_config([gin], [])
+    levels, chunk = config.model.num_levels, config.chunk
+    width, height = (APP_SCENE[k] // APP_SCENE["factors"][0] for k in ("width", "height"))
+    chunks = math.ceil(width * height / chunk)
+    common = ["--data_dir", scene, "--train_dir", train_dir, "--gin_file", gin]
+    weights = os.path.join(root, "lpips_random.npz")
+    save_random_weights(weights)
+    print(f"apps: the checkpoint of step {step}, configs/waymo_fast.gin as shipped, views "
+          f"{width}x{height} in {chunks} chunks of {chunk} rays")
+
+    # 1. The eval app: every test view scored, through K1 and K3 only.
+    out_dir = os.path.join(root, "eval")
+    summary, secs, got, got_k1, mem = _app_run(
+        "eval", app_eval.main,
+        common + ["--device", str(dev), "--lpips", "--lpips_weights", weights, "--out_dir",
+                  out_dir], [])
+    views = len(DATASET_SPECS[config.dataset_loader].test_indices)
+    expect = levels * chunks * views
+    print(f"apps: eval of {summary['num_views']} views in {secs:.3f} s: launches {got}, K1 by "
+          f"width {got_k1} (expected K1 and K3 {expect}, K1 half at each width, K2/K4 0); "
+          f"{summary['eval_rays_per_sec']:.1f} rays/s; peak memory {mem:.3f} GiB ({card})")
+    if (got != {"K1": expect, "K2": 0, "K3": expect, "K4": 0}
+            or got_k1 != {"256/128": expect // 2, "128/128": expect // 2}):
+        raise SystemExit(f"the eval app did not go through the kernels on every chunk: {got}, "
+                         f"{got_k1}")
+    scores = [summary[k] for k in ("psnr", "ssim", "depth_mse", "lpips", "avg_error",
+                                   "eval_rays_per_sec")]
+    files = {f"{kind}_{i:03d}.{ext}" for i in range(views)
+             for kind, ext in (("pred", "png"), ("gt", "png"), ("depth", "png"), ("depth", "tiff"))}
+    if (summary["num_views"] != views or summary["step"] != step
+            or not all(map(math.isfinite, scores))
+            or not files | {"metrics.json"} <= set(os.listdir(out_dir))):
+        raise SystemExit(f"the eval app's metrics or files are wrong: {summary}, "
+                         f"{sorted(os.listdir(out_dir))}")
+    eval_apps = {"K1": got["K1"], "K1-128": got_k1["128/128"], "K3": got["K3"]}
+    print(f"apps: eval psnr {summary['psnr']:.4f}, ssim {summary['ssim']:.5f}, depth_mse "
+          f"{summary['depth_mse']:.6f}, lpips (random weights) {summary['lpips']:.6f}, avg_error "
+          f"{summary['avg_error']:.6f}")
+
+    # 2. One view again, on the restored model and on a copy of it on the
+    # plain versions.
+    dataset, model, _, render = app_eval.restore_for_eval(config, scene, train_dir, device=dev)
+    case = next(dataset)
+    alpha = float(make_alpha_schedule(config)(step))
+    plain_cfg = copy.deepcopy(config)
+    plain_cfg.model.use_pallas_mlp = False
+    plain = MipNerf(plain_cfg.model, model.box_centers.shape[1], model.box_centers.shape[0])
+    plain.load_state_dict(model.state_dict())
+    with_k = evaluate_image(render, case, alpha, chunk)
+    with_p = evaluate_image(make_render_fn(plain.to(dev), plain_cfg, dev), case, alpha, chunk)
+    err = max(float(np.abs(with_k[k] - with_p[k]).max()) for k in ("rgb", "acc"))
+    psnr = [float(mathx.mse_to_psnr(torch.tensor(float(((o["rgb"] - case["pixels"]) ** 2).mean()))))
+            for o in (with_k, with_p)]
+    print(f"apps: view 0 on the kernels against the plain versions: rgb/acc max_abs_err "
+          f"{err:.3e}, psnr {psnr[0]:.4f} against {psnr[1]:.4f} (the eval app's "
+          f"{summary['per_image'][0]['psnr']:.4f})")
+    if err > TOL or abs(psnr[0] - psnr[1]) > APPS_PSNR_TOL:
+        raise SystemExit(f"the eval view disagrees with the plain versions: {err} > {TOL} or "
+                         f"psnr {psnr}")
+    del dataset, model, plain, render, with_p
+    torch.cuda.empty_cache()
+
+    # 3. LPIPS on the card (TF32 allowed around it: the metric turns it off in
+    # its own scope) against the CPU.
+    pred, gt = (read_png(os.path.join(out_dir, f"{k}_000.png")).astype(np.float32) / 255
+                for k in ("pred", "gt"))
+    on_card, on_cpu = load_lpips(weights, dev), load_lpips(weights, "cpu")
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        on_card(pred, gt)  # warm-up
+        times = []
+        for _ in range(APPS_LPIPS_CALLS):
+            t0 = time.perf_counter()
+            card_score = on_card(pred, gt)  # float(): waits for the card
+            times.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    cpu_score = on_cpu(pred, gt)
+    rel = abs(card_score - cpu_score) / abs(cpu_score)
+    lpips_ms = statistics.median(times)
+    print(f"apps: LPIPS of one {width}x{height} image on the card {card_score:.7f}, on the CPU "
+          f"{cpu_score:.7f} (relative {rel:.2e}); {lpips_ms:.3f} ms per image, median of "
+          f"{APPS_LPIPS_CALLS} ({card})")
+    if not rel <= 1e-4:
+        raise SystemExit(f"LPIPS on the card differs from the CPU's: relative {rel}")
+
+    # 4. The render app: camera paths, then a trajectory file with and without
+    # box poses.
+    render_apps = {"K1": 0, "K1-128": 0, "K3": 0}
+
+    def render_run(name, extra, n_frames):
+        logs = []
+        frames, secs, got, got_k1, mem = _app_run(
+            f"render {name}", app_render.main,
+            common + ["--device", str(dev), "--out_dir", os.path.join(root, name)] + extra, logs)
+        rate = [line for line in logs if line.startswith("rendered ")]
+        expect = levels * chunks * n_frames
+        print(f"apps: render {name}: {len(frames)} frames in {secs:.3f} s with the GIF; launches "
+              f"{got}, K1 by width {got_k1} (expected K1 and K3 {expect}); peak memory "
+              f"{mem:.3f} GiB; {rate} ({card})")
+        if (len(frames) != n_frames or got != {"K1": expect, "K2": 0, "K3": expect, "K4": 0}
+                or got_k1 != {"256/128": expect // 2, "128/128": expect // 2}
+                or not all(np.isfinite(f).all() for f in frames)
+                or not os.path.exists(os.path.join(root, name, "trajectory.gif"))):
+            raise SystemExit(f"the render app's {name} run is wrong: {len(frames)} frames, {got}")
+        for key, n in (("K1", got["K1"]), ("K1-128", got_k1["128/128"]), ("K3", got["K3"])):
+            render_apps[key] += n
+        return frames
+
+    for path, n in APPS_PATHS:
+        render_run(path, ["--path", path, "--n_views", str(n)], n)
+    cams = load_scene(scene, config, "render").camtoworlds[:2]
+    row = CheckpointManager(train_dir).restore_raw()["model"]["box_centers"][0].numpy()
+    shift = np.array([APPS_BOX_SHIFT, APPS_BOX_SHIFT, 0, 0, 0, 0], np.float32)
+    for name, data in (("still", dict(poses=cams)),
+                       ("moved", dict(poses=cams, box_poses=np.stack([row, row + shift])))):
+        np.savez(os.path.join(root, f"{name}.npz"), **data)
+    still = render_run("still", ["--trajectory", os.path.join(root, "still.npz")], 2)
+    moved = render_run("moved", ["--trajectory", os.path.join(root, "moved.npz")], 2)
+    same, moved_by = (float(np.abs(moved[k] - still[k]).max()) for k in (0, 1))
+    print(f"apps: box poses: frame 0 (the checkpoint's boxes) against the still frame "
+          f"max_abs_err {same:.3e}; frame 1 (boxes {APPS_BOX_SHIFT} across) differs by "
+          f"{moved_by:.4f} at most, {float(np.abs(moved[1] - still[1]).mean()):.5f} on average")
+    if same > 1e-5 or moved_by < 0.02:
+        raise SystemExit("the trajectory's box poses did not move the objects as asked")
+
+    # 5. The pose-eval app (host only).
+    report = pose_eval.main(common, log_fn=lambda _: None)
+    opt, init = report["optimized_vs_gt"], report["init_vs_gt"]
+    print(f"apps: pose_eval at step {report['step']}: init_vs_gt mse_total "
+          f"{init['mse_total']:.6f} m^2, angle {init['angle_deg_mean']:.4f} deg; optimized_vs_gt "
+          f"{opt['mse_total']:.6f}; per_timestep_mse {opt['per_timestep_mse']}")
+    if (report["step"] != step or not init["mse_total"] > 0
+            or len(opt["per_timestep_mse"]) != config.timesteps):
+        raise SystemExit(f"the pose-eval app's report is wrong: {report}")
+    shutil.rmtree(root, ignore_errors=True)
+    apps = {k: eval_apps[k] + render_apps[k] for k in eval_apps}
+    print(f"apps: launches, eval {eval_apps} + render {render_apps}; the phase took "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    return apps
+
+
 PHASES = ("kernels", "gated", "slice", "train", "exact", "per_object", "centering", "descent",
-          "plain", "proposal", "app")
+          "plain", "proposal", "app", "apps")
 
 
 def main(argv=None) -> int:
@@ -1599,6 +1842,9 @@ def main(argv=None) -> int:
     app = {}
     if "app" in only:
         app = check_app(dev, smi)
+    apps = {}
+    if "apps" in only:
+        apps = check_apps(dev, smi, trained="app" in only)
     if only != set(PHASES):
         print(f"chip_smoke: partial run ({sorted(only)}), no result line")
         return 0
@@ -1627,7 +1873,8 @@ def main(argv=None) -> int:
         dict(name=name, route="cuda", source=src, replaces=site, launches=launches[k],
              library_ms=None, **nums[k],
              **({"per_object_launches": per_object[k]} if k in per_object else {}),
-             **({"app_launches": app[k]} if k in app else {}))
+             **({"app_launches": app[k]} if k in app else {}),
+             **({"apps_launches": apps[k]} if k in apps else {}))
         for k, (name, src, site) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,9 @@ Images are read and written by `read_png` / `write_png`, built on the
 standard library's zlib and numpy: the port needs no imaging package. The
 reader takes what PIL writes (8-bit gray, gray+alpha, RGB and RGBA,
 non-interlaced, every row filter); anything else (JPEG, 16-bit, palette,
-interlaced) raises a ValueError that names the file.
+interlaced) raises a ValueError that names the file. The apps' other
+outputs are written the same way: float32 depth as TIFF
+(`write_tiff_float32`) and trajectories as animated GIF (`write_gif`).
 """
 
 from __future__ import annotations
@@ -132,6 +134,11 @@ def _chunk(ctype: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(ctype + payload)))
 
 
+def to_uint8(image: np.ndarray) -> np.ndarray:
+    """A float image in [0, 1] (clipped) as uint8, 255 * x truncated."""
+    return (np.clip(image, 0, 1) * 255).astype(np.uint8)
+
+
 def write_png(filename: str, image: np.ndarray) -> None:
     """Write a uint8 image ([H, W] gray, or [H, W, C] with C in 1-4) as an
     8-bit PNG, every row with filter 0 (none)."""
@@ -150,6 +157,140 @@ def write_png(filename: str, image: np.ndarray) -> None:
     with open(filename, "wb") as fh:
         fh.write(PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
                  + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+# Baseline TIFF field types.
+_TIFF_SHORT, _TIFF_LONG = 3, 4
+
+
+def write_tiff_float32(filename: str, array: np.ndarray) -> None:
+    """Write an [H, W] array as a little-endian baseline TIFF of float32
+    samples: one strip, uncompressed, BitsPerSample 32, SampleFormat 3
+    (IEEE float), PhotometricInterpretation 1 (black is zero). PIL opens it
+    in mode "F", as it opens the TIFF it writes for a float32 image."""
+    data = np.ascontiguousarray(array, dtype="<f4")
+    if data.ndim != 2:
+        raise ValueError(f"{filename}: write_tiff_float32 takes [H, W], got {data.shape}")
+    height, width = data.shape
+    pixels = data.tobytes()
+    ifd_offset = 8 + len(pixels) + (len(pixels) & 1)  # the IFD starts on a word
+    entries = [  # (tag, type, value), ascending tags
+        (256, _TIFF_LONG, width),  # ImageWidth
+        (257, _TIFF_LONG, height),  # ImageLength
+        (258, _TIFF_SHORT, 32),  # BitsPerSample
+        (259, _TIFF_SHORT, 1),  # Compression: none
+        (262, _TIFF_SHORT, 1),  # PhotometricInterpretation: BlackIsZero
+        (273, _TIFF_LONG, 8),  # StripOffsets
+        (277, _TIFF_SHORT, 1),  # SamplesPerPixel
+        (278, _TIFF_LONG, height),  # RowsPerStrip
+        (279, _TIFF_LONG, len(pixels)),  # StripByteCounts
+        (339, _TIFF_SHORT, 3),  # SampleFormat: IEEE float
+    ]
+    ifd = struct.pack("<H", len(entries))
+    for tag, kind, value in entries:
+        packed = struct.pack("<HH", value, 0) if kind == _TIFF_SHORT else struct.pack("<I", value)
+        ifd += struct.pack("<HHI", tag, kind, 1) + packed
+    ifd += struct.pack("<I", 0)  # no next IFD
+    with open(filename, "wb") as fh:
+        fh.write(struct.pack("<2sHI", b"II", 42, ifd_offset) + pixels
+                 + b"\0" * (len(pixels) & 1) + ifd)
+
+
+# GIF: a fixed 6 x 7 x 6 colour cube (252 colours; the 7 green levels
+# because the eye tells greens apart best), so every channel lies within
+# half a level step of its colour: 255 / 5 / 2 = 25.5 for red and blue,
+# 255 / 6 / 2 = 21.25 for green.
+GIF_LEVELS = (6, 7, 6)
+GIF_HALF_STEP = tuple(255.0 / (n - 1) / 2 for n in GIF_LEVELS)
+_GIF_MIN_CODE = 8  # 8-bit pixel indices
+_GIF_MAX_CODES = 4096  # 12-bit codes
+
+
+def _gif_palette() -> np.ndarray:
+    """[256, 3] uint8: the cube's 252 colours, red slowest, then 4 black."""
+    axes = [np.round(np.arange(n) * 255.0 / (n - 1)) for n in GIF_LEVELS]
+    cube = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    return np.concatenate([cube, np.zeros((256 - len(cube), 3))]).astype(np.uint8)
+
+
+def _gif_indices(frame: np.ndarray) -> np.ndarray:
+    """Palette index of each pixel of a uint8 [H, W, 3] frame: each channel
+    rounded to its nearest level."""
+    levels = np.asarray(GIF_LEVELS)
+    q = np.rint(frame.astype(np.float64) * (levels - 1) / 255.0).astype(np.int64)
+    return ((q[..., 0] * levels[1] + q[..., 1]) * levels[2] + q[..., 2]).astype(np.uint8)
+
+
+def _gif_lzw(indices: np.ndarray) -> bytes:
+    """GIF's LZW: variable-width codes from 9 to 12 bits, a clear code first
+    and whenever the table is full, the end code last; packed LSB first."""
+    clear, end = 1 << _GIF_MIN_CODE, (1 << _GIF_MIN_CODE) + 1
+    codes, widths = [clear], [_GIF_MIN_CODE + 1]
+    table, next_code, width = {}, end + 1, _GIF_MIN_CODE + 1
+    pixels = indices.reshape(-1).tolist()
+    prefix = pixels[0]
+    for c in pixels[1:]:
+        key = (prefix << 8) | c
+        code = table.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        codes.append(prefix)
+        widths.append(width)
+        if next_code < _GIF_MAX_CODES:
+            table[key] = next_code
+            next_code += 1
+            # The decoder adds each entry one code later, so a code is
+            # widened once the entry after it no longer fits.
+            if next_code > (1 << width) and width < 12:
+                width += 1
+        else:
+            codes.append(clear)
+            widths.append(width)
+            table, next_code, width = {}, end + 1, _GIF_MIN_CODE + 1
+        prefix = c
+    codes.append(prefix)
+    widths.append(width)
+    if next_code < _GIF_MAX_CODES and next_code + 1 > (1 << width) and width < 12:
+        width += 1  # the decoder's entry for the last code
+    codes.append(end)
+    widths.append(width)
+    codes_a, widths_a = np.asarray(codes, np.int64), np.asarray(widths, np.int64)
+    starts = np.cumsum(widths_a) - widths_a
+    bits = np.zeros(int(widths_a.sum()), np.uint8)
+    for b in range(12):
+        sel = widths_a > b
+        bits[starts[sel] + b] = (codes_a[sel] >> b) & 1
+    return np.packbits(bits, bitorder="little").tobytes()
+
+
+def write_gif(filename: str, frames, duration_ms: int = 80, loop: int = 0) -> None:
+    """Write uint8 [H, W, 3] frames as an animated GIF89a: one global
+    palette, the fixed 6 x 7 x 6 colour cube of `_gif_palette` (each
+    channel within GIF_HALF_STEP of the frame's), `duration_ms` per frame
+    (GIF counts in 1/100 s), the NETSCAPE2.0 block repeating the animation
+    `loop` times (0: forever), the pixels LZW-coded by `_gif_lzw`."""
+    frames = [np.asarray(f) for f in frames]
+    if not frames:
+        raise ValueError(f"{filename}: write_gif needs at least one frame")
+    height, width = frames[0].shape[:2]
+    for f in frames:
+        if f.dtype != np.uint8 or f.shape != (height, width, 3):
+            raise ValueError(f"{filename}: write_gif takes uint8 [H, W, 3] frames of one size, "
+                             f"got {f.dtype} {f.shape}")
+    out = [b"GIF89a", struct.pack("<HHBBB", width, height, 0xF7, 0, 0),
+           _gif_palette().tobytes(),
+           b"\x21\xff\x0bNETSCAPE2.0" + struct.pack("<BBHB", 3, 1, loop, 0)]
+    for f in frames:
+        data = _gif_lzw(_gif_indices(f))
+        blocks = b"".join(bytes([len(data[i : i + 255])]) + data[i : i + 255]
+                          for i in range(0, len(data), 255))
+        out += [b"\x21\xf9\x04" + struct.pack("<BHBB", 0, round(duration_ms / 10), 0, 0),
+                b"\x2c" + struct.pack("<HHHHB", 0, 0, width, height, 0),
+                bytes([_GIF_MIN_CODE]) + blocks + b"\x00"]
+    out.append(b"\x3b")
+    with open(filename, "wb") as fh:
+        fh.write(b"".join(out))
 
 
 def load_image_dir(data_dir: str, factor: int = 0):
@@ -230,10 +371,7 @@ def save_scene(
     suffix = "" if factor == base_factor else f"_{factor}"
     os.makedirs(path.join(data_dir, f"images_{factor}"), exist_ok=True)
     for i, img in enumerate(images):
-        write_png(
-            path.join(data_dir, f"images_{factor}", f"img_{i:04d}.png"),
-            (np.clip(img, 0, 1) * 255).astype(np.uint8),
-        )
+        write_png(path.join(data_dir, f"images_{factor}", f"img_{i:04d}.png"), to_uint8(img))
     flat = poses_hwf.reshape([len(images), 15])
     cols = [flat, bounds.reshape(len(images), 2)]
     if principal_points is not None:

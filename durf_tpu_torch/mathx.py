@@ -42,6 +42,18 @@ def mse_to_psnr(mse: torch.Tensor) -> torch.Tensor:
     return -10.0 / math.log(10.0) * torch.log(mse)
 
 
+def psnr_to_mse(psnr: torch.Tensor) -> torch.Tensor:
+    """Inverse of mse_to_psnr (reference math.py:54-56)."""
+    return torch.exp(-0.1 * math.log(10.0) * psnr)
+
+
+def compute_avg_error(psnr: torch.Tensor, ssim: torch.Tensor, lpips: torch.Tensor) -> torch.Tensor:
+    """Geometric mean of MSE, sqrt(1-SSIM) and LPIPS (reference math.py:59-63)."""
+    mse = psnr_to_mse(psnr)
+    dssim = torch.sqrt(1 - ssim)
+    return torch.exp(torch.mean(torch.log(torch.stack([mse, dssim, lpips]))))
+
+
 def log_lerp_decay(
     step,
     v_init: float,

@@ -19,7 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from durf_tpu_torch.data.format import write_png
+from durf_tpu_torch.data.format import to_uint8, write_png
 
 
 class MetricsWriter:
@@ -52,8 +52,7 @@ class MetricsWriter:
         image = np.clip(np.asarray(image, np.float32), 0, 1)
         folder = os.path.join(self.log_dir, "images")
         os.makedirs(folder, exist_ok=True)
-        write_png(os.path.join(folder, f"{tag.replace('/', '_')}_{step}.png"),
-                  (image * 255).astype(np.uint8))
+        write_png(os.path.join(folder, f"{tag.replace('/', '_')}_{step}.png"), to_uint8(image))
         if self._tb is not None:
             self._tb.add_image(tag, image, step, dataformats="HWC")
 

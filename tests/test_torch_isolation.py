@@ -3,7 +3,8 @@
     durf_tpu, PIL (images go through the port's own PNG codec) or
     tensorboardX (MetricsWriter loads it by name, only where it is
     installed);
-  * the entry points raise when CUDA is asked for and there is no card;
+  * the entry points (the eval and render apps and LPIPS too) raise when
+    CUDA is asked for and there is no card;
   * a kernel wrapper takes its plain version only for CPU tensors, and its
     launch counter stays 0 there;
   * configs that ask for unported paths raise NotImplementedError; the
@@ -67,6 +68,28 @@ def test_entry_raises_without_cuda():
         train_entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         construct_model(ModelConfig(), example_ray_batch(batch_size=4))
+
+
+def test_apps_raise_without_cuda(tmp_path):
+    """The eval and render apps and the LPIPS metric default to the card and
+    refuse before reading anything when there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device")
+    from durf_tpu_torch.configs import Config
+    from durf_tpu_torch.eval import _lpips_fn, evaluate
+    from durf_tpu_torch.lpips import load_lpips
+    from durf_tpu_torch.render import render_trajectory
+
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate(Config(), missing, missing)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_trajectory(Config(), missing, missing, missing)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_lpips(missing)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _lpips_fn(missing)
+    assert not os.path.exists(missing)
 
 
 def _k1_inputs():
