@@ -115,10 +115,28 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      with K1/K3 on every chunk of every frame; `pose_eval.main` with a
      noised init (random_box) and one error per timestep; eval rays/s,
      render frames/s and rays/s, LPIPS ms per image, peak memory;
- 19. a JSON line with every kernel's numbers (launches from the path that
+ 19. the model's other pipelines (`pipelines`), at the flagship widths
+     through entry.train_entry: 10 timed steps each (batch 4096, bench.py's
+     compaction) of the flagship step, the grid step (bench.py
+     --grid_sampling), the row-major step (coord_major=False) and the
+     full-covariance step (diag_covariance=False), with their ms per step;
+     K1-K4 20 launches each on the grid step; on the row-major and
+     full-covariance steps K1/K2 20 at 256/128 and 40 at 128/128 (the
+     per-object route, durf_tpu/models/mipnerf.py:314-319), K3/K4 none;
+     the grid has left all-ones and stays finite in [0, 1], and its update
+     from one step's positions and weights (of the trained grid and of a
+     zero grid) on the card is bitwise the CPU's; each step against its
+     plain step (as phase 15); on one 8192-ray eval chunk the row-major
+     render against the coordinate-major one and the full covariance
+     against the diagonal (atol 2e-2); the time of the row-major route's
+     transposing copy into K1; remat_mlp on the plain route at batch 4096:
+     gradients bitwise equal to those without (else relative L2 1e-6 per
+     leaf) and a lower peak memory, both peaks printed; use_pallas_mlp
+     without use_viewdirs launches no kernel, as in the JAX package;
+ 20. a JSON line with every kernel's numbers (launches from the path that
      runs the kernel: K1-K4 the main path, K5/K6 phase 8, K1 and K2 at
-     128/128 phase 16, with phase 12's, phase 17's and phase 18's beside
-     them; K3 and K4 timed at the compacted step's shape, their bound that
+     128/128 phase 16, with phase 12's, phase 17's, phase 18's and phase
+     19's beside them; K3 and K4 timed at the compacted step's shape, their bound that
      of the pairs that ran, with the dense bound, the pair share and the
      times at each hit share beside it), then the card's name and power
      limit, and as the last line {"ok": true, "device": {...}}.
@@ -190,6 +208,9 @@ APPS_PSNR_TOL = 0.05
 # Compaction permutes the object pipeline's rays: the same values, float32
 # sums over samples in another order.
 EXACT_LOSS_TOL, EXACT_GRAD_TOL = 1e-5, 1e-3
+# The pipelines phase: remat's gradients against those without it, where
+# they are not bitwise equal (relative L2 per leaf).
+REMAT_GRAD_TOL = 1e-6
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1235,11 +1256,12 @@ def check_descent(dev, what="descent", **kw):
     torch.cuda.empty_cache()
 
 
-def check_step_vs_plain(dev, what="step vs plain", **kw):
+def check_step_vs_plain(dev, what="step vs plain", grid=None, **kw):
     """One step's loss and raw gradients of train_entry(**kw) on the kernel
     path against the same weights and random stream with
     use_pallas_mlp=False, at batch COMPARE_BATCH (the plain path keeps every
-    fp32 activation for autograd)."""
+    fp32 activation for autograd); with grid_sampling both sample level 0
+    from `grid` (default: the state's fresh grid)."""
     import copy
 
     import torch
@@ -1255,8 +1277,9 @@ def check_step_vs_plain(dev, what="step vs plain", **kw):
     init = state.model.box_centers
     plain = MipNerf(plain_cfg.model, init.shape[1], init.shape[0]).to(dev)
     plain.load_state_dict(state.model.state_dict())
-    loss_k, _, grads_k = make_grad_fn(state.model, config)(0, batch)
-    loss_p, _, grads_p = make_grad_fn(plain, plain_cfg)(0, batch)
+    grid = state.grid if grid is None else grid
+    loss_k, _, grads_k = make_grad_fn(state.model, config)(0, batch, grid)
+    loss_p, _, grads_p = make_grad_fn(plain, plain_cfg)(0, batch, grid)
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     worst = max(((rel_err(grads_k[n], grads_p[n]), n) for n in grads_p), key=lambda t: t[0])
     print(
@@ -1375,6 +1398,222 @@ def check_proposal(dev, card):
 
     check_descent(dev, "proposal descent", proposal=True)
     return {"K1-128": widths["K1"]["128/128"], "K2-128": widths["K2"]["128/128"]}
+
+
+def pipeline_runs():
+    """The pipelines phase's timed steps: (label, train_entry arguments)."""
+    return (("flagship step", {}), ("grid step", dict(grid_sampling=True)),
+            ("row-major step", dict(coord_major=False)),
+            ("full-covariance step", dict(diag_covariance=False)))
+
+
+def check_pipelines(dev, card):
+    """The model's other pipelines at the flagship widths (bench.py
+    --grid_sampling and --remat, the row-major and full-covariance samples,
+    the kernels without view directions): TIMED_STEPS steps of each beside
+    the flagship step with their launch counts, each against its plain step,
+    the card's grid update against the CPU's, forward parity of the layouts
+    on an eval chunk, remat's gradients and peak memory, and no kernel
+    without a view condition. Returns each kernel's launches in the timed
+    grid, row-major and full-covariance steps."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from durf_tpu_torch.data.synthetic import example_ray_batch
+    from durf_tpu_torch.entry import flagship_config, kernel_operating_point, train_entry
+    from durf_tpu_torch.models import MipNerf, construct_model
+    from durf_tpu_torch.models.mipnerf import encoding_dims
+    from durf_tpu_torch.ops import grid as gridops
+    from durf_tpu_torch.rays import camera_rays
+    from durf_tpu_torch.train import batch_to, make_grad_fn, make_render_fn
+
+    t0 = time.perf_counter()
+    ms, trained_grid = {}, None
+    phase = dict.fromkeys(("K1", "K1-128", "K2", "K2-128", "K3", "K4", "K5", "K6"), 0)
+    for what, kw in pipeline_runs():
+        step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, **kw)
+        state, stats, dt, launches, peak = time_steps(step_fn, state, batch)
+        widths = width_launches()
+        gated = {k: _counted()[k].launches for k in ("K5", "K6")}
+        n = state.config.model.num_levels * TIMED_STEPS
+        if what in ("flagship step", "grid step"):
+            expect, expect_w = {"K1": n, "K2": n, "K3": n, "K4": n}, {"256/128": n}
+        else:
+            # Row-major samples take the per-object route
+            # (durf_tpu/models/mipnerf.py:314-319): the background MLP at
+            # 256/128, each object's at 128/128, no K3/K4.
+            n_obj = state.model.box_centers.shape[1]
+            expect = {"K1": n * (1 + n_obj), "K2": n * (1 + n_obj), "K3": 0, "K4": 0}
+            expect_w = {"256/128": n, "128/128": n * n_obj}
+        print(f"pipelines, {what}: launches {launches}, K1/K2 by width {widths}, K5/K6 {gated} "
+              f"(expected {expect}, {expect_w} for each of K1/K2, none)")
+        if launches != expect or widths != {"K1": expect_w, "K2": expect_w} or any(gated.values()):
+            raise SystemExit(f"the {what} did not go through the expected kernels")
+        bad = [k for k, v in stats.items() if not bool(torch.isfinite(torch.as_tensor(v)).all())]
+        if bad:
+            raise SystemExit(f"{what}: stats not finite: {bad}")
+        ms[what] = 1e3 * dt / TIMED_STEPS
+        print(f"pipelines, {what}: batch {TRAIN_BATCH}, {TIMED_STEPS} steps in {dt:.4f} s: "
+              f"{ms[what]:.3f} ms/step, {TIMED_STEPS * TRAIN_BATCH / dt:.1f} rays/s; peak memory "
+              f"{peak:.2f} GiB; loss {float(stats['train/loss']):.5f} ({card})")
+        if what != "flagship step":
+            for k in ("K1", "K2"):
+                phase[k] += widths[k].get("256/128", 0)
+                phase[f"{k}-128"] += widths[k].get("128/128", 0)
+            for k in ("K3", "K4"):
+                phase[k] += launches[k]
+            for k in ("K5", "K6"):
+                phase[k] += gated[k]
+        if what == "grid step":
+            trained_grid = check_grid_state(state, batch, gridops, make_grad_fn)
+        del step_fn, state, batch, stats
+        torch.cuda.empty_cache()
+    print("pipelines: ms/step " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f" (one call; {card})")
+
+    check_step_vs_plain(dev, "grid step vs plain", grid=trained_grid, grid_sampling=True)
+    check_step_vs_plain(dev, "row-major step vs plain", coord_major=False)
+    check_step_vs_plain(dev, "full-covariance step vs plain", diag_covariance=False)
+
+    # Forward parity on one eval chunk: the same weights through each layout.
+    config = kernel_operating_point(flagship_config())
+    host = example_ray_batch(batch_size=config.batch_size)
+    model = construct_model(config.model, host, dev, seed=0)
+    init = host["init"]
+    c2w = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]], np.float32)
+    rays = camera_rays(c2w, SLICE_SIZE, SLICE_SIZE, focal=SLICE_SIZE / 2, near=config.near,
+                       far=config.far)
+    chunk = rays.map(lambda r: r.reshape(-1, r.shape[-1])[:SLICE_CHUNK])
+
+    def render_with(**fields):
+        cfg = copy.deepcopy(config)
+        for k, v in fields.items():
+            setattr(cfg.model, k, v)
+        m = MipNerf(cfg.model, init.shape[1], init.shape[0]).to(dev)
+        m.load_state_dict(model.state_dict())
+        return make_render_fn(m, cfg, dev)(chunk, host["ext"], 1, 10.0)
+
+    outs = {"coordinate-major": render_with(), "row-major": render_with(coord_major=False),
+            "full covariance": render_with(diag_covariance=False)}
+    for a, b in (("row-major", "coordinate-major"), ("full covariance", "row-major")):
+        err = max(float((outs[a][k] - outs[b][k]).abs().max()) for k in ("rgb", "acc"))
+        finite = all(bool(torch.isfinite(v).all()) for v in outs[a].values())
+        print(f"pipelines: {a} vs {b} render chunk ({SLICE_CHUNK} rays, randomized=False): rgb/acc "
+              f"max_abs_err {err:.3e}, finite={finite}")
+        if err > TOL or not finite:
+            raise SystemExit(f"the {a} render disagrees with the {b} one: {err} > {TOL}")
+    del outs
+
+    # The row-major route hands K1 its input through one transposing copy a
+    # call (models/mlp.py): its time at the step's background and compacted
+    # object inputs.
+    bg_in, obj_in, _ = encoding_dims(config.model)
+    for what, rows, f_in in (("background", TRAIN_BATCH * 128, bg_in),
+                             ("object (compacted)", MAIN_RAYS * 128, obj_in)):
+        x = torch.randn((rows, f_in), device=dev)
+        copy_ms = time_ms(lambda: x.T.contiguous(), 10)
+        bound_ms = 1e3 * 2 * x.numel() * 4 / PEAK_BYTES
+        print(f"pipelines: row-major {what} input [{rows}, {f_in}] float32 -> K1's [F, N]: copy "
+              f"{copy_ms:.4f} ms (bound {bound_ms:.4f} ms, bytes) ({card})")
+        del x
+
+    check_remat(dev, card, make_grad_fn)
+    check_no_viewdirs(dev, config, host, chunk, make_render_fn, make_grad_fn, batch_to)
+    del model
+    torch.cuda.empty_cache()
+    print(f"pipelines: phase {time.perf_counter() - t0:.1f} s")
+    return phase
+
+
+def check_grid_state(state, batch, gridops, make_grad_fn):
+    """After the timed grid steps: the grid has left all-ones and stays
+    finite in [0, 1]; its update from one step's positions and weights on
+    the card is bitwise the same update on the CPU. Returns the grid."""
+    import torch
+
+    grid = state.grid
+    lo, hi = float(grid.min()), float(grid.max())
+    below = int((grid < 1.0).sum())
+    print(f"pipelines, grid: {tuple(grid.shape)}, values in [{lo:.6f}, {hi:.6f}], {below} of "
+          f"{grid.numel()} voxels below 1")
+    if below == 0 or not (0.0 <= lo and hi <= 1.0) or not bool(torch.isfinite(grid).all()):
+        raise SystemExit("the grid did not leave all-ones, or left [0, 1]")
+    _, aux, _ = make_grad_fn(state.model, state.config)(0, batch, grid)
+    pos, w = aux["grid_positions"], aux["grid_weights"]
+    decay = state.config.model.grid_decay
+    # Also from a zero grid, where the scatter-max alone decides every voxel
+    # a sample falls in (random weights rarely beat the decayed grid).
+    for what, start in (("the trained grid", grid), ("a zero grid", torch.zeros_like(grid))):
+        on_card = gridops.update(start, pos, w, decay)
+        on_cpu = gridops.update(start.cpu(), pos.cpu(), w.cpu(), decay)
+        same = torch.equal(on_card.cpu(), on_cpu)
+        raised = int((on_cpu > start.cpu() * decay).sum())
+        print(f"pipelines, grid: update of {what} by {w.numel()} samples on the card bitwise "
+              f"equal to the CPU's: {same}; {raised} voxels raised")
+        if not same:
+            raise SystemExit("the card's grid update differs from the CPU's")
+    return grid
+
+
+def check_remat(dev, card, make_grad_fn):
+    """remat_mlp on the plain route at batch TRAIN_BATCH: gradients against
+    those without remat (bitwise, else within relative L2
+    REMAT_GRAD_TOL per leaf), and a lower peak memory."""
+    import torch
+
+    from durf_tpu_torch.entry import train_entry
+
+    peaks, steps = {}, {}
+    for remat in (False, True):
+        _, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, pallas=False, remat=remat)
+        grad_fn = make_grad_fn(state.model, state.config)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = grad_fn(0, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+        steps[remat] = (loss, grads)
+        del state, batch, grad_fn
+        torch.cuda.empty_cache()
+    (loss_r, g_r), (loss_p, g_p) = steps[True], steps[False]
+    bitwise = torch.equal(loss_r, loss_p) and all(torch.equal(g_r[n], g_p[n]) for n in g_p)
+    worst = max(((rel_err(g_r[n], g_p[n]), n) for n in g_p), key=lambda t: t[0])
+    print(f"pipelines, remat (plain route, batch {TRAIN_BATCH}): gradients bitwise equal to those "
+          f"without remat: {bitwise}; worst leaf {worst[1]} rel L2 {worst[0]:.3e}; peak memory "
+          f"{peaks[True]:.2f} GiB with remat, {peaks[False]:.2f} GiB without ({card})")
+    if not bitwise and (worst[0] > REMAT_GRAD_TOL or float(loss_r) != float(loss_p)):
+        raise SystemExit("remat changed the gradients")
+    if not peaks[True] < peaks[False]:
+        raise SystemExit("remat did not lower the peak memory")
+
+
+def check_no_viewdirs(dev, config, host, chunk, make_render_fn, make_grad_fn, batch_to):
+    """use_pallas_mlp without use_viewdirs: no MLP has a condition, so no
+    kernel launches (as in the JAX package); a render chunk and a step stay
+    finite."""
+    import copy
+
+    import torch
+
+    from durf_tpu_torch.data.synthetic import example_ray_batch
+    from durf_tpu_torch.models import construct_model
+
+    cfg = copy.deepcopy(config)
+    cfg.model.use_viewdirs = False
+    model = construct_model(cfg.model, host, dev, seed=0)
+    reset_launches()
+    out = make_render_fn(model, cfg, dev)(chunk, host["ext"], 1, 10.0)
+    loss, _, grads = make_grad_fn(model, cfg)(0, batch_to(example_ray_batch(COMPARE_BATCH), dev))
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in _counted().items()}
+    finite = (all(bool(torch.isfinite(v).all()) for v in out.values()) and bool(torch.isfinite(loss))
+              and all(bool(torch.isfinite(g).all()) for g in grads.values()))
+    print(f"pipelines, kernels on without view directions: launches {counts} (expected none), "
+          f"render chunk and step finite={finite}")
+    if any(counts.values()) or not finite:
+        raise SystemExit("the model without view directions launched a kernel or is not finite")
 
 
 def _app_logs(log_lines, key):
@@ -1762,7 +2001,7 @@ def check_apps(dev, card, trained: bool):
 
 
 PHASES = ("kernels", "gated", "slice", "train", "exact", "per_object", "centering", "descent",
-          "plain", "proposal", "app", "apps")
+          "plain", "proposal", "app", "apps", "pipelines")
 
 
 def main(argv=None) -> int:
@@ -1845,6 +2084,9 @@ def main(argv=None) -> int:
     apps = {}
     if "apps" in only:
         apps = check_apps(dev, smi, trained="app" in only)
+    pipelines = {}
+    if "pipelines" in only:
+        pipelines = check_pipelines(dev, smi)
     if only != set(PHASES):
         print(f"chip_smoke: partial run ({sorted(only)}), no result line")
         return 0
@@ -1873,6 +2115,7 @@ def main(argv=None) -> int:
         dict(name=name, route="cuda", source=src, replaces=site, launches=launches[k],
              library_ms=None, **nums[k],
              **({"per_object_launches": per_object[k]} if k in per_object else {}),
+             **({"pipelines_launches": pipelines[k]} if k in pipelines else {}),
              **({"app_launches": app[k]} if k in app else {}),
              **({"apps_launches": apps[k]} if k in apps else {}))
         for k, (name, src, site) in meta.items()

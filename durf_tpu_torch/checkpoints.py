@@ -7,7 +7,8 @@ dict of CPU tensors and ints:
   model      the MipNerf state dict;
   optimizer  the torch.optim.Adam state dict inside ScheduledAdam, or None
              (an imported checkpoint: the moments start fresh);
-  count      ScheduledAdam's update count (the schedules' clock).
+  count      ScheduledAdam's update count (the schedules' clock);
+  grid       the occupancy grid under grid_sampling, else None.
 A save writes a temporary file and renames it into place, so a reader never
 sees half a checkpoint; the newest `keep` are kept. Saves are synchronous:
 `wait` has nothing to wait for and is there for the callers of the
@@ -65,6 +66,7 @@ class CheckpointManager:
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.opt.state_dict(),
             "count": int(state.optimizer.count),
+            "grid": state.grid,
         }
         return self.save_raw(step, payload, force)
 
@@ -88,8 +90,10 @@ class CheckpointManager:
 
     def restore(self, state, step: Optional[int] = None):
         """Load checkpoint `step` (default the latest) into `state` in place:
-        the model's weights, the optimizer's moments and count, the step.
-        Returns `state`, unchanged when there is no checkpoint (a fresh run)."""
+        the model's weights, the optimizer's moments and count, the step and,
+        where both the state and the checkpoint have one, the occupancy grid
+        (on the state grid's device). Returns `state`, unchanged when there
+        is no checkpoint (a fresh run)."""
         step = self.latest_step if step is None else step
         if step is None:
             return state
@@ -99,6 +103,8 @@ class CheckpointManager:
             state.optimizer.opt.load_state_dict(payload["optimizer"])
         state.optimizer.count = int(payload["count"])
         state.step = int(payload["step"])
+        if state.grid is not None and payload.get("grid") is not None:
+            state.grid = payload["grid"].to(state.grid.device)
         return state
 
     def restore_raw(self, step: Optional[int] = None) -> Dict[str, Any]:

@@ -30,14 +30,8 @@ class MLPConfig:
 
 @dataclass
 class ModelConfig:
-    """MipNerfModel hyperparameters (reference obbpose_model.py:42-66).
-
-    The port implements the coordinate-major diagonal pipeline, eval and
-    training forward; `models.mipnerf.check_supported` raises
-    NotImplementedError for the fields whose paths are not ported yet
-    (occupancy grid, row-major / full-covariance pipelines, remat_mlp, the
-    kernels without use_viewdirs).
-    """
+    """MipNerfModel hyperparameters (reference obbpose_model.py:42-66);
+    the port runs every path these fields select."""
 
     num_samples: int = 128  # samples per level
     num_levels: int = 2  # sampling levels (coarse, fine)

@@ -1,8 +1,9 @@
 """Entry points: the flagship eval forward, like the JAX package's
 `__graft_entry__.entry()`, and the flagship training step that bench.py
-builds (bench.py:147-172), with bench.py's object-ray compaction; each
-optionally with proposal levels (bench.py --proposal, the switch that
-configs/waymo_fast.gin turns on)."""
+builds (bench.py:147-172), with every flag of bench.py's that shapes the
+step (object-ray compaction, the object route, proposal levels, the
+occupancy grid, remat, box near/far, the compute dtype, the kernels and
+the recurrent encode)."""
 
 from __future__ import annotations
 
@@ -133,17 +134,35 @@ def train_entry(
     fused_objects: bool = True,
     proposal: bool = False,
     proposal_samples: int = 0,
+    grid_sampling: bool = False,
+    remat: bool = False,
+    use_box_nearfar: bool = False,
+    dtype: str = "bfloat16",
+    pallas: bool = True,
+    recurrent_encode: bool = True,
+    coord_major: bool = True,
+    diag_covariance: bool = True,
 ):
     """(step_fn, state, batch): the flagship training step at the kernel
     operating point (bf16, K1-K4, recurrent encode, coordinate-major
     diagonal pipeline), weights from seed 0, a synthetic `batch_size`-ray
     batch on the device and step_fn(state, batch) -> (state, stats). The
     step is randomized with a gray background and no density noise, as the
-    flagship config sets. `obj_capacity` is bench.py's object-ray compaction
-    fraction (bench.py:59-67; 0 turns compaction off); `fused_objects=False`
-    takes the per-object route (K1/K2 once per object; `bench.py
-    --no-fused_objects`). `proposal` and `proposal_samples` are bench.py's
-    --proposal and --proposal_samples (see with_proposal). `constant_lr`
+    flagship config sets.
+
+    The other arguments are bench.py's flags (bench.py:29-112, 147-160):
+    `obj_capacity` its object-ray compaction fraction (0 turns compaction
+    off); `fused_objects=False` the per-object route (K1/K2 once per
+    object); `proposal` and `proposal_samples` proposal levels (see
+    with_proposal); `grid_sampling` occupancy-grid level-0 sampling (the
+    state then carries the grid and each step updates it); `remat`
+    recomputes the plain MLP path in the backward; `use_box_nearfar`
+    samples box-hitting rays inside their box's span; `dtype` the MLP
+    compute dtype; `pallas=False` the plain MLP path instead of the
+    kernels; `recurrent_encode=False` the direct IPE. `coord_major=False`
+    (row-major samples) and `diag_covariance=False` (the full covariance,
+    row-major too) select the model's other pipelines, which bench.py has
+    no flag for; on them the objects take the per-object route. `constant_lr`
     replaces the delayed log-lerp schedule by a constant rate (as
     __graft_entry__.py:142-144 does for a short run).
     Runs on the card unless the caller asks for the CPU; raises when there
@@ -151,8 +170,17 @@ def train_entry(
     device = resolve_device(device)
     config = with_proposal(kernel_operating_point(flagship_config()), proposal, proposal_samples)
     config.batch_size = batch_size
-    config.model.obj_ray_capacity = obj_capacity
-    config.model.fused_objects = fused_objects
+    m = config.model
+    m.obj_ray_capacity = obj_capacity
+    m.fused_objects = fused_objects
+    m.grid_sampling = grid_sampling
+    m.remat_mlp = remat
+    m.use_box_nearfar = use_box_nearfar
+    m.compute_dtype = dtype
+    m.use_pallas_mlp = pallas
+    m.recurrent_encode = recurrent_encode
+    m.coord_major = coord_major
+    m.diag_covariance = diag_covariance
     if constant_lr is not None:
         config.lr_init = config.lr_final = constant_lr
         config.lr_delay_steps = 0

@@ -77,6 +77,15 @@ def _unit_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     return x / torch.sqrt(torch.sum(x**2, dim=1, keepdim=True) + eps)
 
 
+def _window(x: torch.Tensor, channels: int, kern: int, stride: int, pad: int, fn) -> torch.Tensor:
+    """fn(x) for a kern x kern window at `stride` and `pad`, or an empty
+    [N, channels, h, w] map where the window no longer fits."""
+    h, w = ((n + 2 * pad - kern) // stride + 1 for n in x.shape[-2:])
+    if h <= 0 or w <= 0 or x.numel() == 0:
+        return x.new_zeros((x.shape[0], channels, max(h, 0), max(w, 0)))
+    return fn(x)
+
+
 class LPIPS(nn.Module):
     """forward(img0, img1) -> the batch-mean LPIPS distance (0-d tensor);
     images [H, W, 3] or [N, H, W, 3] in [0, 1]."""
@@ -98,13 +107,20 @@ class LPIPS(nn.Module):
         return (im * 2.0 - 1.0 - self.shift) / self.scale
 
     def _features(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """[N, 3, H, W] in lpips-normalized space -> the five ReLU taps."""
+        """[N, 3, H, W] in lpips-normalized space -> the five ReLU taps.
+
+        An image too small for a window (under ~32 px a side) gives empty
+        maps from that stage on, as the reference's "VALID" windows do
+        (durf_tpu/lpips.py:82); their spatial means, and so the distance,
+        are NaN."""
         taps = []
-        for k, (_, _, _, stride, pad) in enumerate(_CONVS):
+        for k, (out_ch, _, kern, stride, pad) in enumerate(_CONVS):
             if k in _POOL_BEFORE:
-                x = F.max_pool2d(x, kernel_size=3, stride=2)
+                x = _window(x, x.shape[1], 3, 2, 0,
+                            lambda t: F.max_pool2d(t, kernel_size=3, stride=2))
             w, b = getattr(self, f"conv{k}_weight"), getattr(self, f"conv{k}_bias")
-            x = F.relu(F.conv2d(x, w, b, stride=stride, padding=pad))
+            x = _window(x, out_ch, kern, stride, pad,
+                        lambda t: F.relu(F.conv2d(t, w, b, stride=stride, padding=pad)))
             taps.append(x)
         return taps
 

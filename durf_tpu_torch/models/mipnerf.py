@@ -1,30 +1,36 @@
 """The dynamic scene-graph Mip-NeRF: a background field plus per-object
 fields inside oriented boxes (reference obbpose_model.py:42-261).
 
-Counterpart of the JAX package's `models/mipnerf.py` for the
-coordinate-major diagonal pipeline, eval and training forward. Per level:
-  stratified / inverse-CDF samples -> conical-frustum Gaussians ->
+Counterpart of the JAX package's `models/mipnerf.py`, eval and training
+forward, on every pipeline its ModelConfig selects: coordinate-major
+diagonal samples ([3, B, S] planes; `coord_major`, the default), row-major
+ones ([B, S, 3]) with a diagonal or, without `diag_covariance`, a full
+[B, S, 3, 3] covariance. Per level:
+  stratified, occupancy-grid (level 0 with `grid_sampling` and a grid) or
+  inverse-CDF samples -> conical-frustum Gaussians ->
   (dynamic) windowed IPE + object MLPs on the composite rays ->
   background mask, contraction, IPE, background MLP -> additive raw merge ->
   density noise -> activations -> compositing.
 With proposal levels (`use_proposal`) every level but the last runs the
 small `proposal_mlp` in place of the background MLP; the objects run on
 every level. With `use_pallas_mlp` the background and proposal MLPs run
-K1/K2, and the object MLPs run K3/K4 (`fused_objects`, all objects in one launch) or, on the
+K1/K2, and the object MLPs run K3/K4 (`fused_objects` on coordinate-major
+samples with view directions, all objects in one launch) or, on the
 per-object route, K1/K2 once per object on the blended input
-(ops/kernels/, forward and backward); without it everything runs the plain
-path in `compute_dtype`. With `obj_ray_capacity > 0` the object pipeline
-runs on the k rays of the batch that hit a box first (object-ray
-compaction), and every dynamic level reads out `obj_centroid`, the
-object-centering prior. A randomized (training) forward draws all its
-randomness from one `torch.Generator`, threaded through the levels.
-
-Not ported yet, and refused with NotImplementedError: occupancy-grid
-sampling, the row-major and full-covariance pipelines.
+(ops/kernels/, forward and backward); without it, and for an MLP without
+a view condition (as in the JAX package), the plain path in
+`compute_dtype`, recomputed in the backward with `remat_mlp`. With
+`obj_ray_capacity > 0` the object pipeline runs on the k rays of the batch
+that hit a box first (object-ray compaction), and every dynamic level reads
+out `obj_centroid`, the object-centering prior. A randomized (training) forward draws all its
+randomness from one `torch.Generator`, threaded through the levels. With
+`grid_sampling` each level also returns its contracted sample positions
+and world-frame weights for the trainer's grid update.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List
 
@@ -32,10 +38,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from durf_tpu_torch import ops
+from durf_tpu_torch import mathx, ops
 from durf_tpu_torch.configs import ModelConfig
 from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.models.mlp import NerfMLP, get_activation
+from durf_tpu_torch.ops import grid as gridops
 from durf_tpu_torch.ops.kernels import obj_mlp as k3
 from durf_tpu_torch.rays import Rays
 
@@ -48,21 +55,6 @@ def obj_capacity_k(batch: int, capacity: float) -> int:
     if capacity <= 0.0:
         return batch
     return min(batch, max(128, int(math.ceil(batch * capacity / 128)) * 128))
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config that asks for a path the port
-    does not have yet."""
-    unported = {
-        "grid_sampling": cfg.grid_sampling,
-        "diag_covariance=False (full covariance)": not cfg.diag_covariance,
-        "coord_major=False (row-major samples)": not cfg.coord_major,
-        "remat_mlp (a training option)": cfg.remat_mlp,
-        "use_pallas_mlp without use_viewdirs": cfg.use_pallas_mlp and not cfg.use_viewdirs,
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"durf_tpu_torch does not implement yet: {', '.join(asked)}")
 
 
 def encoding_dims(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -78,20 +70,20 @@ class MipNerf(nn.Module):
 
     def __init__(self, config: ModelConfig, num_objects: int = 0, timesteps: int = 0):
         super().__init__()
-        check_supported(config)
         self.config = config
+        # The diagonal-covariance pipeline (exact for the power-of-two
+        # axis-aligned IPE basis), and on it coordinate-major samples.
+        self.diag = config.diag_covariance
+        self.cm = self.diag and config.coord_major
         bg_in, obj_in, cond_dim = encoding_dims(config)
-        self.background_mlp = NerfMLP(
-            config.mlp, bg_in, cond_dim, config.compute_dtype, config.use_pallas_mlp
-        )
+        mlp = functools.partial(NerfMLP, compute_dtype=config.compute_dtype,
+                                use_kernel=config.use_pallas_mlp, remat=config.remat_mlp)
+        self.background_mlp = mlp(config.mlp, bg_in, cond_dim)
         self.dynamic = config.dynamics and num_objects > 0
         if self.dynamic:
             # With fused_objects the kernel path bypasses this module for K3;
             # the per-object route runs it, K1 once per object.
-            self.object_mlps = NerfMLP(
-                config.box_mlp, obj_in, cond_dim, config.compute_dtype, config.use_pallas_mlp,
-                num_objects,
-            )
+            self.object_mlps = mlp(config.box_mlp, obj_in, cond_dim, num_stack=num_objects)
             self.box_centers = nn.Parameter(torch.zeros((timesteps, num_objects, 6)))
         # Proposal levels (durf_tpu/models/mipnerf.py:108-123): every level
         # but the last swaps the background MLP for this small one, whose
@@ -99,9 +91,7 @@ class MipNerf(nn.Module):
         # losses.interlevel_loss).
         self.use_proposal = config.use_proposal and config.num_levels > 1
         if self.use_proposal:
-            self.proposal_mlp = NerfMLP(
-                config.proposal_mlp, bg_in, cond_dim, config.compute_dtype, config.use_pallas_mlp
-            )
+            self.proposal_mlp = mlp(config.proposal_mlp, bg_in, cond_dim)
 
     def forward(
         self,
@@ -112,6 +102,7 @@ class MipNerf(nn.Module):
         alpha=10.0,
         randomized: bool = False,
         generator: torch.Generator | None = None,
+        grid: torch.Tensor | None = None,
     ) -> List[Dict[str, Any]]:
         """Render a batch of rays (tensors [B, ...]).
 
@@ -123,12 +114,17 @@ class MipNerf(nn.Module):
           randomized: stratified jitter and density noise (training).
           generator: the source of every random draw (randomized, or the
             random background), on the rays' device.
+          grid: an [R, R, R] occupancy grid (ops.grid); with grid_sampling it
+            drives level 0's sampling PDF.
 
         Returns one dict per level: rgb [B,3], depth [B], acc [B],
         weights [B,S], t_vals [B,S+1], t_mids [B,S], t_dists [B,S],
         pose [N_obj,3], rot [N_obj,3], dyn_mask [B,1], z_out [B], and for the
         dynamic model obj_hit_rays (rays hitting any box) and obj_centroid
-        [N_obj,3] (the object-centering readout).
+        [N_obj,3] (the object-centering readout); with grid_sampling
+        positions_c [B,S,3] (the contracted sample positions) and
+        grid_weights [B,S] (the weights, zero on box-hitting rays, whose
+        samples are in an object's frame), both detached.
         """
         cfg = self.config
         dtype = self.background_mlp.compute_dtype
@@ -188,10 +184,15 @@ class MipNerf(nn.Module):
         t_vals = weights = None
         for i_level in range(cfg.num_levels):
             n_level = cfg.level_samples(i_level)
-            if i_level == 0:
+            if i_level == 0 and cfg.grid_sampling and grid is not None:
+                t_vals, samples = self._grid_samples(
+                    grid, origins, dirs, origins_s, dirs_s, rays.radii, near, far, dyn_mask,
+                    n_level, randomized, generator,
+                )
+            elif i_level == 0:
                 t_vals, samples = ops.sample_along_rays(
                     origins_s, dirs_s, rays.radii, n_level, near, far, cfg.lindisp,
-                    cfg.ray_shape, randomized, generator,
+                    cfg.ray_shape, randomized, generator, diag=self.diag, cm=self.cm,
                 )
             else:
                 t_vals, samples = ops.resample_along_rays(
@@ -206,8 +207,13 @@ class MipNerf(nn.Module):
                     randomized=randomized,
                     stop_grad=cfg.stop_level_grad,
                     generator=generator,
+                    diag=self.diag,
+                    cm=self.cm,
                 )
-            mean, cov = samples  # [3, B, S] each
+            # [3, B, S] planes (cm), else [B, S, 3] and [B, S, 3(, 3)]; the
+            # raw mean is the composite rays' positions, before masking.
+            mean, cov = samples
+            raw_mean = mean
             if cfg.disable_integration:
                 cov = torch.zeros_like(cov)
 
@@ -223,29 +229,44 @@ class MipNerf(nn.Module):
                     obj_rgbs, obj_densities = self._objects(
                         mean, cov, viewdirs_enc, hit, alpha, dtype
                     )
-                level_out["obj_centroid"] = self._centroid(mean, obj_densities, hit, ext)
+                # The readout works on [3, B, S] planes.
+                planes = (lambda t: t) if self.cm else (lambda t: t.movedim(-1, 0))
+                level_out["obj_centroid"] = self._centroid(
+                    planes(mean), planes(obj_densities), hit, ext
+                )
                 level_out["obj_hit_rays"] = anyhit.sum().to(torch.float32)
                 # The background sees the complement mask, clamped at 0: a ray
                 # hitting two boxes would otherwise flip the covariance
                 # negative (reference obbpose_model.py:205).
-                bkgd = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0).detach()[None, :, None]
-                mean, cov = bkgd * mean, bkgd * cov
+                bkgd = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0).detach()
+                if self.cm:
+                    mask = bkgd[None, :, None]  # over [3, B, S]
+                    mean, cov = mask * mean, mask * cov
+                else:
+                    mask = bkgd[:, None, None]  # over [B, S, 3]
+                    mean, cov = mask * mean, (mask if self.diag else mask[..., None]) * cov
 
             if cfg.contraction:
-                mean, cov = ops.contract_gaussian_diag(
-                    mean, cov, threshold=cfg.contract_threshold, dim=0
+                if self.diag:
+                    mean, cov = ops.contract_gaussian_diag(
+                        mean, cov, threshold=cfg.contract_threshold, dim=0 if self.cm else -1
+                    )
+                else:
+                    mean, cov = ops.contract_gaussian(mean, cov, threshold=cfg.contract_threshold)
+            enc_kwargs = dict(safe=not cfg.fast_trig, recurrent=cfg.recurrent_encode)
+            if self.cm:
+                samples_enc = ops.integrated_pos_enc_cm(
+                    mean, cov, cfg.min_deg_point, cfg.max_deg_point, **enc_kwargs
                 )
-            samples_enc = ops.integrated_pos_enc_cm(
-                mean,
-                cov,
-                cfg.min_deg_point,
-                cfg.max_deg_point,
-                safe=not cfg.fast_trig,
-                recurrent=cfg.recurrent_encode,
-            )
+            else:
+                samples_enc = ops.integrated_pos_enc(
+                    (mean, cov), cfg.min_deg_point, cfg.max_deg_point, diag=self.diag, **enc_kwargs
+                )
             proposal_level = self.use_proposal and i_level < cfg.num_levels - 1
             level_mlp = self.proposal_mlp if proposal_level else self.background_mlp
-            raw_rgb, raw_density = level_mlp(samples_enc, viewdirs_enc)
+            raw_rgb, raw_density = level_mlp(
+                samples_enc, viewdirs_enc, x_feature_major=self.cm, out_feature_major=self.cm
+            )
             if self.dynamic:
                 raw_rgb = raw_rgb + obj_rgbs
                 raw_density = raw_density + obj_densities
@@ -257,9 +278,25 @@ class MipNerf(nn.Module):
 
             rgb = get_activation(cfg.rgb_activation)(raw_rgb)
             density = get_activation(cfg.density_activation)(raw_density + cfg.density_bias)
-            comp_rgb, depth, acc, weights, t_vals, t_mids, t_dists = ops.volumetric_rendering_cm(
-                rgb, density[0], t_vals, dirs_s, background=background, generator=generator
-            )
+            if self.cm:
+                rendered = ops.volumetric_rendering_cm(
+                    rgb, density[0], t_vals, dirs_s, background=background, generator=generator
+                )
+            else:
+                rendered = ops.volumetric_rendering(
+                    rgb, density, t_vals, dirs_s, background=background, generator=generator
+                )
+            comp_rgb, depth, acc, weights, t_vals, t_mids, t_dists = rendered
+            if cfg.grid_sampling:
+                # Box-hitting rays' samples are in an object's frame: only
+                # the world-frame ones are evidence for the world-frame grid
+                # (a zero weight leaves the non-negative grid unchanged).
+                level_out["positions_c"] = ops.contract(
+                    raw_mean.movedim(0, -1) if self.cm else raw_mean,
+                    threshold=cfg.contract_threshold,
+                ).detach()
+                grid_weights = weights * miss_all[:, None] if self.dynamic else weights
+                level_out["grid_weights"] = grid_weights.detach()
             ret.append(
                 dict(
                     **level_out,
@@ -287,29 +324,38 @@ class MipNerf(nn.Module):
         contribution. The sort is stable, so ties keep ray order, as
         lax.top_k puts the lower index first."""
         idx = torch.sort(anyhit.to(torch.int32), descending=True, stable=True).indices[:k]
+        ax = 1 if self.cm else 0  # the ray axis of the samples and outputs
         rgb_c, den_c = self._objects(
-            mean.index_select(1, idx),
-            cov.index_select(1, idx),
+            mean.index_select(ax, idx),
+            cov.index_select(ax, idx),
             None if viewdirs_enc is None else viewdirs_enc.index_select(0, idx),
             hit.index_select(0, idx),
             alpha,
             dtype,
         )
-        # Out-of-place scatters into zeros, so autograd reaches the
-        # compacted outputs.
-        full = lambda t: t.new_zeros((t.shape[0], mean.shape[1], t.shape[2])).index_copy(1, idx, t)  # noqa: E731
+
+        def full(t):
+            # Out-of-place scatter into zeros, so autograd reaches the
+            # compacted outputs.
+            shape = list(t.shape)
+            shape[ax] = mean.shape[ax]
+            return t.new_zeros(shape).index_copy(ax, idx, t)
+
         return full(rgb_c), full(den_c)
 
     def _objects(self, mean, cov, viewdirs_enc, hit, alpha, dtype):
-        """Hit-masked sum over the object MLPs: ([3, B, S], [1, B, S]).
+        """Hit-masked sum over the object MLPs: ([3, B, S], [1, B, S]) on
+        coordinate-major samples, else ([B, S, 3], [B, S, 1]).
 
         One windowed encode of the composite-ray samples serves every
         object: for a 0/1 mask, windowed_ipe(hit*m, hit*cov) ==
         hit*windowed_ipe(m, cov) + (1-hit)*windowed_ipe(0, 0), so the masked
         input is a blend with the constant zero-sample encoding c0.
 
-        With the kernels the objects run K3/K4 (`fused_objects`) or the
-        per-object route: each object's blended input through K1/K2. The
+        With the kernels the objects run K3/K4 (`fused_objects`, on
+        coordinate-major samples with view directions, as
+        durf_tpu/models/mipnerf.py:314-319) or the per-object route: each
+        object's blended input through K1/K2 (row-major samples too). The
         JAX package also takes the per-object route when the stacked weights
         would overflow its fused kernel's VMEM budget (fused_obj_vmem_ok);
         K3/K4 keep only one object's weight slices in shared memory at a
@@ -324,17 +370,49 @@ class MipNerf(nn.Module):
             safe=not cfg.fast_trig,
             recurrent=cfg.recurrent_encode,
         )
-        enc = ops.windowed_ipe_cm(mean, cov, **enc_kwargs)
-        if cfg.use_pallas_mlp and cfg.fused_objects:
-            return k3.obj_mlps_apply(
-                self.object_mlps.operands(), cfg.box_mlp, enc, viewdirs_enc, hit, dtype
-            )
-        zero = torch.zeros((3, 1, 1), dtype=mean.dtype, device=mean.device)
-        c0 = ops.windowed_ipe_cm(zero, zero, **enc_kwargs)  # [F, 1, 1]
         gate = hit.T[..., None]  # [N_obj, B, 1]
-        obj_rgb, obj_density = self.object_mlps(enc, viewdirs_enc, gate, c0)
-        hit_fm = hit.T[:, None, :, None]  # [N_obj, 1, B, 1]
-        return (hit_fm * obj_rgb).sum(dim=0), (hit_fm * obj_density).sum(dim=0)
+        if self.cm:
+            enc = ops.windowed_ipe_cm(mean, cov, **enc_kwargs)
+            if cfg.use_pallas_mlp and cfg.fused_objects and viewdirs_enc is not None:
+                return k3.obj_mlps_apply(
+                    self.object_mlps.operands(), cfg.box_mlp, enc, viewdirs_enc, hit, dtype
+                )
+            zero = torch.zeros((3, 1, 1), dtype=mean.dtype, device=mean.device)
+            c0 = ops.windowed_ipe_cm(zero, zero, **enc_kwargs)  # [F, 1, 1]
+            obj_rgb, obj_density = self.object_mlps(enc, viewdirs_enc, gate, c0)
+            hit_fm = hit.T[:, None, :, None]  # [N_obj, 1, B, 1] over [N_obj, C, B, S]
+            return (hit_fm * obj_rgb).sum(dim=0), (hit_fm * obj_density).sum(dim=0)
+        enc = ops.windowed_ipe((mean, cov), diag=self.diag, **enc_kwargs)
+        zero = torch.zeros((1, 1, 3), dtype=mean.dtype, device=mean.device)
+        zero_cov = zero if self.diag else torch.zeros((1, 1, 3, 3), dtype=mean.dtype, device=mean.device)
+        c0 = ops.windowed_ipe((zero, zero_cov), diag=self.diag, **enc_kwargs)  # [1, 1, F]
+        obj_rgb, obj_density = self.object_mlps(
+            enc, viewdirs_enc, gate, c0, x_feature_major=False, out_feature_major=False
+        )
+        hit_rm = hit.T[..., None, None]  # [N_obj, B, 1, 1] over [N_obj, B, S, C]
+        return (hit_rm * obj_rgb).sum(dim=0), (hit_rm * obj_density).sum(dim=0)
+
+    def _grid_samples(self, grid, origins, dirs, origins_s, dirs_s, radii, near, far, dyn_mask,
+                      n_level, randomized, generator):
+        """Level 0's fenceposts drawn from the occupancy grid's PDF along
+        each ray, and their Gaussians (durf_tpu/models/mipnerf.py:221-259).
+        The grid lives in contracted world space, so it is probed along the
+        world rays, not the composite ones, whose box-hitting rays are in an
+        object's frame; those rays take a uniform PDF (the stratified
+        sampling of [near, far])."""
+        cfg = self.config
+        contract_fn = functools.partial(ops.contract, threshold=cfg.contract_threshold)
+        bins, occ = gridops.ray_pdf(
+            grid, origins, dirs, near, far, cfg.grid_probes, contract_fn, cfg.grid_floor
+        )
+        if self.dynamic:
+            occ = torch.where(dyn_mask > 0, torch.ones_like(occ), occ)
+        t_vals = mathx.sorted_piecewise_constant_pdf(
+            bins, occ, n_level + 1, randomized, generator
+        ).detach()
+        if self.cm:
+            return t_vals, ops.cast_rays_cm(t_vals, origins_s, dirs_s, radii, cfg.ray_shape)
+        return t_vals, ops.cast_rays(t_vals, origins_s, dirs_s, radii, cfg.ray_shape, self.diag)
 
     def _centroid(self, mean, obj_densities, hit, ext):
         """The object-centering readout [N_obj, 3] (durf_tpu/models/

@@ -4,8 +4,13 @@ Counterpart of the JAX package's `models/mlp.py` (reference
 obbpose_model.py:293-418). One parameter layout, three execution paths:
   * the plain path: the split-matmul formulation in `compute_dtype`
     (operands rounded, float32 accumulation), differentiable by autograd;
-  * the kernel path (`use_kernel=True`, with a view condition): K1 forward
-    and K2 backward behind one autograd Function (ops/kernels/fused_mlp.py);
+    with `remat` it runs under torch.utils.checkpoint, so the backward
+    recomputes the trunk instead of keeping every layer's activations;
+  * the kernel path (`use_kernel=True`, on a call with a view condition):
+    K1 forward and K2 backward behind one autograd Function
+    (ops/kernels/fused_mlp.py). A call without a condition takes the plain
+    path, as in the JAX package (mlp.py:166 there), which has no kernel
+    for an MLP without one;
   * with `pallas_gate_in_kernel` as well, a gated call on row-major input
     and output runs K5 forward and K6 backward, which blend
     gate * x + (1 - gate) * fill inside the kernel (mlp.py:166-181 of the
@@ -27,6 +32,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from durf_tpu_torch.configs import MLPConfig
 from durf_tpu_torch.ops.kernels import fused_mlp as k1
@@ -89,6 +95,7 @@ class NerfMLP(nn.Module):
         use_kernel: bool = False,
         num_stack: int | None = None,
         pallas_gate_in_kernel: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         if config.net_activation != "relu":
@@ -103,6 +110,10 @@ class NerfMLP(nn.Module):
         # instead of in PyTorch before K1/K2; nothing in MipNerf sets it, as
         # in the JAX package.
         self.pallas_gate_in_kernel = pallas_gate_in_kernel
+        # Recompute the plain path's trunk in the backward (ModelConfig.
+        # remat_mlp); no effect on the kernel path, whose backward already
+        # recomputes in the tile.
+        self.remat = remat
         cfg = config
         layers = {}
         for i, d in enumerate(k1.layer_dims(cfg, in_dim)):
@@ -162,6 +173,17 @@ class NerfMLP(nn.Module):
         ]
         return torch.stack([r for r, _ in outs]), torch.stack([d for _, d in outs])
 
+    def _plain(self, flat, cond, s, fm, *weights):
+        """The plain path on [N, F] (or feature-major [F, N]) input and the
+        per-ray condition [N / s, F_c] (or None): ([N, 3], [N, 1])."""
+        cfg = self.config
+        cond_rows = None
+        if cond is not None:
+            cond_lin = k1.cond_linear(cond, weights[k1.head0_index(cfg)], cfg, self.compute_dtype)
+            cond_rows = cond_lin.repeat_interleave(s, dim=0)
+        return k1.split_matmul_forward(cfg, flat.T if fm else flat, cond_rows, list(weights),
+                                       self.compute_dtype)
+
     def _route(self, weights, gate, x, condition, fill, fm, out_fm):
         """One MLP's route (see the module docstring)."""
         cfg = self.config
@@ -172,28 +194,21 @@ class NerfMLP(nn.Module):
         flat = x.reshape(in_dim, n) if fm else x.reshape(n, in_dim)
         cond = None if condition is None else condition.reshape(n // s, -1)
         g = None if gate is None else gate.reshape(n // s)
-        if self.use_kernel and cond is None:
-            raise NotImplementedError("the MLP kernels need a view condition")
-        if self.use_kernel and g is not None and self.pallas_gate_in_kernel and not fm and not out_fm:
+        kernel = self.use_kernel and cond is not None
+        if kernel and g is not None and self.pallas_gate_in_kernel and not fm and not out_fm:
             rgb, den = k1.fused_nerf_mlp_gated(flat, g, fill, cond, weights, cfg, s)
         else:
             if g is not None:  # blend in the input's own layout
                 gs = g.repeat_interleave(s)
                 gs, fr = (gs[None], fill.reshape(in_dim, 1)) if fm else (gs[:, None], fill.reshape(1, in_dim))
                 flat = gs * flat + (1.0 - gs) * fr
-            if self.use_kernel:
+            if kernel:
                 rgb, den = k1.fused_nerf_mlp(flat if fm else flat.T.contiguous(), cond, weights, cfg, s)
                 rgb, den = rgb.T, den.T
+            elif self.remat and torch.is_grad_enabled():
+                rgb, den = checkpoint(self._plain, flat, cond, s, fm, *weights, use_reentrant=False)
             else:
-                cond_rows = None
-                if cond is not None:
-                    cond_lin = k1.cond_linear(
-                        cond, weights[k1.head0_index(cfg)], cfg, self.compute_dtype
-                    )
-                    cond_rows = cond_lin.repeat_interleave(s, dim=0)
-                rgb, den = k1.split_matmul_forward(
-                    cfg, flat.T if fm else flat, cond_rows, weights, self.compute_dtype
-                )
+                rgb, den = self._plain(flat, cond, s, fm, *weights)
         if out_fm:
             return rgb.T.reshape((-1,) + batch_shape), den.T.reshape((-1,) + batch_shape)
         return rgb.reshape(batch_shape + (-1,)), den.reshape(batch_shape + (-1,))

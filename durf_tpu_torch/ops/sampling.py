@@ -1,7 +1,9 @@
 """Stratified and hierarchical (inverse-CDF) sampling along rays.
 
 Counterpart of the JAX package's `ops/sampling.py` (reference
-mip.py:330-416) for the coordinate-major diagonal pipeline. Training draws
+mip.py:330-416): row-major samples ([B, S, 3] means, [B, S, 3] or
+[B, S, 3, 3] covariances) or, with `cm`, coordinate-major ones ([3, B, S]
+planes, diagonal covariance only). Training draws
 its jitter from a `torch.Generator`; a caller may hand the draws in instead
 (`t_rand`, `jitter`), which is how the tests feed both packages the same
 random numbers.
@@ -12,7 +14,18 @@ from __future__ import annotations
 import torch
 
 from durf_tpu_torch import mathx
-from durf_tpu_torch.ops.frustum import cast_rays_cm
+from durf_tpu_torch.ops.frustum import cast_rays, cast_rays_cm
+
+
+def _gaussians(t_vals, origins, directions, radii, ray_shape, diag, cm):
+    """The fenceposts' Gaussians: coordinate-major ([3, B, S], [3, B, S])
+    with cm (diagonal only), else row-major ([B, S, 3], [B, S, 3] with diag
+    or [B, S, 3, 3])."""
+    if cm:
+        if not diag:
+            raise ValueError("coordinate-major sampling is diagonal-covariance only")
+        return cast_rays_cm(t_vals, origins, directions, radii, ray_shape)
+    return cast_rays(t_vals, origins, directions, radii, ray_shape, diag)
 
 
 def sample_along_rays(
@@ -27,6 +40,8 @@ def sample_along_rays(
     randomized: bool = False,
     generator: torch.Generator | None = None,
     t_rand: torch.Tensor | None = None,
+    diag: bool = False,
+    cm: bool = False,
 ):
     """num_samples+1 stratified fenceposts in [near, far] and their
     Gaussians: evenly spaced, or with randomized each jittered uniformly
@@ -36,8 +51,9 @@ def sample_along_rays(
       generator: draws t_rand when randomized and `t_rand` is None.
       t_rand: [B, S+1] uniform [0, 1) draws (JAX's `jax.random.uniform(key,
         [B, S+1])`).
+      diag, cm: the samples' covariance and layout (see _gaussians).
 
-    Returns (t_vals [B, S+1], ([3, B, S] means, [3, B, S] covs)).
+    Returns (t_vals [B, S+1], (means, covs)) in the layout of _gaussians.
     Reference mip.py:330-370 (lindisp at 354-358).
     """
     batch_size = origins.shape[0]
@@ -59,7 +75,7 @@ def sample_along_rays(
                 dtype=origins.dtype, device=origins.device,
             )
         t_vals = lower + (upper - lower) * t_rand
-    return t_vals, cast_rays_cm(t_vals, origins, directions, radii, ray_shape)
+    return t_vals, _gaussians(t_vals, origins, directions, radii, ray_shape, diag, cm)
 
 
 def resample_along_rays(
@@ -75,6 +91,8 @@ def resample_along_rays(
     stop_grad: bool = True,
     generator: torch.Generator | None = None,
     jitter: torch.Tensor | None = None,
+    diag: bool = False,
+    cm: bool = False,
 ):
     """Blurpool the previous level's weights, then inverse-CDF sample.
 
@@ -86,6 +104,7 @@ def resample_along_rays(
         mathx.sorted_piecewise_constant_pdf.
       stop_grad: block gradients into the previous level through the new
         fenceposts (ModelConfig.stop_level_grad).
+      diag, cm: the samples' covariance and layout (see _gaussians).
 
     Reference mip.py:373-416 (blurpool at 394-401, padding at 404).
     """
@@ -100,4 +119,4 @@ def resample_along_rays(
     )
     if stop_grad:
         new_t_vals = new_t_vals.detach()
-    return new_t_vals, cast_rays_cm(new_t_vals, origins, directions, radii, ray_shape)
+    return new_t_vals, _gaussians(new_t_vals, origins, directions, radii, ray_shape, diag, cm)

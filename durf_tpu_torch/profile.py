@@ -5,6 +5,7 @@ card.
         [--proposal]
     python -m durf_tpu_torch.profile --train [--steps 3] [--top 25]
         [--obj_capacity 0.0625] [--no-fused_objects] [--proposal [--proposal_samples N]]
+        [--grid_sampling] [--no-coord_major] [--no-diag_covariance]
 
 Render mode renders 8192-ray chunks of the flagship model at the kernel
 operating point (the chip_smoke.py slice: random weights from seed 0, a
@@ -14,7 +15,10 @@ at --obj_capacity, 0 for none) after two warm-up steps. --no-fused_objects
 takes the per-object route (K1/K2 once per object instead of K3/K4);
 --proposal turns on proposal levels (bench.py --proposal: level 0 runs the
 4x128 proposal MLP, K1/K2 at 128/128, with --proposal_samples samples when
-positive). Either runs under torch.profiler, then prints the device-time
+positive). In train mode --grid_sampling samples level 0 from the occupancy
+grid (bench.py --grid_sampling), --no-coord_major takes row-major samples
+and --no-diag_covariance the full covariance (both on the per-object
+route). Either runs under torch.profiler, then prints the device-time
 table by kernel and one JSON line: ms per unit (host clock, synchronized),
 device busy ms per unit, the idle share, device ms per unit of each
 hand-written kernel and of everything else, K2's and K4's device ms split by
@@ -110,11 +114,10 @@ def _render_unit(dev, fused_objects, proposal):
     return one
 
 
-def _train_unit(dev, obj_capacity, fused_objects, proposal, proposal_samples):
+def _train_unit(dev, **train_kw):
     from durf_tpu_torch.entry import train_entry
 
-    step_fn, state, batch = train_entry(dev, obj_capacity=obj_capacity, fused_objects=fused_objects,
-                                        proposal=proposal, proposal_samples=proposal_samples)
+    step_fn, state, batch = train_entry(dev, **train_kw)
     box = {"state": state}
 
     def one():
@@ -143,12 +146,21 @@ def main(argv=None) -> None:
                    help="proposal levels: the 4x128 proposal MLP on level 0 (bench.py --proposal)")
     p.add_argument("--proposal_samples", type=int, default=0,
                    help="samples per proposal level of the training step (0: num_samples)")
+    p.add_argument("--grid_sampling", action="store_true",
+                   help="occupancy-grid level-0 sampling in the training step")
+    p.add_argument("--coord_major", action=argparse.BooleanOptionalAction, default=True,
+                   help="coordinate-major samples in the training step (--no-coord_major: "
+                        "row-major)")
+    p.add_argument("--diag_covariance", action=argparse.BooleanOptionalAction, default=True,
+                   help="diagonal covariance in the training step (--no-diag_covariance: full)")
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
     if args.train:
-        one = _train_unit(dev, args.obj_capacity, args.fused_objects, args.proposal,
-                          args.proposal_samples)
+        one = _train_unit(dev, obj_capacity=args.obj_capacity, fused_objects=args.fused_objects,
+                          proposal=args.proposal, proposal_samples=args.proposal_samples,
+                          grid_sampling=args.grid_sampling, coord_major=args.coord_major,
+                          diag_covariance=args.diag_covariance)
     else:
         one = _render_unit(dev, args.fused_objects, args.proposal)
     units = args.steps if args.train else args.chunks
@@ -199,6 +211,9 @@ def main(argv=None) -> None:
                 "fused_objects": args.fused_objects,
                 "proposal": args.proposal,
                 "proposal_samples": args.proposal_samples if args.proposal and args.train else 0,
+                "grid_sampling": args.grid_sampling and args.train,
+                "coord_major": args.coord_major or not args.train,
+                "diag_covariance": args.diag_covariance or not args.train,
                 f"ms_per_{unit}": wall_ms,
                 f"device_busy_ms_per_{unit}": busy_ms,
                 "idle_share": 1.0 - busy_ms / wall_ms,

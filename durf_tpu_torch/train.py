@@ -4,16 +4,18 @@
 The train step is eager PyTorch around the hand-written kernels: the
 randomized forward (K1 and K3 through their autograd Functions), the loss
 stack, `backward()` (K2 and K4), gradient hygiene (NaN scrub, value clip,
-global-norm clip; reference train_boxpose.py:262-288) and Adam at the
-log-lerp learning rate lr(count + 1). The schedules run on the host from the
-step count. The step's randomness comes from a `torch.Generator` seeded
-from (seed, step), where the JAX package folds the step into a key.
+global-norm clip; reference train_boxpose.py:262-288), Adam at the
+log-lerp learning rate lr(count + 1) and, with `grid_sampling`, the
+occupancy grid's update from the last level's samples and weights. The
+schedules run on the host from the step count. The step's randomness comes
+from a `torch.Generator` seeded from (seed, step), where the JAX package
+folds the step into a key.
 
 `run_training` is the loop: a scene directory's RayDataset, compaction
 auto-sized from the scene (`resolve_obj_capacity`), batches drawn on the
 card from device-resident pools (or the host prefetch thread), periodic
 logging, checkpoints, eval renders with PSNR and SSIM, and resume from the
-latest checkpoint. Not ported yet: the occupancy grid, multi-GPU training.
+latest checkpoint. Not ported yet: multi-GPU training.
 
 CLI:
   python -m durf_tpu_torch.train --data_dir=... --train_dir=... \
@@ -42,6 +44,7 @@ from durf_tpu_torch.data.scene import max_hit_fraction
 from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.losses import compute_losses, weight_l2
 from durf_tpu_torch.models.mipnerf import MipNerf, construct_model, obj_capacity_k, render_image
+from durf_tpu_torch.ops import grid as gridops
 from durf_tpu_torch.rays import Rays
 
 POSE_PARAM = "box_centers"
@@ -163,12 +166,17 @@ class TrainState:
     model: MipNerf
     optimizer: ScheduledAdam
     config: Config
+    # The contracted-domain occupancy grid [R, R, R] on the model's device
+    # (None unless config.model.grid_sampling).
+    grid: Optional[torch.Tensor] = None
 
 
 def create_train_state(config: Config, model: MipNerf, optimizer: ScheduledAdam) -> TrainState:
+    grid = None
     if config.model.grid_sampling:
-        raise NotImplementedError("occupancy-grid sampling is not ported yet")
-    return TrainState(step=0, model=model, optimizer=optimizer, config=config)
+        device = next(model.parameters()).device
+        grid = gridops.make_grid(config.model.grid_resolution, device=device)
+    return TrainState(step=0, model=model, optimizer=optimizer, config=config, grid=grid)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -191,14 +199,17 @@ def batch_to(batch: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def make_grad_fn(model: MipNerf, config: Config, seed: int = 1):
-    """fn(step, batch) -> (loss, aux, grads): the loss of the step's
-    randomized forward and the raw gradient of every named parameter (zeros
-    where the loss does not reach it), before any hygiene."""
+    """fn(step, batch, grid=None) -> (loss, aux, grads): the loss of the
+    step's randomized forward (level 0 sampled from `grid` under
+    grid_sampling) and the raw gradient of every named parameter (zeros
+    where the loss does not reach it), before any hygiene. Under
+    grid_sampling aux also holds the last level's grid_positions and
+    grid_weights."""
     eps_fn, alpha_fn = make_eps_schedule(config), make_alpha_schedule(config)
     dynamic = config.model.dynamics and model.dynamic
     background = background_mode(config)
 
-    def grad_fn(step: int, batch: Dict[str, Any]):
+    def grad_fn(step: int, batch: Dict[str, Any], grid: Optional[torch.Tensor] = None):
         device = batch["rays"].origins.device
         gen = step_generator(seed, step, device)
         eps, alpha = eps_fn(step + 1), alpha_fn(step + 1)
@@ -208,7 +219,7 @@ def make_grad_fn(model: MipNerf, config: Config, seed: int = 1):
         ts = batch.get("ts")
         out = model(
             batch["rays"], ext=batch.get("ext"), ts=ts, background=background, alpha=alpha,
-            randomized=config.randomized, generator=gen,
+            randomized=config.randomized, generator=gen, grid=grid,
         )
         if dynamic:
             # Previous-timestep pose for the TV loss, from the live table.
@@ -221,6 +232,10 @@ def make_grad_fn(model: MipNerf, config: Config, seed: int = 1):
             total = total + config.weight_decay_mult * weight_l2(model.parameters())
         if dynamic:
             aux["obj_hit_rays"] = out[-1]["obj_hit_rays"]
+        if config.model.grid_sampling:
+            # Box-hitting rays carry zero weight (models/mipnerf.py).
+            aux["grid_positions"] = out[-1]["positions_c"]
+            aux["grid_weights"] = out[-1]["grid_weights"]
         total.backward()
         aux = {k: v.detach() for k, v in aux.items()}
         grads = {
@@ -242,7 +257,7 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         step = state.step
-        loss, aux, grads = grad_fn(step, batch)
+        loss, aux, grads = grad_fn(step, batch, state.grid)
         with torch.no_grad():
             # Gradient hygiene (reference train_boxpose.py:262-286): NaN and
             # +-Inf scrubbed to 0, value clip, global-norm clip.
@@ -258,6 +273,11 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
             for p, g in zip(state.model.parameters(), gs):
                 p.grad = g
         state.optimizer.step()
+        if config.model.grid_sampling:
+            state.grid = gridops.update(
+                state.grid, aux.pop("grid_positions"), aux.pop("grid_weights"),
+                decay=config.model.grid_decay,
+            )
         state.step = step + 1
 
         psnrs = mathx.mse_to_psnr(aux["rgb"])

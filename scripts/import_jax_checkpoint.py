@@ -7,7 +7,8 @@ Reads the JAX checkpoint of step N (default the latest) with
 `durf_tpu.checkpoints.CheckpointManager.restore_raw` (Orbax) and writes the
 port's checkpoint of the same step into PORT_DIR
 (`durf_tpu_torch.checkpoints`): the parameters, pose table included,
-through `durf_tpu_torch.params.params_from_flax`, and the step. The Adam
+through `durf_tpu_torch.params.params_from_flax`, the step and, for a run
+with grid sampling, the occupancy grid. The Adam
 moments are not carried over: a run resumed from the imported checkpoint
 starts Adam with fresh moments, its learning-rate schedule at the imported
 step. Needs Orbax, so it runs where the JAX package runs; the port itself
@@ -21,6 +22,7 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -43,14 +45,14 @@ def import_checkpoint(jax_dir: str, out_dir: str, step: int | None = None) -> in
         raw = jax_mgr.restore_raw(step)
     finally:
         jax_mgr.close()
-    if raw.get("grid") is not None:
-        raise NotImplementedError("the occupancy grid is not ported: cannot import its state")
+    grid = raw.get("grid")
     saved_step = int(np.asarray(raw["step"]))
     payload = {
         "step": saved_step,
         "model": params_from_flax(_numpy_tree(raw["params"])),
         "optimizer": None,  # fresh Adam moments
         "count": saved_step,
+        "grid": None if grid is None else torch.from_numpy(np.array(grid, dtype=np.float32)),
     }
     CheckpointManager(out_dir).save_raw(saved_step, payload, force=True)
     return saved_step

@@ -7,9 +7,11 @@
     CUDA is asked for and there is no card;
   * a kernel wrapper takes its plain version only for CPU tensors, and its
     launch counter stays 0 there;
-  * configs that ask for unported paths raise NotImplementedError; the
-    paths ported since (the randomized forward, compaction, the centering
-    readout, the per-object kernel route, proposal levels) are accepted.
+  * every path a ModelConfig selects builds and runs a forward: those the
+    port refused until the occupancy grid, the row-major and
+    full-covariance pipelines, remat_mlp and the kernels without view
+    directions were ported, and those ported before them (compaction, the
+    per-object kernel route, proposal levels).
 """
 
 import ast
@@ -21,7 +23,7 @@ import torch
 
 from durf_tpu_torch.configs import MLPConfig, ModelConfig
 from durf_tpu_torch.data.synthetic import example_ray_batch
-from durf_tpu_torch.models.mipnerf import MipNerf, check_supported, construct_model
+from durf_tpu_torch.models.mipnerf import MipNerf, construct_model
 from durf_tpu_torch.ops.kernels import fused_mlp as k1
 from durf_tpu_torch.ops.kernels import obj_mlp as k3
 
@@ -137,6 +139,29 @@ def test_other_devices_raise_instead_of_falling_back():
         )
 
 
+def _forward_runs(**fields):
+    """Build a tiny model with the kernels on and `fields` set, and run an
+    eval forward (with an occupancy grid) and a training step on the CPU."""
+    cfg = ModelConfig(
+        num_samples=4, max_deg_point=2, deg_view=1, use_pallas_mlp=True, grid_resolution=8,
+        mlp=MLPConfig(net_depth=1, net_width=8, net_width_condition=8),
+        box_mlp=MLPConfig(net_depth=1, net_width=8, net_width_condition=8), **fields,
+    )
+    batch = example_ray_batch(batch_size=4)
+    model = construct_model(cfg, batch, device="cpu")
+    grid = torch.rand((8, 8, 8), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = model(batch["rays"].to("cpu"), torch.from_numpy(batch["ext"]), 1, grid=grid)
+    assert len(out) == cfg.num_levels and bool(torch.isfinite(out[-1]["rgb"]).all())
+    assert ("positions_c" in out[-1]) == cfg.grid_sampling
+
+    from durf_tpu_torch.configs import Config
+    from durf_tpu_torch.train import batch_to, make_grad_fn
+
+    loss, _, grads = make_grad_fn(model, Config(model=cfg))(0, batch_to(batch, "cpu"), grid)
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
 @pytest.mark.parametrize(
     "field,value",
     [
@@ -147,10 +172,10 @@ def test_other_devices_raise_instead_of_falling_back():
         ("remat_mlp", True),
     ],
 )
-def test_unported_paths_raise(field, value):
-    cfg = ModelConfig(use_pallas_mlp=True, **{field: value})
-    with pytest.raises(NotImplementedError):
-        check_supported(cfg)
+def test_formerly_refused_paths_run(field, value):
+    """The paths the port refused with NotImplementedError before they were
+    ported run a forward and a training step."""
+    _forward_runs(**{field: value})
 
 
 @pytest.mark.parametrize(
@@ -165,7 +190,7 @@ def test_unported_paths_raise(field, value):
 def test_lifted_paths_are_supported(field, value):
     """Object-ray compaction (any capacity; <= 0 means off), the per-object
     route and proposal levels with the kernels on are ported."""
-    check_supported(ModelConfig(use_pallas_mlp=True, **{field: value}))
+    _forward_runs(**{field: value})
 
 
 def test_randomized_forward_raises():

@@ -248,7 +248,7 @@ def test_stratified_jitter_matches_jax_draws():
     t_rand = np.asarray(jax.random.uniform(key, [b, s + 1]))
     tt, (tm, tc) = tops.sample_along_rays(
         _t(origins), _t(dirs), _t(radii), s, _t(near), _t(far), False, "cone",
-        randomized=True, t_rand=_t(t_rand),
+        randomized=True, t_rand=_t(t_rand), diag=True, cm=True,
     )
     _close(tt, jt, atol=1e-6 * 30, rtol=1e-6)
     _close(tm, jm, atol=1e-4, rtol=1e-6)

@@ -146,3 +146,14 @@ def test_lpips_fn_resolution_order(npz, monkeypatch):
     assert calls[0] == "alex"
     assert calls[1] == ((1, 3, 64, 80), float(2 * a.min() - 1), float(2 * b.max() - 1))
     np.testing.assert_allclose(got, 2 * np.abs(a - b).mean(), rtol=1e-5)
+
+
+def test_small_images_give_nan_as_in_jax(npz):
+    """At 20x16 AlexNet's second pool leaves an empty map: the reference's
+    metric returns NaN (durf_tpu/lpips.py:82, 129) and so does the port,
+    where it raised before; at 40x40 both are finite and agree."""
+    ours, theirs = load_lpips(npz, "cpu"), j_load_lpips(npz)
+    a, b = _imgs(16, 20)
+    assert np.isnan(theirs(a, b)) and np.isnan(ours(a, b))
+    a, b = _imgs(40, 40)
+    np.testing.assert_allclose(ours(a, b), theirs(a, b), rtol=1e-4)

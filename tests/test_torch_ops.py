@@ -99,7 +99,8 @@ def test_sample_along_rays(lindisp):
         jnp.asarray(near), jnp.asarray(far), False, lindisp, "cone", diag=True, cm=True,
     )
     tt, (tm, tc) = tops.sample_along_rays(
-        _t(origins), _t(dirs), _t(radii), 16, _t(near), _t(far), lindisp, "cone"
+        _t(origins), _t(dirs), _t(radii), 16, _t(near), _t(far), lindisp, "cone",
+        diag=True, cm=True,
     )
     _close(tt, jt, atol=1e-5, rtol=1e-6)
     _close(tm, jm, atol=1e-4, rtol=1e-6)
@@ -118,7 +119,8 @@ def test_resample_along_rays():
         num_samples=12, diag=True, cm=True,
     )
     tt, (tm, tc) = tops.resample_along_rays(
-        _t(origins), _t(dirs), _t(radii), _t(t_vals), _t(weights), "cone", 0.01, num_samples=12
+        _t(origins), _t(dirs), _t(radii), _t(t_vals), _t(weights), "cone", 0.01, num_samples=12,
+        diag=True, cm=True,
     )
     _close(tt, jt, atol=1e-5, rtol=1e-6)
     _close(tm, jm, atol=1e-4, rtol=1e-6)

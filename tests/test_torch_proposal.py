@@ -17,7 +17,7 @@ package, on the same numpy inputs and the same weights.
 (d) The proposal MLP's weights: bit-exact params round trip, drawn after
     every other leaf, in the optimizer's "fields" group.
 (e) configs/waymo_fast.gin parses to the same model fields in both
-    packages and passes check_supported; the entry points take
+    packages and builds in the port; the entry points take
     `proposal=True` on the CPU and raise without a card by default.
 """
 
@@ -45,7 +45,6 @@ from durf_tpu_torch.configs import load_config as t_load_config
 from durf_tpu_torch.data.synthetic import example_ray_batch as t_batch
 from durf_tpu_torch.entry import flagship_config, kernel_operating_point, with_proposal
 from durf_tpu_torch.models import MipNerf, construct_model
-from durf_tpu_torch.models.mipnerf import check_supported
 from durf_tpu_torch.params import params_from_flax, params_to_flax
 from durf_tpu_torch.train import (
     batch_to,
@@ -308,7 +307,7 @@ def test_waymo_fast_gin_matches_and_is_supported():
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     assert tm.use_proposal and tm.proposal_mlp.net_depth == 4 and tm.proposal_mlp.net_width == 128
     assert tm.samples_per_ray() == jm.samples_per_ray() == 256
-    check_supported(tm)
+    assert MipNerf(tm, 2, 5).use_proposal  # the port builds the preset's model
 
 
 def test_entry_points_take_proposal_on_cpu():
