@@ -133,10 +133,32 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      gradients bitwise equal to those without (else relative L2 1e-6 per
      leaf) and a lower peak memory, both peaks printed; use_pallas_mlp
      without use_viewdirs launches no kernel, as in the JAX package;
- 20. a JSON line with every kernel's numbers (launches from the path that
+ 20. data-parallel training (`multigpu`, parallel/), each case the
+     flagship step of entry.train_entry at the global batch 4096 with
+     bench.py's compaction: a one-rank NCCL group (a process of its own)
+     whose step-0 loss and gradients, parameters and stats after 3 steps
+     are bitwise those without a group, and the two's ms per step; two
+     ranks sharing the card over gloo against the one-process step on the
+     example batch, on boxes grown 2x (444 hit rays against k = 256: the
+     compaction overflows, across the ranks) and with the occupancy grid:
+     step-0 loss within relative 1e-5; each gradient tensor within
+     MULTIGPU_GRAD_REL of its largest entry and each parameter tensor
+     after 3 steps within MULTIGPU_PARAM_REL of its largest update, both
+     gaps printed beside the median gradient, and both checks shown to
+     fail a planted fault (the gradient averaged over two ranks instead of
+     summed, run through the same step); the grid bitwise, both ranks'
+     parameters bitwise equal, K1-K4 2 launches a rank and step; their
+     ms per step; dryrun_multichip(2) on the card (20 steps that descend,
+     the eval chunk over the ranks against one rank's at 1e-5); with two
+     or more cards the same over NCCL on min(count, 4) of them, else a
+     line saying it did not run;
+ 21. `bench`: python -m durf_tpu_torch.bench --steps 10, its JSON line
+     after the card's name and power limit;
+ 22. a JSON line with every kernel's numbers (launches from the path that
      runs the kernel: K1-K4 the main path, K5/K6 phase 8, K1 and K2 at
-     128/128 phase 16, with phase 12's, phase 17's, phase 18's and phase
-     19's beside them; K3 and K4 timed at the compacted step's shape, their bound that
+     128/128 phase 16, with phase 12's, phase 17's, phase 18's, phase
+     19's and phase 20's, per rank and step, beside them; K3 and K4 timed
+     at the compacted step's shape, their bound that
      of the pairs that ran, with the dense bound, the pair share and the
      times at each hit share beside it), then the card's name and power
      limit, and as the last line {"ok": true, "device": {...}}.
@@ -2000,8 +2022,296 @@ def check_apps(dev, card, trained: bool):
     return apps
 
 
+# The multigpu phase: the data-parallel step (parallel/) on one card, and
+# over several where the machine has them. Each case is the flagship step
+# of entry.train_entry at the global batch TRAIN_BATCH: its step-0 loss and
+# raw gradients, then MULTIGPU_STEPS steps with the launch counts set to 0
+# just before; "overflow" grows the boxes by OVERFLOW_EXT, so that 444 of
+# the 4096 rays hit a box against k = 256 (rank 0 of two holds 219 of them),
+# and "grid" samples level 0 from the occupancy grid.
+MULTIGPU_STEPS = 3
+MULTIGPU_CASES = ("base", "overflow", "grid")
+OVERFLOW_EXT = 2.0
+# The step-0 loss's tolerance (float32 sums in another order) and the last
+# step's (after MULTIGPU_STEPS updates from those gradients).
+MULTIGPU_LOSS_RTOL, MULTIGPU_LAST_LOSS_RTOL = 1e-5, 1e-4
+# Each gradient tensor's largest gap against the one-process step, over
+# its own largest entry, and each parameter tensor's after the steps, over
+# its own largest update. Set from a reading on an H100 (PERF.md): two
+# sound ranks at most 2.7e-5 and 5.5e-3, the planted fault 0.5 and 0.68.
+MULTIGPU_GRAD_REL = 1e-3
+MULTIGPU_PARAM_REL = 5e-2
+
+
+def multigpu_case(dev, case, group=None):
+    """One case of the flagship step on one process (group None) or a
+    rank: its step-0 loss (summed over the group) and raw gradients, the
+    parameters before and after MULTIGPU_STEPS steps, the grid, the
+    launches of K1-K4 in those steps and the last step's global stats."""
+    import torch
+
+    from durf_tpu_torch import parallel
+    from durf_tpu_torch.entry import train_entry
+    from durf_tpu_torch.train import make_grad_fn, reduce_stats
+
+    group = parallel.one_process(dev) if group is None else group
+    kw = dict(grid_sampling=True) if case == "grid" else {}
+    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, group=group, **kw)
+    if case == "overflow":
+        batch["ext"] = batch["ext"] * OVERFLOW_EXT  # replicated: the same on every rank
+    params0 = {n: p.detach().to("cpu", copy=True) for n, p in state.model.named_parameters()}
+    loss, _, grads = make_grad_fn(state.model, state.config, group=group)(0, batch, state.grid)
+    loss = group.all_sum(loss)
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(MULTIGPU_STEPS):
+        state, stats = step_fn(state, batch)
+    torch.cuda.synchronize()
+    launches = training_launches()
+    stats = reduce_stats(stats, state.config, group)
+    return {
+        "loss": loss.cpu(),
+        "grads": {n: g.detach().cpu() for n, g in grads.items()},
+        "params0": params0,
+        "params": {n: p.detach().cpu() for n, p in state.model.named_parameters()},
+        "grid": None if state.grid is None else state.grid.cpu(),
+        "launches": launches,
+        "stats": {k: float(v) for k, v in stats.items()
+                  if torch.is_tensor(v) and v.dim() == 0},
+    }
+
+
+def _averaging_group(dev):
+    """A planted fault: one process whose gradient "all-reduce" divides by
+    two, as a group of two ranks would that averaged the gradient instead
+    of summing it. Everything else is the one-process step."""
+    from durf_tpu_torch import parallel
+
+    class Averaging(parallel.Group):
+        def sum_flat(self, tensors):
+            return [t / 2 for t in tensors]
+
+    return Averaging(device=parallel.one_process(dev).device)
+
+
+def _rank_setup():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def multigpu_one_rank(group):
+    """Rank 0 of a one-rank NCCL group: the flagship step without a group
+    and through the group path, each MULTIGPU_STEPS steps from the same
+    weights, then each timed (WARMUP_STEPS, TIMED_STEPS) in turns: without,
+    with, with, without."""
+    _rank_setup()
+    import torch
+
+    from durf_tpu_torch.entry import train_entry
+
+    out = {"plain": multigpu_case(group.device, "base"),
+           "group": multigpu_case(group.device, "base", group),
+           "plain_ms": [], "group_ms": []}
+    for what in ("plain", "group", "group", "plain"):
+        g = group if what == "group" else None
+        step_fn, state, batch = train_entry(group.device, batch_size=TRAIN_BATCH, group=g)
+        _, _, dt, _, _ = time_steps(step_fn, state, batch)
+        out[f"{what}_ms"].append(1e3 * dt / TIMED_STEPS)
+        del step_fn, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def multigpu_ranks(group):
+    """A rank of a group of several ranks (two sharing one card over gloo,
+    or one a card over NCCL): every case, then timed steps of the base
+    case."""
+    _rank_setup()
+    import torch
+
+    from durf_tpu_torch.entry import train_entry
+
+    out = {"cases": {c: multigpu_case(group.device, c, group) for c in MULTIGPU_CASES}}
+    torch.cuda.empty_cache()
+    step_fn, state, batch = train_entry(group.device, batch_size=TRAIN_BATCH, group=group)
+    _, _, dt, _, _ = time_steps(step_fn, state, batch)
+    out["ms"] = 1e3 * dt / TIMED_STEPS
+    return out
+
+
+def _bitwise(what, a, b):
+    import torch
+
+    bad = [n for n in b if not torch.equal(a[n], b[n])]
+    if bad:
+        raise SystemExit(f"multigpu: {what} not bitwise equal: {bad[:5]}")
+
+
+def rel_gaps(got, ref, base=None):
+    """(the largest relative gap, its tensor, its absolute gap): per tensor,
+    max |got - ref| over max |ref - base| (base: zeros, so the tensor's
+    largest entry; the parameters before the steps, so its largest
+    update); a tensor whose scale is 0 must match exactly (else inf)."""
+    worst = (0.0, None, 0.0)
+    for n, r in ref.items():
+        gap = float((got[n].float() - r.float()).abs().max())
+        scale = float((r.float() - (0 if base is None else base[n].float())).abs().max())
+        rel = gap / scale if scale > 0 else (0.0 if gap == 0 else math.inf)
+        if rel > worst[0]:
+            worst = (rel, n, gap)
+    return worst
+
+
+def median_abs(tensors) -> float:
+    import torch
+
+    return float(torch.cat([t.float().reshape(-1) for t in tensors.values()]).abs().median())
+
+
+def compare_ranks(what, ranks, refs, expect_launches):
+    """Each rank's cases against the one-process runs `refs`: loss rtol
+    MULTIGPU_LOSS_RTOL, gradients within MULTIGPU_GRAD_REL and parameters
+    within MULTIGPU_PARAM_REL (rel_gaps; both printed beside the median
+    gradient), the grid bitwise, the ranks' parameters bitwise equal, every
+    global stat finite, and K1-K4 launched expect_launches times on each
+    rank. Returns the largest gaps."""
+    import torch
+
+    worst = {"grad": 0.0, "param": 0.0}
+    for case, ref in refs.items():
+        for r, rank in enumerate(ranks):
+            got = rank["cases"][case]
+            rel = abs(float(got["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+            if rel > MULTIGPU_LOSS_RTOL:
+                raise SystemExit(f"multigpu {what} {case}: loss {float(got['loss'])} vs "
+                                 f"{float(ref['loss'])} (rel {rel:.3e})")
+            g_rel, g_name, g_gap = rel_gaps(got["grads"], ref["grads"])
+            p_rel, p_name, p_gap = rel_gaps(got["params"], ref["params"], ref["params0"])
+            worst = {"grad": max(worst["grad"], g_rel), "param": max(worst["param"], p_rel)}
+            print(f"multigpu {what} {case}, rank {r}: largest gradient gap {g_gap:.3e} "
+                  f"({g_rel:.3e} of {g_name}'s largest entry; limit {MULTIGPU_GRAD_REL:g}); "
+                  f"median |gradient| {median_abs(ref['grads']):.3e}; largest parameter gap "
+                  f"after {MULTIGPU_STEPS} steps {p_gap:.3e} ({p_rel:.3e} of {p_name}'s "
+                  f"largest update; limit {MULTIGPU_PARAM_REL:g})")
+            if g_rel > MULTIGPU_GRAD_REL:
+                raise SystemExit(f"multigpu {what} {case}: gradient {g_name} differs")
+            if p_rel > MULTIGPU_PARAM_REL:
+                raise SystemExit(f"multigpu {what} {case}: parameter {p_name} differs")
+            _bitwise(f"{what} {case} rank {r} vs rank 0 parameters", got["params"],
+                     ranks[0]["cases"][case]["params"])
+            if ref["grid"] is not None and not torch.equal(got["grid"], ref["grid"]):
+                err = float((got["grid"] - ref["grid"]).abs().max())
+                raise SystemExit(f"multigpu {what} {case}: grid not bitwise (max {err:.3e})")
+            if not all(map(math.isfinite, got["stats"].values())):
+                raise SystemExit(f"multigpu {what} {case}: stats not finite")
+            if got["launches"] != dict.fromkeys(("K1", "K2", "K3", "K4"), expect_launches):
+                raise SystemExit(f"multigpu {what} {case}: launches {got['launches']}")
+            if abs(got["stats"]["train/loss"] - ref["stats"]["train/loss"]) > (
+                    MULTIGPU_LAST_LOSS_RTOL * abs(ref["stats"]["train/loss"])):
+                raise SystemExit(f"multigpu {what} {case}: last step's loss "
+                                 f"{got['stats']['train/loss']} vs {ref['stats']['train/loss']}")
+            print(f"multigpu {what} {case}, rank {r}: loss {float(got['loss']):.7f} vs "
+                  f"{float(ref['loss']):.7f} (rel {rel:.2e}); after {MULTIGPU_STEPS} steps "
+                  f"loss {got['stats']['train/loss']:.6f} vs {ref['stats']['train/loss']:.6f}, "
+                  f"overflow {got['stats'].get('obj/overflow_rays', 0.0):.0f} vs "
+                  f"{ref['stats'].get('obj/overflow_rays', 0.0):.0f}; launches {got['launches']}")
+    return worst
+
+
+def check_planted_fault(dev, ref):
+    """The gradient and parameter checks against a planted fault
+    (_averaging_group): each must fail it. Prints the fault's gaps."""
+    fault = multigpu_case(dev, "base", _averaging_group(dev))
+    g_rel, g_name, g_gap = rel_gaps(fault["grads"], ref["grads"])
+    p_rel, p_name, p_gap = rel_gaps(fault["params"], ref["params"], ref["params0"])
+    print(f"multigpu planted fault (gradient averaged over 2 ranks, not summed): largest "
+          f"gradient gap {g_gap:.3e} ({g_rel:.3e} of {g_name}'s largest entry; limit "
+          f"{MULTIGPU_GRAD_REL:g}), largest parameter gap after {MULTIGPU_STEPS} steps "
+          f"{p_gap:.3e} ({p_rel:.3e} of {p_name}'s largest update; limit "
+          f"{MULTIGPU_PARAM_REL:g})")
+    if not (g_rel > MULTIGPU_GRAD_REL and p_rel > MULTIGPU_PARAM_REL):
+        raise SystemExit("multigpu: the gradient or parameter check misses the planted fault")
+
+
+def check_multigpu(dev, card):
+    """The data-parallel step (parallel/): a one-rank NCCL group bitwise
+    against no group and its cost; two ranks sharing the card over gloo
+    against one process on every case, the gradient check against a
+    planted fault, and dryrun_multichip(2) on the card; NCCL over
+    min(device_count, 4) cards where there are two or more. Returns K1-K4's
+    launches per rank per step on the group path."""
+    import torch
+
+    from durf_tpu_torch import parallel
+    from durf_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    one = parallel.spawn(multigpu_one_rank, 1, device="cuda", timeout=600)[0]
+    plain, grouped = one["plain"], one["group"]
+    if not torch.equal(plain["loss"], grouped["loss"]):
+        raise SystemExit(f"multigpu: one-rank NCCL loss {float(grouped['loss'])} != "
+                         f"{float(plain['loss'])} without a group")
+    _bitwise("one-rank NCCL gradients", grouped["grads"], plain["grads"])
+    _bitwise("one-rank NCCL parameters", grouped["params"], plain["params"])
+    if grouped["launches"] != plain["launches"] or grouped["stats"] != plain["stats"]:
+        raise SystemExit(f"multigpu: one-rank NCCL step differs: {grouped['launches']} vs "
+                         f"{plain['launches']}")
+    print(f"multigpu one-rank NCCL group: loss, gradients, {MULTIGPU_STEPS}-step parameters "
+          f"and stats bitwise those without a group; ms/step in turns (without, with, with, "
+          f"without): {one['plain_ms'][0]:.3f}, {one['group_ms'][0]:.3f}, "
+          f"{one['group_ms'][1]:.3f}, {one['plain_ms'][1]:.3f} (batch {TRAIN_BATCH}; {card})")
+    per_step = {k: v // MULTIGPU_STEPS for k, v in grouped["launches"].items()}
+
+    refs = {c: multigpu_case(dev, c) for c in MULTIGPU_CASES}
+    if not refs["overflow"]["stats"]["obj/overflow_rays"] > 0:
+        raise SystemExit("multigpu: the overflow case does not overflow the compaction")
+    check_planted_fault(dev, refs["base"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    expect = 2 * MULTIGPU_STEPS
+    shared = parallel.spawn(multigpu_ranks, 2, device="cuda:0", backend="gloo", timeout=600)
+    worst = compare_ranks("2 ranks on cuda:0 over gloo", shared, refs, expect)
+    print(f"multigpu 2 ranks on cuda:0 over gloo: {shared[0]['ms']:.3f} ms/step at the global "
+          f"batch {TRAIN_BATCH}; largest gaps over the cases: gradient {worst['grad']:.3e}, "
+          f"parameter {worst['param']:.3e} ({card})")
+    dryrun_multichip(2, "cuda")
+
+    cards = min(torch.cuda.device_count(), 4)
+    if cards >= 2:
+        several = parallel.spawn(multigpu_ranks, cards, device="cuda", timeout=600)
+        compare_ranks(f"{cards} ranks over NCCL", several, refs, expect)
+        print(f"NCCL over {cards} cards: step {several[0]['ms']:.3f} ms at the global batch "
+              f"{TRAIN_BATCH} against {min(one['plain_ms']):.3f} on one card without a group")
+    else:
+        print("multigpu: NCCL over several cards did not run (1 card): not a pass")
+    print(f"multigpu: {time.perf_counter() - t0:.1f} s")
+    return per_step
+
+
+def check_bench(card):
+    """python -m durf_tpu_torch.bench --steps 10, its JSON line beside the
+    card's name and power limit."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "durf_tpu_torch.bench", "--steps", "10"],
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise SystemExit(f"bench failed (exit {run.returncode}):\n{run.stdout}\n{run.stderr}")
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} or not line["value"] > 0:
+        raise SystemExit(f"bench printed {line}")
+    print(card)
+    print(json.dumps(line))
+    print(f"bench: {time.perf_counter() - t0:.1f} s with the process's start")
+    return line
+
+
 PHASES = ("kernels", "gated", "slice", "train", "exact", "per_object", "centering", "descent",
-          "plain", "proposal", "app", "apps", "pipelines")
+          "plain", "proposal", "app", "apps", "pipelines", "multigpu", "bench")
 
 
 def main(argv=None) -> int:
@@ -2087,6 +2397,11 @@ def main(argv=None) -> int:
     pipelines = {}
     if "pipelines" in only:
         pipelines = check_pipelines(dev, smi)
+    multigpu = {}
+    if "multigpu" in only:
+        multigpu = check_multigpu(dev, smi)
+    if "bench" in only:
+        check_bench(smi)
     if only != set(PHASES):
         print(f"chip_smoke: partial run ({sorted(only)}), no result line")
         return 0
@@ -2116,6 +2431,7 @@ def main(argv=None) -> int:
              library_ms=None, **nums[k],
              **({"per_object_launches": per_object[k]} if k in per_object else {}),
              **({"pipelines_launches": pipelines[k]} if k in pipelines else {}),
+             **({"multigpu_launches_per_rank_step": multigpu[k]} if k in multigpu else {}),
              **({"app_launches": app[k]} if k in app else {}),
              **({"apps_launches": apps[k]} if k in apps else {}))
         for k, (name, src, site) in meta.items()

@@ -9,7 +9,9 @@ device (the JAX package's `data/device_data.py`):
     batch = pools[ts][idx]          a gather on the device
 
 Both generators are seeded from (seed, step), so a resumed run draws the
-same batches as an uninterrupted one. `ts` stays a Python int, as the model
+same batches as an uninterrupted one. A data-parallel rank draws the global
+batch's u and gathers only its rows (`rows`), so the ranks together draw
+what one process draws. `ts` stays a Python int, as the model
 indexes its pose table with one, and `counts` lives on the host, so a draw
 waits for nothing on the device.
 """
@@ -138,11 +140,16 @@ def gather_batch(pools: Dict[str, Any], ts: int, idx: torch.Tensor) -> Dict[str,
     return batch
 
 
-def sample_batch(pools: Dict[str, Any], step: int, seed: int, batch_size: int) -> Dict[str, Any]:
+def sample_batch(pools: Dict[str, Any], step: int, seed: int, batch_size: int,
+                 rows: slice | None = None) -> Dict[str, Any]:
     """Draw the batch of (0-based) training step `step` on the pools' device
-    (see the module docstring); the same (seed, step) draws the same batch."""
+    (see the module docstring); the same (seed, step) draws the same batch.
+    `rows`: the rows of the `batch_size`-ray batch to gather (a
+    data-parallel rank's; parallel.Group.rows), all by default."""
     ts = draw_timestep(len(pools["counts"]), seed, step)
     idx = draw_indices(pools["counts"][ts], batch_size, seed, step, pools["pixels"].device)
+    if rows is not None:
+        idx = idx[rows]
     return gather_batch(pools, ts, idx)
 
 
@@ -155,10 +162,11 @@ def c2f_factor_index(step: int, c2f_steps, n_factors: int) -> int:
 
 
 def sample_batch_c2f(
-    pools_by_factor: List[Dict[str, Any]], step: int, c2f_steps, seed: int, batch_size: int
+    pools_by_factor: List[Dict[str, Any]], step: int, c2f_steps, seed: int, batch_size: int,
+    rows: slice | None = None,
 ) -> Dict[str, Any]:
     """sample_batch from the pyramid level of the c2f schedule: the level of
     the 1-indexed step step + 1 (the JAX package's device step passes
     state.step + 1), the draw of the 0-based `step`."""
     level = c2f_factor_index(step + 1, c2f_steps, len(pools_by_factor))
-    return sample_batch(pools_by_factor[level], step, seed, batch_size)
+    return sample_batch(pools_by_factor[level], step, seed, batch_size, rows)

@@ -1,14 +1,22 @@
 """Entry points: the flagship eval forward, like the JAX package's
-`__graft_entry__.entry()`, and the flagship training step that bench.py
+`__graft_entry__.entry()`, the flagship training step that bench.py
 builds (bench.py:147-172), with every flag of bench.py's that shapes the
 step (object-ray compaction, the object route, proposal levels, the
 occupancy grid, remat, box near/far, the compute dtype, the kernels and
-the recurrent encode)."""
+the recurrent encode), on one process or a rank of a data-parallel group,
+and `dryrun_multichip`, the data-parallel run's contract
+(__graft_entry__.py:101-195)."""
 
 from __future__ import annotations
 
+import copy
+import math
+from typing import Optional
+
+import numpy as np
 import torch
 
+from durf_tpu_torch import parallel
 from durf_tpu_torch.configs import Config, MLPConfig, ModelConfig
 from durf_tpu_torch.data.synthetic import example_ray_batch
 from durf_tpu_torch.devices import resolve_device
@@ -19,6 +27,7 @@ from durf_tpu_torch.train import (
     make_optimizer,
     make_render_fn,
     make_train_step,
+    reduce_stats,
 )
 
 
@@ -142,6 +151,7 @@ def train_entry(
     recurrent_encode: bool = True,
     coord_major: bool = True,
     diag_covariance: bool = True,
+    group: Optional[parallel.Group] = None,
 ):
     """(step_fn, state, batch): the flagship training step at the kernel
     operating point (bf16, K1-K4, recurrent encode, coordinate-major
@@ -166,8 +176,12 @@ def train_entry(
     replaces the delayed log-lerp schedule by a constant rate (as
     __graft_entry__.py:142-144 does for a short run).
     Runs on the card unless the caller asks for the CPU; raises when there
-    is no card."""
-    device = resolve_device(device)
+    is no card. With a `group` the step is a rank's of the data-parallel
+    step on the global `batch_size`-ray batch: `batch` holds the rank's
+    rows, the state is rank 0's (broadcast) on the group's device, and the
+    stats need train.reduce_stats."""
+    group = parallel.one_process(device) if group is None else group
+    device = group.device
     config = with_proposal(kernel_operating_point(flagship_config()), proposal, proposal_samples)
     config.batch_size = batch_size
     m = config.model
@@ -185,8 +199,86 @@ def train_entry(
         config.lr_init = config.lr_final = constant_lr
         config.lr_delay_steps = 0
     host_batch = example_ray_batch(batch_size=batch_size)
+    local = parallel.shard_batch(host_batch, batch_size, group)
+    parallel.build_kernels(group)
     model = construct_model(config.model, host_batch, device)
     optimizer = make_optimizer(config, model)
-    state = create_train_state(config, model, optimizer)
-    step_fn = make_train_step(model, config, optimizer)
-    return step_fn, state, batch_to(host_batch, device)
+    state = parallel.replicate(create_train_state(config, model, optimizer), group)
+    step_fn = make_train_step(model, config, optimizer, group=group)
+    return step_fn, state, batch_to(local, device)
+
+
+def dryrun_config(n_ranks: int) -> Config:
+    """dryrun_multichip's config (__graft_entry__.py:131-144): the tiny
+    flagship at 32 rays a rank, compaction at capacity 0.5 once the batch
+    exceeds k's floor of 128, and a constant lr of 5e-3 so that 20 steps on
+    a fixed batch must descend."""
+    config = flagship_config(tiny=True)
+    config.batch_size = 32 * n_ranks
+    if config.batch_size > 128:
+        config.model.obj_ray_capacity = 0.5
+    config.lr_init = config.lr_final = 5e-3
+    config.lr_delay_steps = 0
+    return config
+
+
+DRYRUN_STEPS = 20
+
+
+def dryrun_rank(group: parallel.Group) -> dict:
+    """One rank of dryrun_multichip: DRYRUN_STEPS data-parallel steps that
+    must descend, then one eval chunk rendered over the group and held
+    against the same chunk rendered by this rank alone (rtol and atol
+    1e-5). Returns the losses, the step and the chunk's checksum."""
+    config = dryrun_config(group.size)
+    batch = example_ray_batch(batch_size=config.batch_size)
+    model = construct_model(config.model, batch, group.device)
+    optimizer = make_optimizer(config, model)
+    state = parallel.replicate(create_train_state(config, model, optimizer), group)
+    train_step = make_train_step(model, config, optimizer, group=group)
+    local = batch_to(parallel.shard_batch(batch, config.batch_size, group), group.device)
+    losses = []
+    for _ in range(DRYRUN_STEPS):
+        state, stats = train_step(state, local)
+        losses.append(float(reduce_stats(stats, config, group)["train/loss"]))
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"dryrun loss not finite: {losses}")
+    if state.step != DRYRUN_STEPS:
+        raise RuntimeError(f"dryrun ran {state.step} steps, not {DRYRUN_STEPS}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(
+            f"data-parallel optimization failed to descend: {losses[0]:.4f} -> {losses[-1]:.4f}"
+        )
+    # Eval parity: the per-ray forward has no cross-ray reduction but the
+    # compaction budget, so the chunk must not depend on how it was split.
+    args = (batch["rays"], batch["ext"], int(batch["ts"]), 10.0)
+    out_n = make_render_fn(model, config, group=group)(*args)
+    out_1 = make_render_fn(copy.deepcopy(model), config, group.device)(*args)
+    for k in ("rgb", "depth", "acc"):
+        np.testing.assert_allclose(
+            out_n[k].cpu().numpy(), out_1[k].cpu().numpy(), rtol=1e-5, atol=1e-5,
+            err_msg=f"eval '{k}' differs between {group.size} ranks and 1",
+        )
+    checksum = float(out_n["rgb"].double().sum())
+    return {"losses": losses, "step": state.step, "checksum": checksum}
+
+
+def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
+    """The data-parallel contract (__graft_entry__.dryrun_multichip): spawn
+    n_ranks ranks on localhost, each running dryrun_rank; prints the
+    checksum line and returns rank 0's result. On the CPU the ranks join
+    over gloo. On the card each rank takes its own card over NCCL where
+    there are n_ranks of them; with fewer they share cuda:0 over gloo
+    (NCCL refuses two ranks on one card)."""
+    device = resolve_device(device)
+    backend = None
+    if device.type == "cuda" and torch.cuda.device_count() < n_ranks:
+        device, backend = torch.device("cuda", 0), "gloo"
+    result = parallel.spawn(dryrun_rank, n_ranks, device=device, backend=backend)[0]
+    losses = result["losses"]
+    print(
+        f"dryrun_multichip({n_ranks}): {DRYRUN_STEPS} data-parallel train steps OK "
+        f"(loss {losses[0]:.4f} -> {losses[-1]:.4f}), eval chunk checksum "
+        f"{result['checksum']:.6f} matches the single-rank render"
+    )
+    return result

@@ -6,9 +6,13 @@ card -> image metrics and saved renders. SSIM and LPIPS run on the device;
 LPIPS (AlexNet) is optional: the `lpips` package where it is installed,
 else durf_tpu_torch.lpips on a local weights file.
 
+Under torchrun with --multihost every rank renders its 1/n of each chunk
+(train.make_render_fn) and rank 0 writes the outputs.
+
 Usage:
   python -m durf_tpu_torch.eval --data_dir=... --train_dir=... \
       --gin_file=configs/waymo_fast.gin [--out_dir=...] [--lpips] [--device cpu]
+  torchrun --nproc_per_node N -m durf_tpu_torch.eval --multihost ...
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from durf_tpu_torch import mathx, vis
+from durf_tpu_torch import mathx, parallel, vis
 from durf_tpu_torch.checkpoints import CheckpointManager
 from durf_tpu_torch.configs import Config, load_config
 from durf_tpu_torch.data import get_dataset
@@ -39,14 +43,16 @@ from durf_tpu_torch.train import (
 
 
 def restore_for_eval(config: Config, data_dir: str, train_dir: str, split: str = "test",
-                     device="cuda"):
+                     device="cuda", group: Optional[parallel.Group] = None):
     """The apps' bootstrap: the split's dataset, the model restored from the
     latest checkpoint in `train_dir`, its step, and the chunk renderer
-    (train.make_render_fn), on the card unless the caller asks for the CPU.
+    (train.make_render_fn; under a group each rank renders its part of
+    every chunk), on the card unless the caller asks for the CPU.
     The model is built from the train split's first batch, as training
     built it; `obj_ray_capacity` stays as the config sets it (-1, the
     gin files' auto mode, means no compaction at eval)."""
-    device = resolve_device(device)
+    group = parallel.one_process(device) if group is None else group
+    device = group.device
     dataset = get_dataset(split, data_dir, config)
     train_ds = get_dataset("train", data_dir, config)
     model = construct_model(config.model, train_ds.peek(), device, seed=TRAIN_SEED)
@@ -55,7 +61,7 @@ def restore_for_eval(config: Config, data_dir: str, train_dir: str, split: str =
         raise FileNotFoundError(f"no checkpoint found in {train_dir}")
     raw = ckpt.restore_raw()
     model.load_state_dict(raw["model"])
-    render_chunk = make_render_fn(model, config, device)
+    render_chunk = make_render_fn(model, config, device, group)
     return dataset, model, int(raw["step"]), render_chunk
 
 
@@ -101,16 +107,21 @@ def evaluate(
     log_fn=print,
     lpips_weights: Optional[str] = None,
     device="cuda",
+    group: Optional[parallel.Group] = None,
 ) -> dict:
     """Score every test view of the latest checkpoint (durf_tpu/eval.py:94-175):
     per-image psnr, ssim, LIDAR-masked depth_mse (and lpips), their means,
     avg_error with LPIPS, eval_rays_per_sec over the whole loop (metrics
     and file writes included) and the step. With `out_dir`, writes
     pred_/gt_/depth_%03d.png, depth_%03d.tiff (raw float32 metric depth)
-    and metrics.json."""
-    device = resolve_device(device)
+    and metrics.json. Under a group every rank renders its part of each
+    chunk and returns the summary; rank 0 alone logs and writes."""
+    group = parallel.one_process(device) if group is None else group
+    device = group.device
+    if not group.is_rank0:
+        log_fn, out_dir = (lambda *args, **kwargs: None), None
     dataset, _, step, render_chunk = restore_for_eval(config, data_dir, train_dir,
-                                                      device=device)
+                                                      device=device, group=group)
     alpha = float(make_alpha_schedule(config)(step))
     lpips = _lpips_fn(lpips_weights, device) if use_lpips else None
     if use_lpips and lpips is None:
@@ -199,14 +210,17 @@ def main(argv=None, log_fn=print) -> dict:
         "unavailable; also read from $DURF_LPIPS_WEIGHTS",
     )
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--multihost", action="store_true",
+                   help="render over the ranks torchrun starts (rank 0 writes)")
     args = p.parse_args(argv)
     config = load_config(args.gin_file, args.gin_param)
     if args.chunk is not None:
         config.chunk = args.chunk
-    return evaluate(
-        config, args.data_dir, args.train_dir, args.out_dir, args.lpips, log_fn=log_fn,
-        lpips_weights=args.lpips_weights, device=args.device,
-    )
+    with parallel.joined(args.multihost, args.device) as group:
+        return evaluate(
+            config, args.data_dir, args.train_dir, args.out_dir, args.lpips, log_fn=log_fn,
+            lpips_weights=args.lpips_weights, device=args.device, group=group,
+        )
 
 
 if __name__ == "__main__":

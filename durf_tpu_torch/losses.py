@@ -6,6 +6,16 @@ train_boxpose.py:67-252), with the same documented departures: the
 distortion regularizer defaults to the O(S) cumulative-sum form
 (`exact=True` gives the reference's O(S^2) form), and the box boost of the
 depth mask is computed per level.
+
+Under a data-parallel group (`group`, parallel.Group) each rank returns
+its contribution to the loss of the global batch, so that the sum over the
+ranks is the one-process loss and the sum of the ranks' gradients its
+gradient: ratio-of-sums losses divide by denominators summed over the
+group (all of a step's in one all-reduce), batch means divide by the world
+size, sums stay as they are, terms that do not depend on the batch count
+on rank 0 alone, and the centering prior counts its global value once.
+One process is the group of one rank, for which all of that is the
+identity.
 """
 
 from __future__ import annotations
@@ -16,6 +26,7 @@ from typing import Any, Dict, List
 import torch
 
 from durf_tpu_torch import ops
+from durf_tpu_torch.parallel.group import Group
 
 
 def weight_l2(params) -> torch.Tensor:
@@ -65,26 +76,42 @@ def interlevel_loss(t_fine, w_fine, t_prop, w_prop, eps: float = 1e-6) -> torch.
     return (torch.clamp(w_fine - outer, min=0.0) ** 2 / (w_fine + eps)).mean()
 
 
+def near_target(t0_vals, gt_depth, depth_mask, eps):
+    """The 'near' loss's target before its peak normalization: (mask_near,
+    the samples within ±eps of the GT depth on valid-depth rays; a Gaussian
+    of width eps/3 around the GT depth, 1/(sigma sqrt(2 pi)) where
+    mask_near is 0). t0_vals: [B, S]; gt_depth, depth_mask: [B]."""
+    depth_t = gt_depth[..., None].expand(t0_vals.shape)
+    sigma = (eps / 3.0) ** 2
+    mask_near = ((t0_vals > depth_t - eps) & (t0_vals < depth_t + eps)).to(t0_vals.dtype)
+    mask_near = mask_near * depth_mask[..., None]
+    dist = mask_near * (t0_vals - depth_t)
+    distr = (1.0 / (sigma * math.sqrt(2 * math.pi))) * torch.exp(-(dist**2) / (2 * sigma**2))
+    return mask_near, distr
+
+
 def urf_depth_losses(weights, t0_vals, depth, gt_depth, depth_mask, eps):
     """URF LIDAR supervision (reference train_boxpose.py:155-175): depth
-    MSE, 'near' (a peak-normalized Gaussian of width eps/3 around the GT
-    depth inside ±eps) and 'empty' (weight beyond depth + eps), each
-    normalized by the number of valid-depth rays.
+    MSE, 'near' (near_target over its peak) and 'empty' (weight beyond
+    depth + eps), each normalized by the number of valid-depth rays.
 
     weights, t0_vals: [B, S]; depth, gt_depth, depth_mask: [B]; eps: float.
     Returns (depth_mse, near_loss, empty_loss).
     """
-    denom = torch.clamp(depth_mask.sum(), min=1.0)
-    depth_t = gt_depth[..., None].expand(t0_vals.shape)
-    sigma = (eps / 3.0) ** 2
+    target = near_target(t0_vals, gt_depth, depth_mask, eps)
+    totals = (depth_mask.sum(), target[1].max())
+    return _urf_losses(weights, t0_vals, depth, gt_depth, depth_mask, eps, target, totals)
 
-    mask_near = ((t0_vals > depth_t - eps) & (t0_vals < depth_t + eps)).to(weights.dtype)
-    mask_near = mask_near * depth_mask[..., None]
-    mask_empty = (t0_vals > depth_t + eps).to(weights.dtype) * depth_mask[..., None]
 
-    dist = mask_near * (t0_vals - depth_t)
-    distr = (1.0 / (sigma * math.sqrt(2 * math.pi))) * torch.exp(-(dist**2) / (2 * sigma**2))
-    distr = distr / distr.max()
+def _urf_losses(weights, t0_vals, depth, gt_depth, depth_mask, eps, target, totals):
+    """urf_depth_losses on near_target's `target` and `totals`, (the number
+    of valid-depth rays, the target's peak): the batch's, or under a group
+    the global batch's (compute_losses)."""
+    mask_near, distr = target
+    count, peak = totals
+    denom = torch.clamp(count, min=1.0)
+    mask_empty = (t0_vals > gt_depth[..., None] + eps).to(weights.dtype) * depth_mask[..., None]
+    distr = distr / peak
     distr = distr * mask_near
 
     near_loss = ((mask_near * weights - distr) ** 2).sum() / denom
@@ -93,22 +120,25 @@ def urf_depth_losses(weights, t0_vals, depth, gt_depth, depth_mask, eps):
     return depth_mse, near_loss, empty_loss
 
 
-def sky_loss(depth, sky_mask, gt_sky) -> torch.Tensor:
+def sky_loss(depth, sky_mask, gt_sky, count=None) -> torch.Tensor:
     """sky_depth = 1 - 1/max(depth, 1) on sky rays, regressed to the
-    dataset's sky constant (reference train_boxpose.py:186-189)."""
-    denom = torch.clamp(sky_mask.sum(), min=1.0)
+    dataset's sky constant (reference train_boxpose.py:186-189), over the
+    number of sky rays: this batch's by default, the global batch's from
+    compute_losses."""
+    denom = torch.clamp(sky_mask.sum() if count is None else count, min=1.0)
     sky_depth = sky_mask * (1.0 - (1.0 / torch.clamp(sky_mask * depth, min=1.0)))
     return ((sky_mask * (sky_depth - gt_sky)) ** 2).sum() / denom
 
 
-def box_surface_loss(rays, gt_depth, pose, rot, ext, margin: float, inst=None, obj_ids=None):
+def box_surface_loss(rays, gt_depth, pose, rot, ext, margin: float, inst=None, obj_ids=None,
+                     group: Group = Group()):
     """Depth-point-to-box-surface pose prior (Config.box_surface_loss_mult;
     durf_tpu/losses.py:162-223): LIDAR points o + d * t_gt mapped into each
     object's frame at the optimized pose; points within `margin` of the box
     surface are regressed onto it by the squared box SDF. With `inst` [B, 1]
     and `obj_ids` [N_obj] only rays whose instance id matches the object
     are kept. Returns the mean squared SDF over kept points, summed over
-    objects."""
+    objects (under a group, over the global batch's kept points)."""
     p = rays.origins + rays.directions * gt_depth[:, None]  # [B, 3]
     rmat = ops.axis_angle_to_matrix(rot)  # [N_obj, 3, 3] world->object
     x = torch.einsum("oij,boj->boi", rmat, p[:, None, :] - pose[None, :, :])
@@ -120,7 +150,7 @@ def box_surface_loss(rays, gt_depth, pose, rot, ext, margin: float, inst=None, o
     if inst is not None and obj_ids is not None:
         keep = keep & (inst.reshape(-1, 1) == obj_ids[None, :])
     keep = keep.to(torch.float32)
-    per_obj = (keep * sdf**2).sum(dim=0) / torch.clamp(keep.sum(dim=0), min=1.0)
+    per_obj = (keep * sdf**2).sum(dim=0) / torch.clamp(group.all_sum(keep.sum(dim=0)), min=1.0)
     return per_obj.sum()
 
 
@@ -135,7 +165,8 @@ def _squeeze(t):
 
 
 def compute_losses(
-    config, levels: List[Dict[str, Any]], batch: Dict[str, Any], prev_pose, eps
+    config, levels: List[Dict[str, Any]], batch: Dict[str, Any], prev_pose, eps,
+    group: Group = Group(),
 ):
     """The full per-level loss stack (durf_tpu/losses.py:226-419).
 
@@ -147,10 +178,14 @@ def compute_losses(
         'obj_ids'.
       prev_pose: [N_obj, 6] pose of the adjacent timestep (pose TV).
       eps: the URF window half-width of this step.
+      group: the data-parallel group (parallel.Group) whose rank holds this
+        batch, one process by default; see the module docstring.
 
     Returns (total, aux): aux holds [num_levels] tensors per loss key, the
     box-surface and interlevel scalars and the first ray's sampling
-    histogram (viz_t_vals, viz_weights).
+    histogram (viz_t_vals, viz_weights). Under a group, total and aux are
+    this rank's contributions: summed over the ranks they are the global
+    batch's.
     """
     rays = batch["rays"]
     pixels = batch["pixels"][..., :3]
@@ -164,8 +199,27 @@ def compute_losses(
     sky_valid = (gt_sky > 0.0).to(torch.float32)
     sky_valid = sky_valid - depth_valid * sky_valid  # LIDAR wins on overlap
 
-    per_level: Dict[str, list] = {k: [] for k in _PER_LEVEL}
+    # Every level's masks and 'near' target first, so that the counts the
+    # losses divide by and the targets' peaks are reduced over the group
+    # in one all-reduce each.
+    box_masks, depth_masks, targets = [], [], []
     for level in levels:
+        box_mask = (gt_depth < level["z_out"]).to(torch.float32)
+        depth_mask = depth_valid + config.box_loss_mult * level["dyn_mask"].squeeze(-1) * box_mask
+        box_masks.append(box_mask)
+        depth_masks.append(depth_mask)
+        targets.append(near_target(level["t_vals"][:, :-1], gt_depth, depth_mask, eps))
+    n = len(levels)
+    counts = group.all_sum(torch.stack(
+        [mask.sum(), sky_valid.sum()] + [m.sum() for m in depth_masks]
+        + [lv["dyn_mask"].sum() for lv in levels]
+    ))
+    rgb_count, sky_count = counts[0], counts[1]
+    depth_counts, dyn_counts = counts[2 : 2 + n], counts[2 + n :]
+    peaks = group.all_max(torch.stack([distr.max() for _, distr in targets]))
+
+    per_level: Dict[str, list] = {k: [] for k in _PER_LEVEL}
+    for i, level in enumerate(levels):
         rgb, depth, weights = level["rgb"], level["depth"], level["weights"]
         t0_vals = level["t_vals"][:, :-1]
         dyn_mask = level["dyn_mask"]  # [B, 1]
@@ -174,32 +228,35 @@ def compute_losses(
         target = batch.get("target")
         if target is None:  # static scene: diagnostics against zero
             target = torch.zeros((pose.shape[0], 6), dtype=pose.dtype, device=pose.device)
-        per_level["offset"].append(((pose - target[:, :3]) ** 2).sum())
-        per_level["offset_x"].append(((pose[:, 0] - target[:, 0]) ** 2).sum())
-        per_level["offset_y"].append(((pose[:, 1] - target[:, 1]) ** 2).sum())
-        per_level["offset_z"].append(((pose[:, 2] - target[:, 2]) ** 2).sum())
-        per_level["offset_yaw"].append(((rot - target[:, 3:]) ** 2).sum())
-        per_level["tv"].append(((pose - prev_pose[:, :3]) ** 2).sum())
-        per_level["centering"].append(
-            (level["obj_centroid"] ** 2).sum() if "obj_centroid" in level else rgb.new_zeros(())
-        )
-
-        box_mask = (gt_depth < level["z_out"]).to(torch.float32)
-        depth_mask = depth_valid + config.box_loss_mult * dyn_mask.squeeze(-1) * box_mask
+        per_level["offset"].append(group.on_rank0(((pose - target[:, :3]) ** 2).sum()))
+        per_level["offset_x"].append(group.on_rank0(((pose[:, 0] - target[:, 0]) ** 2).sum()))
+        per_level["offset_y"].append(group.on_rank0(((pose[:, 1] - target[:, 1]) ** 2).sum()))
+        per_level["offset_z"].append(group.on_rank0(((pose[:, 2] - target[:, 2]) ** 2).sum()))
+        per_level["offset_yaw"].append(group.on_rank0(((rot - target[:, 3:]) ** 2).sum()))
+        per_level["tv"].append(group.on_rank0(((pose - prev_pose[:, :3]) ** 2).sum()))
+        if "obj_centroid" in level:
+            # The global centroid on every rank (models/mipnerf.py), its
+            # value counted once, its gradient from every rank's samples.
+            per_level["centering"].append(group.once((level["obj_centroid"] ** 2).sum()))
+        else:
+            per_level["centering"].append(rgb.new_zeros(()))
 
         per_level["distortion"].append(
             distortion_loss(weights, level["t_mids"], level["t_dists"], config.exact_distortion)
         )
-        d_mse, near_l, empty_l = urf_depth_losses(weights, t0_vals, depth, gt_depth, depth_mask, eps)
+        d_mse, near_l, empty_l = _urf_losses(
+            weights, t0_vals, depth, gt_depth, depth_masks[i], eps, targets[i],
+            (depth_counts[i], peaks[i]),
+        )
         per_level["depth"].append(d_mse)
         per_level["near"].append(near_l)
         per_level["empty"].append(empty_l)
-        per_level["sky"].append(sky_loss(depth, sky_valid, gt_sky))
+        per_level["sky"].append(sky_loss(depth, sky_valid, gt_sky, sky_count))
 
-        rgb_weight = mask + config.box_loss_mult * dyn_mask * box_mask[..., None]
-        per_level["rgb"].append((rgb_weight * (rgb - pixels) ** 2).sum() / mask.sum())
+        rgb_weight = mask + config.box_loss_mult * dyn_mask * box_masks[i][..., None]
+        per_level["rgb"].append((rgb_weight * (rgb - pixels) ** 2).sum() / rgb_count)
         per_level["obj_rgb"].append(
-            (dyn_mask * (rgb - pixels) ** 2).sum() / torch.clamp(dyn_mask.sum(), min=1e-8)
+            (dyn_mask * (rgb - pixels) ** 2).sum() / torch.clamp(dyn_counts[i], min=1e-8)
         )
 
     ext = batch.get("ext")
@@ -207,6 +264,7 @@ def compute_losses(
         surface = box_surface_loss(
             rays, gt_depth, levels[-1]["pose"], levels[-1]["rot"], ext,
             config.box_surface_margin, inst=batch.get("inst"), obj_ids=batch.get("obj_ids"),
+            group=group,
         )
     else:
         surface = levels[-1]["rgb"].new_zeros(())
@@ -233,7 +291,7 @@ def compute_losses(
         aux["interlevel"] = torch.stack([
             interlevel_loss(final["t_vals"], final["weights"], lv["t_vals"], lv["weights"])
             for lv in levels[:-1]
-        ]).sum()
+        ]).sum() / group.size  # a batch mean over equal shards
     else:
         aux["interlevel"] = surface.new_zeros(())
 

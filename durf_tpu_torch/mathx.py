@@ -8,11 +8,41 @@ so a step's learning rate is known before its update is launched.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
 _TRIG_PERIOD = 100.0 * math.pi
 _F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+@dataclass(frozen=True)
+class RowShard:
+    """A step's random stream on data-parallel rank `rank` of `size`
+    (parallel/): `draw` draws each
+    tensor with a ray axis over the global batch and keeps this rank's
+    rows, so the ranks draw together exactly what one process draws, and no
+    two ranks share a ray's jitter. Every rank's generator advances alike."""
+
+    generator: torch.Generator
+    rank: int
+    size: int
+
+
+def draw(fn: Callable, shape, generator, dim: Optional[int] = 0, **kwargs) -> torch.Tensor:
+    """fn(shape, generator=generator, **kwargs) for torch.rand or
+    torch.randn. With a RowShard, axis `dim` of `shape` holds this rank's
+    rays: the global tensor is drawn and the rank's rows kept; `dim=None`
+    marks a draw without a ray axis, drawn whole."""
+    if not isinstance(generator, RowShard):
+        return fn(shape, generator=generator, **kwargs)
+    if dim is None:
+        return fn(shape, generator=generator.generator, **kwargs)
+    shape = list(shape)
+    n = shape[dim]
+    shape[dim] = n * generator.size
+    return fn(shape, generator=generator.generator, **kwargs).narrow(dim, generator.rank * n, n)
 
 
 def safe_norm(x: torch.Tensor, dim: int = -1, keepdim: bool = True) -> torch.Tensor:
@@ -138,8 +168,8 @@ def sorted_piecewise_constant_pdf(
     if randomized:
         s = 1.0 / num_samples
         if jitter is None:
-            jitter = torch.rand(
-                shape, generator=generator, dtype=cdf.dtype, device=cdf.device
+            jitter = draw(
+                torch.rand, shape, generator, dtype=cdf.dtype, device=cdf.device
             ) * (s - _F32_EPS)
         u = torch.arange(num_samples, dtype=cdf.dtype, device=cdf.device) * s + jitter
         u = torch.clamp(u, max=1.0 - _F32_EPS).contiguous()  # u in [0, 1)

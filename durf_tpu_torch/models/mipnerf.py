@@ -44,6 +44,8 @@ from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.models.mlp import NerfMLP, get_activation
 from durf_tpu_torch.ops import grid as gridops
 from durf_tpu_torch.ops.kernels import obj_mlp as k3
+from durf_tpu_torch.mathx import draw
+from durf_tpu_torch.parallel.group import Group
 from durf_tpu_torch.rays import Rays
 
 
@@ -101,8 +103,9 @@ class MipNerf(nn.Module):
         background: str = "gray",
         alpha=10.0,
         randomized: bool = False,
-        generator: torch.Generator | None = None,
+        generator=None,
         grid: torch.Tensor | None = None,
+        group: Group = Group(),
     ) -> List[Dict[str, Any]]:
         """Render a batch of rays (tensors [B, ...]).
 
@@ -113,9 +116,14 @@ class MipNerf(nn.Module):
           alpha: BARF frequency-annealing scalar.
           randomized: stratified jitter and density noise (training).
           generator: the source of every random draw (randomized, or the
-            random background), on the rays' device.
+            random background), on the rays' device: a torch.Generator, or
+            under a group a parallel.RowShard.
           grid: an [R, R, R] occupancy grid (ops.grid); with grid_sampling it
             drives level 0's sampling PDF.
+          group: the data-parallel group whose rank holds these rays, its
+            rows of the global batch (parallel.Group; one process by
+            default): compaction keeps the global batch's first k hit rays
+            and the centering readout is the global batch's.
 
         Returns one dict per level: rgb [B,3], depth [B], acc [B],
         weights [B,S], t_vals [B,S+1], t_mids [B,S], t_dists [B,S],
@@ -180,6 +188,18 @@ class MipNerf(nn.Module):
             else None
         )
 
+        if self.dynamic:
+            anyhit = hit.sum(dim=-1) > 0  # [B]
+            k_total = batch * group.size
+            k = obj_capacity_k(k_total, cfg.obj_ray_capacity)
+            if k < k_total:
+                # Exclusive prefix of the ranks' hit counts: this rank's
+                # j-th hit ray is the global batch's (prefix + j)-th, kept
+                # while that is below k, in min(B/n, k) slots.
+                counts = group.gather_rows(anyhit.sum().to(torch.float32)[None], group.size)
+                budget = k - counts[: group.rank].sum()
+                k = min(k, batch)
+
         ret: List[Dict[str, Any]] = []
         t_vals = weights = None
         for i_level in range(cfg.num_levels):
@@ -219,11 +239,9 @@ class MipNerf(nn.Module):
 
             level_out: Dict[str, Any] = {}
             if self.dynamic:
-                anyhit = hit.sum(dim=-1) > 0  # [B]
-                k = obj_capacity_k(batch, cfg.obj_ray_capacity)
-                if k < batch:
+                if k < k_total:
                     obj_rgbs, obj_densities = self._compacted_objects(
-                        mean, cov, viewdirs_enc, hit, anyhit, k, alpha, dtype
+                        mean, cov, viewdirs_enc, hit, anyhit, k, alpha, dtype, budget
                     )
                 else:
                     obj_rgbs, obj_densities = self._objects(
@@ -232,7 +250,7 @@ class MipNerf(nn.Module):
                 # The readout works on [3, B, S] planes.
                 planes = (lambda t: t) if self.cm else (lambda t: t.movedim(-1, 0))
                 level_out["obj_centroid"] = self._centroid(
-                    planes(mean), planes(obj_densities), hit, ext
+                    planes(mean), planes(obj_densities), hit, ext, group
                 )
                 level_out["obj_hit_rays"] = anyhit.sum().to(torch.float32)
                 # The background sees the complement mask, clamped at 0: a ray
@@ -271,9 +289,9 @@ class MipNerf(nn.Module):
                 raw_rgb = raw_rgb + obj_rgbs
                 raw_density = raw_density + obj_densities
             if randomized and cfg.density_noise > 0:
-                raw_density = raw_density + cfg.density_noise * torch.randn(
-                    raw_density.shape, generator=generator, dtype=raw_density.dtype,
-                    device=raw_density.device,
+                raw_density = raw_density + cfg.density_noise * draw(
+                    torch.randn, raw_density.shape, generator, dim=1 if self.cm else 0,
+                    dtype=raw_density.dtype, device=raw_density.device,
                 )
 
             rgb = get_activation(cfg.rgb_activation)(raw_rgb)
@@ -315,21 +333,27 @@ class MipNerf(nn.Module):
             )
         return ret
 
-    def _compacted_objects(self, mean, cov, viewdirs_enc, hit, anyhit, k, alpha, dtype):
+    def _compacted_objects(self, mean, cov, viewdirs_enc, hit, anyhit, k, alpha, dtype, budget):
         """Object-ray compaction (durf_tpu/models/mipnerf.py:394-446): the
         object pipeline on the k rays that come first when the rays hitting
         a box are sorted before the others, scattered back into zeros.
         Exact while the batch's hit count fits k (the other rays hit
         nothing); past it, the highest-indexed hit rays lose their object
         contribution. The sort is stable, so ties keep ray order, as
-        lax.top_k puts the lower index first."""
+        lax.top_k puts the lower index first. `budget` (a 0-d tensor) is
+        how many of this rank's hit rays fall among the global batch's
+        first k (k itself in one process): the slots past it get a zero hit
+        mask, so their rays lose their object contribution as in one
+        process."""
         idx = torch.sort(anyhit.to(torch.int32), descending=True, stable=True).indices[:k]
         ax = 1 if self.cm else 0  # the ray axis of the samples and outputs
+        slots = torch.arange(k, device=hit.device)
+        hit_c = hit.index_select(0, idx) * (slots < budget).to(hit.dtype)[:, None]
         rgb_c, den_c = self._objects(
             mean.index_select(ax, idx),
             cov.index_select(ax, idx),
             None if viewdirs_enc is None else viewdirs_enc.index_select(0, idx),
-            hit.index_select(0, idx),
+            hit_c,
             alpha,
             dtype,
         )
@@ -414,7 +438,7 @@ class MipNerf(nn.Module):
             return t_vals, ops.cast_rays_cm(t_vals, origins_s, dirs_s, radii, cfg.ray_shape)
         return t_vals, ops.cast_rays(t_vals, origins_s, dirs_s, radii, cfg.ray_shape, self.diag)
 
-    def _centroid(self, mean, obj_densities, hit, ext):
+    def _centroid(self, mean, obj_densities, hit, ext, group: Group):
         """The object-centering readout [N_obj, 3] (durf_tpu/models/
         mipnerf.py:448-524): per object, the centre of its occupied
         canonical samples. Box-hitting rays sample in the object frame, so
@@ -423,7 +447,13 @@ class MipNerf(nn.Module):
         the centering loss moves the pose, never the field. 'mean': the
         density-weighted mean. 'midrange': the midpoint of a smooth max and
         min per axis over occupancy saturated at centering_tau, 0 for an
-        object with no occupied sample in the batch."""
+        object with no occupied sample in the batch.
+
+        Under a group the readout is the global batch's: the ranks' partial
+        sums (mean) or partial log-sum-exps (midrange) are gathered with
+        this rank's own live (parallel.Group.gather_live), so every rank
+        holds the global value and its gradient reaches this rank's
+        samples exactly."""
         cfg = self.config
         x32 = mean.float()  # [3, B, S]
         n_obj = hit.shape[1]
@@ -433,7 +463,9 @@ class MipNerf(nn.Module):
         if cfg.centering_mode == "mean":
             w = sigma.detach()[None] * mask
             num = torch.einsum("obs,cbs->oc", w, x32)
-            return num / (w.sum(dim=(1, 2))[:, None] + 1e-6)
+            den = w.sum(dim=(1, 2))[:, None]
+            sums = group.gather_live(torch.cat([num, den], dim=1)).sum(dim=0)
+            return sums[:, :3] / (sums[:, 3:] + 1e-6)
         if cfg.centering_mode == "midrange":
             beta, tau = cfg.centering_beta, cfg.centering_tau
             w_occ = (torch.clamp(sigma, max=tau) / tau).detach()[None] * mask
@@ -442,10 +474,15 @@ class MipNerf(nn.Module):
             xo = x32.reshape(1, 3, -1)
             hi = torch.logsumexp(beta * xo + logw, dim=-1)
             lo = torch.logsumexp(-beta * xo + logw, dim=-1)
+            occ = w_occ.sum(dim=(1, 2))
+            parts = group.gather_live(torch.cat([hi, lo, occ[:, None]], dim=1))
+            hi = torch.logsumexp(parts[..., :3], dim=0)
+            lo = torch.logsumexp(parts[..., 3:6], dim=0)
+            occ = parts[..., 6].sum(dim=0)
             mid = (hi - lo) / (2.0 * beta)
             # An object with no occupied sample: every logw is -1e9 and mid
             # would be the midrange of all its canonical samples.
-            occupied = w_occ.sum(dim=(1, 2)) > 0.0
+            occupied = occ > 0.0
             return torch.where(occupied[:, None], mid, torch.zeros_like(mid))
         raise ValueError(f"unknown centering_mode {cfg.centering_mode!r}")
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from durf_tpu_torch.mathx import draw
+
 
 def compute_weights(density: torch.Tensor, t_vals: torch.Tensor, dirs: torch.Tensor):
     """Compositing weights w_i = alpha_i * T_i.
@@ -49,8 +51,9 @@ def _background(comp_rgb, acc, background, generator, bg_color):
         return comp_rgb + 0.5 * residual
     if background == "random":
         if bg_color is None:
-            bg_color = torch.rand(
-                (1, 3), generator=generator, dtype=comp_rgb.dtype, device=comp_rgb.device
+            bg_color = draw(
+                torch.rand, (1, 3), generator, dim=None, dtype=comp_rgb.dtype,
+                device=comp_rgb.device,
             )
         return comp_rgb + bg_color * residual
     if background != "black":

@@ -70,8 +70,8 @@ def sample_along_rays(
         upper = torch.cat([mids, t_vals[..., -1:]], dim=-1)
         lower = torch.cat([t_vals[..., :1], mids], dim=-1)
         if t_rand is None:
-            t_rand = torch.rand(
-                (batch_size, num_samples + 1), generator=generator,
+            t_rand = mathx.draw(
+                torch.rand, (batch_size, num_samples + 1), generator,
                 dtype=origins.dtype, device=origins.device,
             )
         t_vals = lower + (upper - lower) * t_rand

@@ -5,7 +5,7 @@ card.
         [--proposal]
     python -m durf_tpu_torch.profile --train [--steps 3] [--top 25]
         [--obj_capacity 0.0625] [--no-fused_objects] [--proposal [--proposal_samples N]]
-        [--grid_sampling] [--no-coord_major] [--no-diag_covariance]
+        [--grid_sampling] [--no-coord_major] [--no-diag_covariance] [--one_rank_group]
 
 Render mode renders 8192-ray chunks of the flagship model at the kernel
 operating point (the chip_smoke.py slice: random weights from seed 0, a
@@ -18,22 +18,26 @@ takes the per-object route (K1/K2 once per object instead of K3/K4);
 positive). In train mode --grid_sampling samples level 0 from the occupancy
 grid (bench.py --grid_sampling), --no-coord_major takes row-major samples
 and --no-diag_covariance the full covariance (both on the per-object
-route). Either runs under torch.profiler, then prints the device-time
-table by kernel and one JSON line: ms per unit (host clock, synchronized),
+route), and --one_rank_group takes the data-parallel group path of a
+one-rank NCCL group that this process forms on localhost (parallel/).
+Either runs under torch.profiler, then prints the device-time table by
+kernel, the host-time table by operation, and one JSON line: ms per unit (host clock, synchronized),
 device busy ms per unit, the idle share, device ms per unit of each
 hand-written kernel and of everything else, K2's and K4's device ms split by
 their launches (tile kernel, weight gradients, their reduction, the per-ray
 sums), K1's and K2's launches and tile-kernel device ms per unit split by
 width (256/128 and 128/128, by the kernel each build launches), the share of
-(tile, object) pairs K3 and K4 ran, the device operations (kernels, copies)
-and the host's synchronizations with the card per unit. A unit is a chunk
-or a step.
+(tile, object) pairs K3 and K4 ran, the device operations (kernels, copies),
+the host's synchronizations with the card and the collectives per unit. A
+unit is a chunk or a step.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
+import os
 import time
 
 # Kernel symbols of each hand-written kernel. K2, K4 and K6 run four
@@ -153,14 +157,24 @@ def main(argv=None) -> None:
                         "row-major)")
     p.add_argument("--diag_covariance", action=argparse.BooleanOptionalAction, default=True,
                    help="diagonal covariance in the training step (--no-diag_covariance: full)")
+    p.add_argument("--one_rank_group", action="store_true",
+                   help="the training step's data-parallel group path, on a one-rank NCCL group")
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
+    group = None
+    if args.one_rank_group:
+        from durf_tpu_torch import parallel
+
+        os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(parallel.mesh.free_port()))
+        group = parallel.init_group(dev)
+        atexit.register(torch.distributed.destroy_process_group)
     if args.train:
         one = _train_unit(dev, obj_capacity=args.obj_capacity, fused_objects=args.fused_objects,
                           proposal=args.proposal, proposal_samples=args.proposal_samples,
                           grid_sampling=args.grid_sampling, coord_major=args.coord_major,
-                          diag_covariance=args.diag_covariance)
+                          diag_covariance=args.diag_covariance, group=group)
     else:
         one = _render_unit(dev, args.fused_objects, args.proposal)
     units = args.steps if args.train else args.chunks
@@ -178,17 +192,20 @@ def main(argv=None) -> None:
     k3.pair_log = None
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=args.top))
+    print(events.table(sort_by="self_cpu_time_total", row_limit=args.top))
 
     groups = {g: 0.0 for g, _ in GROUPS}
     groups["other"] = 0.0
     parts = {k: {p: 0.0 for p, _ in keys} for k, keys in PARTS.items()}
     by_width = {k: {w: [0, 0.0] for w, _ in keys} for k, keys in WIDTHS.items()}
-    n_device = n_sync = 0
+    n_device = n_sync = n_collective = 0
     for evt in events:
         us = _device_us(evt)
         n_device += evt.count if us > 0 else 0
         if us == 0 and evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
             n_sync += evt.count
+        if us == 0 and evt.key.startswith("c10d::"):
+            n_collective += evt.count
         groups[group_of(evt.key)] += us
         for k, keys in PARTS.items():
             part = next((p for p, key in keys if key in evt.key), None)
@@ -221,6 +238,8 @@ def main(argv=None) -> None:
                 # Host waits for the card (copies from pageable memory, and
                 # the synchronize that ends the timed window).
                 f"host_syncs_per_{unit}": n_sync / units,
+                "one_rank_group": args.one_rank_group,
+                f"collectives_per_{unit}": n_collective / units,
                 f"device_ms_per_{unit}": {k: v / 1e3 / units for k, v in groups.items()},
                 **{
                     f"{k.lower()}_device_ms_per_{unit}": {p: v / 1e3 / units for p, v in ps.items()}

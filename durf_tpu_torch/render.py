@@ -10,10 +10,14 @@ Paths:
 
 Writes frame_%04d.png, depth_%04d.png and trajectory.gif.
 
+Under torchrun with --multihost every rank renders its 1/n of each chunk
+(train.make_render_fn) and rank 0 writes the frames.
+
 Usage:
   python -m durf_tpu_torch.render --data_dir=... --train_dir=... \
       --gin_file=configs/waymo_fast.gin --out_dir=frames/ --path spiral \
       --n_views 60 [--device cpu]
+  torchrun --nproc_per_node N -m durf_tpu_torch.render --multihost ...
 """
 
 from __future__ import annotations
@@ -25,11 +29,10 @@ import time
 import numpy as np
 import torch
 
-from durf_tpu_torch import vis
+from durf_tpu_torch import parallel, vis
 from durf_tpu_torch.configs import load_config
 from durf_tpu_torch.data.format import to_uint8, write_gif, write_png
 from durf_tpu_torch.data.paths import interpolate_poses, spherical_path, spiral_path
-from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.eval import restore_for_eval
 from durf_tpu_torch.models.mipnerf import render_image
 from durf_tpu_torch.rays import camera_rays
@@ -48,18 +51,24 @@ def render_trajectory(
     save_gif: bool = True,
     log_fn=print,
     device="cuda",
+    group=None,
 ):
     """Render a camera path from the latest checkpoint on the card (unless
     the caller asks for the CPU); returns the frames, [H, W, 3] in [0, 1].
+    Under a group (parallel.Group) every rank renders its part of each
+    chunk; rank 0 alone logs and writes.
 
     With a trajectory's `box_poses`, each frame's boxes are written into row
     `timestep` of the model's pose table, and the checkpoint's table is put
     back when the call ends, also when a frame raises. (The JAX app passes
     them as `init_boxes`, which a restored model ignores, durf_tpu/render.py:
     83-86 against durf_tpu/models/mipnerf.py:130.)"""
-    device = resolve_device(device)
+    group = parallel.one_process(device) if group is None else group
+    device, writes = group.device, group.is_rank0
+    if not writes:
+        log_fn = lambda *args, **kwargs: None  # noqa: E731
     dataset, model, step, render_chunk = restore_for_eval(
-        config, data_dir, train_dir, split="render", device=device
+        config, data_dir, train_dir, split="render", device=device, group=group
     )
     scene = dataset.scene
     alpha = float(make_alpha_schedule(config)(step))
@@ -104,9 +113,10 @@ def render_trajectory(
             )
             frame = np.clip(out["rgb"], 0, 1)
             frames.append(frame)
-            write_png(os.path.join(out_dir, f"frame_{k:04d}.png"), to_uint8(frame))
-            write_png(os.path.join(out_dir, f"depth_{k:04d}.png"),
-                      to_uint8(vis.visualize_depth(out["depth"], out["acc"])))
+            if writes:
+                write_png(os.path.join(out_dir, f"frame_{k:04d}.png"), to_uint8(frame))
+                write_png(os.path.join(out_dir, f"depth_{k:04d}.png"),
+                          to_uint8(vis.visualize_depth(out["depth"], out["acc"])))
             log_fn(f"frame {k + 1}/{len(poses)}")
     finally:
         if table is not None:
@@ -117,7 +127,7 @@ def render_trajectory(
            f"{len(frames) / dt:.3f} frames/s, {len(frames) * width * height / dt:.1f} rays/s "
            f"(PNG writes included)")
 
-    if save_gif and frames:
+    if save_gif and frames and writes:
         t0 = time.perf_counter()
         write_gif(os.path.join(out_dir, "trajectory.gif"), [to_uint8(f) for f in frames],
                   duration_ms=80, loop=0)
@@ -141,22 +151,26 @@ def main(argv=None, log_fn=print):
     p.add_argument("--timestep", type=int, default=0)
     p.add_argument("--chunk", type=int, default=None)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--multihost", action="store_true",
+                   help="render over the ranks torchrun starts (rank 0 writes)")
     args = p.parse_args(argv)
     config = load_config(args.gin_file, args.gin_param)
     if args.chunk is not None:
         config.chunk = args.chunk
-    return render_trajectory(
-        config,
-        args.data_dir,
-        args.train_dir,
-        args.out_dir,
-        path=args.path,
-        n_views=args.n_views,
-        trajectory=args.trajectory,
-        timestep=args.timestep,
-        log_fn=log_fn,
-        device=args.device,
-    )
+    with parallel.joined(args.multihost, args.device) as group:
+        return render_trajectory(
+            config,
+            args.data_dir,
+            args.train_dir,
+            args.out_dir,
+            path=args.path,
+            n_views=args.n_views,
+            trajectory=args.trajectory,
+            timestep=args.timestep,
+            log_fn=log_fn,
+            device=args.device,
+            group=group,
+        )
 
 
 if __name__ == "__main__":

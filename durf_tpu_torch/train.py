@@ -15,12 +15,19 @@ folds the step into a key.
 auto-sized from the scene (`resolve_obj_capacity`), batches drawn on the
 card from device-resident pools (or the host prefetch thread), periodic
 logging, checkpoints, eval renders with PSNR and SSIM, and resume from the
-latest checkpoint. Not ported yet: multi-GPU training.
+latest checkpoint.
+
+Data-parallel training (`--multihost`, under torchrun): each rank trains
+on its rows of every global batch on cuda:LOCAL_RANK (gloo ranks on the
+CPU with --device cpu), the step's gradients summed over the ranks
+(parallel/); rank 0 alone writes checkpoints, metrics and images, and
+every rank restores.
 
 CLI:
   python -m durf_tpu_torch.train --data_dir=... --train_dir=... \
       --gin_file=configs/waymo_fast.gin [--gin_param='Config.x = 1' ...] \
       [--device cpu]
+  torchrun --nproc_per_node N -m durf_tpu_torch.train --multihost ...
 """
 
 from __future__ import annotations
@@ -36,12 +43,11 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from durf_tpu_torch import mathx, metrics, vis
+from durf_tpu_torch import mathx, metrics, parallel, vis
 from durf_tpu_torch.checkpoints import CheckpointManager
 from durf_tpu_torch.configs import Config, load_config
 from durf_tpu_torch.data import device_data, get_dataset
 from durf_tpu_torch.data.scene import max_hit_fraction
-from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.losses import compute_losses, weight_l2
 from durf_tpu_torch.models.mipnerf import MipNerf, construct_model, obj_capacity_k, render_image
 from durf_tpu_torch.ops import grid as gridops
@@ -198,20 +204,27 @@ def batch_to(batch: Dict[str, Any], device) -> Dict[str, Any]:
     return out
 
 
-def make_grad_fn(model: MipNerf, config: Config, seed: int = 1):
+def make_grad_fn(model: MipNerf, config: Config, seed: int = 1,
+                 group: parallel.Group = parallel.Group()):
     """fn(step, batch, grid=None) -> (loss, aux, grads): the loss of the
     step's randomized forward (level 0 sampled from `grid` under
     grid_sampling) and the raw gradient of every named parameter (zeros
     where the loss does not reach it), before any hygiene. Under
     grid_sampling aux also holds the last level's grid_positions and
-    grid_weights."""
+    grid_weights.
+
+    Under a group of several ranks `batch` is this rank's rows of the
+    global batch: loss and aux are the rank's contributions (summed over
+    the ranks, the global batch's; reduce_stats), the random draws the
+    global batch's rows (mathx.RowShard), and grads the raw gradient of the
+    global loss, summed over the ranks in one all-reduce."""
     eps_fn, alpha_fn = make_eps_schedule(config), make_alpha_schedule(config)
     dynamic = config.model.dynamics and model.dynamic
     background = background_mode(config)
 
     def grad_fn(step: int, batch: Dict[str, Any], grid: Optional[torch.Tensor] = None):
         device = batch["rays"].origins.device
-        gen = step_generator(seed, step, device)
+        gen = mathx.RowShard(step_generator(seed, step, device), group.rank, group.size)
         eps, alpha = eps_fn(step + 1), alpha_fn(step + 1)
         model.train()
         for p in model.parameters():
@@ -219,7 +232,7 @@ def make_grad_fn(model: MipNerf, config: Config, seed: int = 1):
         ts = batch.get("ts")
         out = model(
             batch["rays"], ext=batch.get("ext"), ts=ts, background=background, alpha=alpha,
-            randomized=config.randomized, generator=gen, grid=grid,
+            randomized=config.randomized, generator=gen, grid=grid, group=group,
         )
         if dynamic:
             # Previous-timestep pose for the TV loss, from the live table.
@@ -227,9 +240,9 @@ def make_grad_fn(model: MipNerf, config: Config, seed: int = 1):
             prev_pose = table[ts + 1 if ts == 0 else ts - 1]
         else:
             prev_pose = torch.zeros((out[0]["pose"].shape[0], 6), device=device)
-        total, aux = compute_losses(config, out, batch, prev_pose, eps)
+        total, aux = compute_losses(config, out, batch, prev_pose, eps, group)
         if config.weight_decay_mult > 0:
-            total = total + config.weight_decay_mult * weight_l2(model.parameters())
+            total = total + group.on_rank0(config.weight_decay_mult * weight_l2(model.parameters()))
         if dynamic:
             aux["obj_hit_rays"] = out[-1]["obj_hit_rays"]
         if config.model.grid_sampling:
@@ -242,16 +255,26 @@ def make_grad_fn(model: MipNerf, config: Config, seed: int = 1):
             n: p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in model.named_parameters()
         }
+        grads = dict(zip(grads, group.sum_flat(list(grads.values()))))
         return total.detach(), aux, grads
 
     return grad_fn
 
 
-def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, seed: int = 1):
+def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, seed: int = 1,
+                    group: parallel.Group = parallel.Group()):
     """fn(state, batch) -> (state, stats): one optimization step on a batch
     of device tensors (see batch_to). stats are 0-d tensors (arrays for the
-    'viz/' keys) on the device; nothing here waits for the card."""
-    grad_fn = make_grad_fn(model, config, seed)
+    'viz/' keys) on the device; nothing here waits for the card.
+
+    Under a group of several ranks `batch` is this rank's rows of the
+    global batch and every rank applies the same gradient, summed over the
+    ranks before the hygiene (as the JAX package scrubs and clips the
+    global gradient); the occupancy grid's update is followed by an
+    all-reduce MAX, which equals the update from the global batch. The
+    stats are then this rank's: reduce_stats makes them the global
+    batch's."""
+    grad_fn = make_grad_fn(model, config, seed, group)
     lr_fn = make_lr_schedule(config)
     eps_fn, alpha_fn = make_eps_schedule(config), make_alpha_schedule(config)
 
@@ -278,15 +301,11 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
                 state.grid, aux.pop("grid_positions"), aux.pop("grid_weights"),
                 decay=config.model.grid_decay,
             )
+            state.grid = group.all_max(state.grid)
         state.step = step + 1
 
-        psnrs = mathx.mse_to_psnr(aux["rgb"])
         stats = {
             "train/loss": loss,
-            "train/psnr": psnrs[-1],
-            "train/obj_psnr": torch.nan_to_num(
-                mathx.mse_to_psnr(aux["obj_rgb"][-1]), nan=0.0, posinf=0.0
-            ),
             "train/grad_norm": grad_norm,
             "train/grad_abs_max": grad_abs_max,
             "train/grad_norm_clipped": grad_norm_clipped,
@@ -295,7 +314,6 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
             "schedule/alpha": alpha_fn(step + 1),
         }
         for i in range(config.model.num_levels):
-            stats[f"train/psnr_level{i}"] = psnrs[i]
             for k in (
                 "rgb", "depth", "near", "empty", "sky", "distortion", "tv", "centering", "obj_rgb",
             ):
@@ -308,15 +326,46 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
         if config.model.use_proposal:
             stats["loss/interlevel"] = aux["interlevel"]
         if "obj_hit_rays" in aux:
-            # Compaction safety: rays over the obj_ray_capacity budget (> 0
-            # means object content was dropped this batch).
             stats["obj/hit_frac"] = aux["obj_hit_rays"] / config.batch_size
-            if config.model.obj_ray_capacity > 0.0:
-                k = obj_capacity_k(config.batch_size, config.model.obj_ray_capacity)
-                stats["obj/overflow_rays"] = torch.clamp(aux["obj_hit_rays"] - k, min=0.0)
-        return state, stats
+        return state, _derive_stats(stats, config)
 
     return train_step
+
+
+# Stats that are not sums over the batch: the gradient statistics and the
+# first ray's histograms are the same on every rank (rank 0's, for the
+# histograms), the rest are derived from sums by _derive_stats.
+_NOT_SUMMED = ("viz/", "train/grad", "train/psnr", "train/obj_psnr", "obj/overflow_rays")
+
+
+def _derive_stats(stats: Dict[str, Any], config: Config) -> Dict[str, Any]:
+    """`stats` with the stats derived from sums: the PSNRs from the rgb
+    losses and, from obj/hit_frac, the compaction safety
+    obj/overflow_rays (rays over the obj_ray_capacity budget: > 0 means
+    object content was dropped this batch)."""
+    levels = config.model.num_levels
+    psnrs = mathx.mse_to_psnr(torch.stack([stats[f"loss/rgb_{i}"] for i in range(levels)]))
+    stats["train/psnr"] = psnrs[-1]
+    stats["train/obj_psnr"] = torch.nan_to_num(
+        mathx.mse_to_psnr(stats[f"loss/obj_rgb_{levels - 1}"]), nan=0.0, posinf=0.0
+    )
+    for i in range(levels):
+        stats[f"train/psnr_level{i}"] = psnrs[i]
+    if "obj/hit_frac" in stats and config.model.obj_ray_capacity > 0.0:
+        hits = torch.round(stats["obj/hit_frac"] * config.batch_size)
+        k = obj_capacity_k(config.batch_size, config.model.obj_ray_capacity)
+        stats["obj/overflow_rays"] = torch.clamp(hits - k, min=0.0)
+    return stats
+
+
+def reduce_stats(stats: Dict[str, Any], config: Config, group: parallel.Group) -> Dict[str, Any]:
+    """The global batch's stats from a rank's train-step stats: the sums
+    over the batch summed over the group in one all-reduce, then the stats
+    derived from them. A collective every rank calls; the stats
+    themselves in one process."""
+    keys = [k for k, v in stats.items() if torch.is_tensor(v) and not k.startswith(_NOT_SUMMED)]
+    summed = group.all_sum(torch.stack([stats[k].float() for k in keys]))
+    return _derive_stats({**stats, **dict(zip(keys, summed.unbind()))}, config)
 
 
 def warn_obj_overflow(host_stats: dict, step: int, log_fn=print) -> bool:
@@ -335,23 +384,38 @@ def warn_obj_overflow(host_stats: dict, step: int, log_fn=print) -> bool:
     return False
 
 
-def make_render_fn(model: MipNerf, config: Config, device="cuda"):
+def make_render_fn(model: MipNerf, config: Config, device="cuda",
+                   group: Optional[parallel.Group] = None):
     """fn(rays, ext, ts, alpha) -> last-level {'rgb', 'depth', 'acc'} for a
     chunk of rays, without gradients, on `device` (the card unless the
-    caller asks for the CPU). Eval never composites a random background
-    (reference train_boxpose.py:388)."""
-    device = resolve_device(device)
+    caller asks for the CPU; under a group, the group's device). Eval never
+    composites a random background (reference train_boxpose.py:388).
+
+    Under a group each rank renders its 1/n of every chunk and the chunk is
+    gathered on every rank (durf_tpu/train.py:374-420): a collective, so
+    every rank renders every chunk."""
+    group = parallel.one_process(device) if group is None else group
+    device = group.device
     eval_background = "white" if config.white_bkgd else "gray"
     model = model.to(device).eval()
 
     def render_chunk(rays: Rays, ext, ts, alpha):
-        rays = rays.to(device)
+        n = rays.origins.shape[0]
+        if n % group.size != 0:
+            raise ValueError(
+                f"render chunk of {n} rays must divide process_count {group.size} "
+                f"(pad the chunk size)"
+            )
+        rows = group.rows(n)
+        rays = rays.map(lambda r: r[rows]).to(device)
         ext_t = None if ext is None else torch.as_tensor(ext, dtype=torch.float32, device=device)
         with torch.inference_mode():
             out = model(
-                rays, ext=ext_t, ts=ts, background=eval_background, alpha=alpha
+                rays, ext=ext_t, ts=ts, background=eval_background, alpha=alpha, group=group
             )[-1]
-        return {"rgb": out["rgb"], "depth": out["depth"], "acc": out["acc"]}
+        local = torch.cat([out["rgb"], out["depth"][:, None], out["acc"][:, None]], dim=1)
+        full = group.gather_rows(local, n)
+        return {"rgb": full[:, :3], "depth": full[:, 3], "acc": full[:, 4]}
 
     return render_chunk
 
@@ -411,11 +475,22 @@ def run_training(
     max_steps: Optional[int] = None,
     log_fn=print,
     device="cuda",
+    group: Optional[parallel.Group] = None,
 ) -> TrainState:
     """The training loop (durf_tpu/train.py:500-670), on the card unless the
     caller asks for the CPU. Resumes from the latest checkpoint in
-    `train_dir`; returns the final state."""
-    device = resolve_device(device)
+    `train_dir`; returns the final state.
+
+    Under a group every rank runs the loop on its rows of each global batch
+    (on the group's device), loads the scene and restores; rank 0's state
+    is broadcast after init and restore, and rank 0 alone logs and writes
+    checkpoints, metrics and images (the JAX loop's is_host0)."""
+    group = parallel.one_process(device) if group is None else group
+    device, rank0 = group.device, group.is_rank0
+    if not rank0:
+        log_fn = lambda *args, **kwargs: None  # noqa: E731
+    rows = group.rows(config.batch_size)  # the global batch must divide the world size
+    parallel.build_kernels(group)
     max_steps = config.max_steps if max_steps is None else max_steps
 
     t0 = time.perf_counter()
@@ -437,12 +512,12 @@ def run_training(
     optimizer = make_optimizer(config, model)
     state = create_train_state(config, model, optimizer)
     ckpt = CheckpointManager(train_dir, keep=config.checkpoint_keep)
-    state = ckpt.restore(state)
+    state = parallel.replicate(ckpt.restore(state), group)
     init_step = state.step
     if init_step > 0:
         log_fn(f"resumed from the checkpoint of step {init_step} in {train_dir}")
 
-    train_step = make_train_step(model, config, optimizer, seed=TRAIN_SEED)
+    train_step = make_train_step(model, config, optimizer, seed=TRAIN_SEED, group=group)
 
     # Device-resident fast path: the pools go to the device once and each
     # step draws its batch there (data/device_data.py); under c2f every
@@ -469,16 +544,17 @@ def run_training(
 
         def next_batch(step: int) -> Dict[str, Any]:
             return device_data.sample_batch_c2f(
-                pools, step, c2f_steps, SAMPLE_SEED, config.batch_size
+                pools, step, c2f_steps, SAMPLE_SEED, config.batch_size, rows
             )
     else:
-
+        # Every rank's prefetch thread draws the global batch from the
+        # shared seed; each keeps its rows.
         def next_batch(step: int) -> Dict[str, Any]:
-            return batch_to(next(dataset), device)
+            return batch_to(parallel.shard_batch(next(dataset), config.batch_size, group), device)
 
-    render_chunk = make_render_fn(model, config, device)
+    render_chunk = make_render_fn(model, config, device, group)
     alpha_fn = make_alpha_schedule(config)
-    writer = metrics.MetricsWriter(train_dir)
+    writer = metrics.MetricsWriter(train_dir) if rank0 else None
     throughput = metrics.Throughput(config.batch_size, config.model.samples_per_ray())
 
     # Periodic manual collection instead of ambient ones mid-step
@@ -497,6 +573,8 @@ def run_training(
                 gc.collect()
 
             if (step + 1) % config.print_every == 0:
+                stats = reduce_stats(stats, config, group)
+            if (step + 1) % config.print_every == 0 and rank0:
                 host_stats, viz = _host_stats(stats)
                 host_stats.update(throughput.report())
                 writer.scalars(step + 1, host_stats)
@@ -517,7 +595,7 @@ def run_training(
                 )
                 warn_obj_overflow(host_stats, step + 1, log_fn)
 
-            if (step + 1) % config.save_every == 0:
+            if (step + 1) % config.save_every == 0 and rank0:
                 ckpt.save(step + 1, state)
 
             if config.render_every > 0 and (step + 1) % config.render_every == 0:
@@ -526,6 +604,8 @@ def run_training(
                 out = evaluate_image(
                     render_chunk, test_case, float(alpha_fn(step + 1)), chunk=config.chunk
                 )
+                if not rank0:
+                    continue
                 pixels = test_case["pixels"]
                 psnr = float(mathx.mse_to_psnr(torch.tensor(((out["rgb"] - pixels) ** 2).mean())))
                 ssim = float(
@@ -552,10 +632,11 @@ def run_training(
                 throughput.reset()  # eval time is not training time
     finally:
         gc.enable()
-    if max_steps % config.save_every != 0 and ckpt.latest_step != max_steps:
-        ckpt.save(max_steps, state, force=True)
-    ckpt.wait()
-    writer.close()
+    if rank0:
+        if max_steps % config.save_every != 0 and ckpt.latest_step != max_steps:
+            ckpt.save(max_steps, state, force=True)
+        ckpt.wait()
+        writer.close()
     return state
 
 
@@ -571,11 +652,13 @@ def main(argv=None, log_fn=print) -> TrainState:
     p.add_argument("--chunk", type=int, default=None)
     p.add_argument("--render_every", type=int, default=None)
     p.add_argument("--max_steps", type=int, default=None)
-    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; a --multihost rank takes cuda:LOCAL_RANK) or 'cpu'")
     p.add_argument(
         "--multihost",
         action="store_true",
-        help="multi-host training: not ported (one process trains on one card)",
+        help="data-parallel training over the ranks torchrun starts (NCCL on the cards, "
+        "gloo with --device cpu)",
     )
     p.add_argument(
         "--profile_dir",
@@ -583,24 +666,22 @@ def main(argv=None, log_fn=print) -> TrainState:
         help="trace the run with torch.profiler and write trace.json here",
     )
     args = p.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-GPU training is not ported yet (ROADMAP queue 1 item 6)"
-        )
     config = load_config(args.gin_file, args.gin_param)
     if args.chunk is not None:
         config.chunk = args.chunk
     if args.render_every is not None:
         config.render_every = args.render_every
-    profiler = metrics.start_profiler(args.profile_dir) if args.profile_dir else None
-    try:
-        return run_training(
-            config, args.data_dir, args.train_dir, max_steps=args.max_steps, log_fn=log_fn,
-            device=args.device,
-        )
-    finally:
-        if profiler is not None:
-            metrics.stop_profiler(profiler, args.profile_dir)
+    with parallel.joined(args.multihost, args.device) as group:
+        trace = args.profile_dir and group.is_rank0
+        profiler = metrics.start_profiler(args.profile_dir) if trace else None
+        try:
+            return run_training(
+                config, args.data_dir, args.train_dir, max_steps=args.max_steps,
+                log_fn=log_fn, device=args.device, group=group,
+            )
+        finally:
+            if profiler is not None:
+                metrics.stop_profiler(profiler, args.profile_dir)
 
 
 if __name__ == "__main__":

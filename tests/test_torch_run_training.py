@@ -1,7 +1,8 @@
 """The port's training loop and CLI on a synthetic scene directory, on the
 CPU, at tests/test_train.py's tiny config: the loss falls, metrics.jsonl
 holds the JAX loop's keys, the sample-weight bars and eval images are
-written, the CLI parses (and trains from a gin file), --multihost raises;
+written, the CLI parses (and trains from a gin file), --multihost outside
+torchrun raises;
 one step on the scene's first host batch with weights bridged from JAX
 gives JAX's loss (float32, randomized=False, rtol 1e-5); compute_ssim and
 vis equal JAX's."""
@@ -136,9 +137,10 @@ def test_host_prefetch_path(scene_dir, tmp_path):
 def test_main_parses_the_cli(monkeypatch, tmp_path):
     seen = {}
 
-    def fake_run(config, data_dir, train_dir, max_steps=None, log_fn=print, device="cuda"):
+    def fake_run(config, data_dir, train_dir, max_steps=None, log_fn=print, device="cuda",
+                 group=None):
         seen.update(config=config, data_dir=data_dir, train_dir=train_dir,
-                    max_steps=max_steps, device=device)
+                    max_steps=max_steps, device=device, group=group)
         return "state"
 
     monkeypatch.setattr(ttrain, "run_training", fake_run)
@@ -154,6 +156,7 @@ def test_main_parses_the_cli(monkeypatch, tmp_path):
     cfg = seen["config"]
     assert (seen["data_dir"], seen["train_dir"], seen["max_steps"], seen["device"]) == (
         "D", "T", 5, "cpu")
+    assert (seen["group"].rank, seen["group"].size) == (0, 1)  # one process without --multihost
     assert (cfg.dataset_loader, cfg.batch_size, cfg.max_steps, cfg.print_every) == (
         "waymo", 512, 7, 2)
     assert (cfg.chunk, cfg.render_every, cfg.random_box) == (128, 3, True)
@@ -199,9 +202,13 @@ def test_main_trains_from_a_gin_file(scene_dir, tmp_path):
     assert [n for n in os.listdir(train_dir) if n.endswith(".pt")] == ["checkpoint_6.pt"]
 
 
-def test_multihost_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ttrain.main(["--data_dir", "D", "--train_dir", "T", "--multihost"])
+def test_multihost_raises(monkeypatch):
+    """--multihost outside a torchrun launch has no group to join (the
+    data-parallel runs: tests/test_torch_parallel.py)."""
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node N"):
+        ttrain.main(["--data_dir", "D", "--train_dir", "T", "--multihost", "--device", "cpu"])
 
 
 def test_first_step_matches_jax(scene_dir, jax_step):
