@@ -154,10 +154,28 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      line saying it did not run;
  21. `bench`: python -m durf_tpu_torch.bench --steps 10, its JSON line
      after the card's name and power limit;
- 22. a JSON line with every kernel's numbers (launches from the path that
+ 22. the converters (`tools`, tools/ and data/jpeg.py, data/resample.py):
+     every committed JPEG fixture (tests/data/jpeg/) decoded against PIL's
+     decode committed beside it (within 1 of 255, bitwise on the 4:4:4,
+     RGB and gray ones, the 1920x1280 one by the sha256 of its samples),
+     its largest |d| and bitwise share printed, and the 1920x1280 one's
+     decode ms per megapixel on the host; a CARLA capture of the synthetic
+     scene at Waymo's camera size (3 timesteps x 5 cameras of 1920x1280:
+     RGBA images, CARLA's 24-bit depth code, semantic tags with sky 13,
+     instance ids) written by a pool of threads, converted by `python -m
+     durf_tpu_torch.tools.carla_postprocess` at factor 4 and trained on by
+     train.main with configs/carla_dyn.gin at the kernel settings
+     (bfloat16, use_pallas_mlp) for 50 steps; 3 proto-shaped Waymo frames
+     whose 15 camera images are the 1920x1280 JPEG fixture, converted by
+     waymo_convert.convert_frames at factor 4 with tests/
+     test_waymo_convert.py's stub depth and trained on with
+     configs/waymo_fast.gin for 50 steps; each run K1-K4 levels x steps
+     launches and its loss falling; the conversion times and train rates
+     beside the card's name and power limit;
+ 23. a JSON line with every kernel's numbers (launches from the path that
      runs the kernel: K1-K4 the main path, K5/K6 phase 8, K1 and K2 at
      128/128 phase 16, with phase 12's, phase 17's, phase 18's, phase
-     19's and phase 20's, per rank and step, beside them; K3 and K4 timed
+     19's, phase 20's, per rank and step, and phase 22's beside them; K3 and K4 timed
      at the compacted step's shape, their bound that
      of the pairs that ran, with the dense bound, the pair share and the
      times at each hit share beside it), then the card's name and power
@@ -2310,8 +2328,321 @@ def check_bench(card):
     return line
 
 
+# The tools phase: a CARLA capture and Waymo-shaped frames at Waymo's camera
+# size (APP_SCENE's 1920x1280, 5 cameras a timestep), converted at factor 4
+# and trained on for TOOLS_STEPS steps each; TOOLS_TIMESTEPS is the fewest
+# the loaders' test splits allow (carla_dyn (10, 11), waymo (10, 12)). The
+# committed JPEG fixtures and PIL's decodes of them, and the one that is the
+# Waymo frames' camera image. CARLA's semantic tags and depth code.
+TOOLS_TIMESTEPS, TOOLS_STEPS = 3, 50
+TOOLS_PARAMS = dict(max_steps=TOOLS_STEPS, print_every=5, save_every=TOOLS_STEPS,
+                    render_every=0, lr_delay_steps=0)
+# A training run's loss falls when the mean of its last TOOLS_LOSS_MEAN
+# logged losses is below that of its first (one step's loss each).
+TOOLS_LOSS_MEAN = 3
+# configs/carla_dyn.gin keeps the reference's float32 plain MLPs; the phase
+# trains it at waymo_fast.gin's kernel settings.
+CARLA_KERNEL_PARAMS = ("MipNerfModel.compute_dtype = 'bfloat16'",
+                       "MipNerfModel.use_pallas_mlp = True")
+JPEG_FIXTURES = ("tests", "data", "jpeg")
+JPEG_LARGE = "waymo_1920x1280_q90_420.jpg"
+JPEG_TOL = 1
+JPEG_BITWISE = ("q85_444.jpg", "rgb_444.jpg", "gray.jpg", "progressive_gray.jpg")
+CARLA_SKY, CARLA_ROAD, CARLA_VEHICLE = 13, 7, 10
+CARLA_MAX_DEPTH = 1000.0
+
+
+def check_jpeg_fixtures(card):
+    """Every committed JPEG fixture decoded by data/jpeg.py against PIL's
+    decode committed beside it (within JPEG_TOL of 255, bitwise where no
+    chroma is upsampled; the large one by the sha256 of its samples), and
+    the large one's decode time per megapixel on this host."""
+    import hashlib
+    import os
+
+    import numpy as np
+
+    from durf_tpu_torch.data import jpeg
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), *JPEG_FIXTURES)
+    names = sorted(f for f in os.listdir(root) if f.endswith(".jpg"))
+    with np.load(os.path.join(root, "pil_decodes.npz")) as saved:
+        refs = {k: saved[k] for k in saved.files}
+    if len(names) != len(refs) or JPEG_LARGE not in names:
+        raise SystemExit(f"JPEG fixtures {names} do not match PIL's decodes {sorted(refs)}")
+    for name in names:
+        with open(os.path.join(root, name), "rb") as fh:
+            data = fh.read()
+        got = jpeg.decode_jpeg(data, name)
+        if name == JPEG_LARGE:
+            same = hashlib.sha256(got.tobytes()).hexdigest() == str(refs[name + ".sha256"])
+            print(f"tools: jpeg {name} {got.shape}: sha256 of the samples "
+                  f"{'equals' if same else 'differs from'} PIL's")
+            if not same:
+                raise SystemExit(f"{name}: the decode is not PIL's")
+            continue
+        ref = refs[name]
+        if got.shape != ref.shape:
+            raise SystemExit(f"{name}: decoded {got.shape}, PIL {ref.shape}")
+        diff = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+        share = float((diff == 0).mean())
+        print(f"tools: jpeg {name} {got.shape}: max |d| {int(diff.max())}, bitwise share "
+              f"{share:.6f}")
+        if diff.max() > JPEG_TOL or (name in JPEG_BITWISE and share != 1.0):
+            raise SystemExit(f"{name}: the decode is not within {JPEG_TOL} of PIL's")
+    with open(os.path.join(root, JPEG_LARGE), "rb") as fh:
+        data = fh.read()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        img = jpeg.decode_jpeg(data, JPEG_LARGE)
+        times.append(time.perf_counter() - t0)
+    mpix = img.shape[0] * img.shape[1] / 1e6
+    print(f"tools: jpeg decode of {JPEG_LARGE}: {statistics.median(times) * 1e3 / mpix:.1f} ms "
+          f"per megapixel (median of 3, {mpix:.3f} MP; host) ({card})")
+
+
+def carla_capture_view(capture, t, cam, frame, width, height, focal):
+    """Render camera `cam` at timestep `t` of the synthetic scene and write
+    it as CARLA's sensors would (an RGBA image, the 24-bit depth code,
+    semantic tags in red, instance ids in green and blue). Returns the 4x4
+    camera-to-world."""
+    import os
+
+    import numpy as np
+
+    from durf_tpu_torch.data import format as diskfmt
+    from durf_tpu_torch.data import synthetic
+
+    boxes = []
+    for obj in range(2):
+        center, yaw = synthetic.box_trajectory(obj, t, TOOLS_TIMESTEPS)
+        ext, color = synthetic.box_spec(obj)
+        boxes.append((center, yaw, ext, obj + 1, color))
+    c2w = np.concatenate([synthetic.camera_pose(cam, t), [[0, 0, 0, 1]]]).astype(np.float32)
+    rgb, depth, sky, inst = synthetic._render(c2w, width, height, focal, boxes)
+    h, w = depth.shape
+    alpha = np.full((h, w, 1), 255, np.uint8)
+    meters = np.where(sky > 0, CARLA_MAX_DEPTH, np.minimum(depth, CARLA_MAX_DEPTH))
+    code = np.round(meters / CARLA_MAX_DEPTH * (2**24 - 1)).astype(np.int64)
+    depth_rgb = np.stack([code % 256, code // 256 % 256, code // 65536], -1).astype(np.uint8)
+    tags = np.where(sky > 0, CARLA_SKY, np.where(inst > 0, CARLA_VEHICLE, CARLA_ROAD))
+    zero = np.zeros_like(inst)
+    out = {
+        "rgb": np.concatenate([(rgb * 255).astype(np.uint8), alpha], -1),
+        "depth": np.concatenate([depth_rgb, alpha], -1),
+        "sem": np.stack([tags, zero, zero], -1).astype(np.uint8),
+        "inst": np.stack([tags, inst % 256, inst // 256], -1).astype(np.uint8),
+    }
+    for kind, img in out.items():
+        diskfmt.write_png(os.path.join(capture, f"{frame}_{kind}{cam}.png"), img)
+    return c2w
+
+
+def write_carla_capture(capture):
+    """A CARLA capture of the synthetic scene (TOOLS_TIMESTEPS frames x 5
+    cameras at 1920x1280, vehicles 1 and 2 with half extents), the views
+    rendered by a pool of threads (numpy and zlib release the interpreter
+    lock in their loops). Returns seconds."""
+    import concurrent.futures
+    import os
+
+    import numpy as np
+
+    from durf_tpu_torch.data import synthetic
+
+    os.makedirs(capture)
+    frames = [f"{10 * (t + 1):08d}" for t in range(TOOLS_TIMESTEPS)]
+    poses = {f"hwf_{cam}": np.array([APP_SCENE["height"], APP_SCENE["width"], APP_SCENE["focal"]],
+                                    np.float32) for cam in range(5)}
+    jobs = [(t, cam, frame) for t, frame in enumerate(frames) for cam in range(5)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(min(len(jobs), os.cpu_count() or 1)) as pool:
+        size = (APP_SCENE["width"], APP_SCENE["height"], APP_SCENE["focal"])
+        futures = {job: pool.submit(carla_capture_view, capture, *job, *size) for job in jobs}
+        for (t, cam, frame), fut in futures.items():
+            poses[f"{frame}_{cam}"] = fut.result()
+    bboxes = {}
+    for t, frame in enumerate(frames):
+        bboxes[frame] = {}
+        for obj in range(2):
+            center, yaw = synthetic.box_trajectory(obj, t, TOOLS_TIMESTEPS)
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :3] = synthetic._yaw_matrix(yaw)
+            pose[:3, 3] = center
+            bboxes[frame][obj + 1] = {"center": pose, "extent": synthetic.box_spec(obj)[0]}
+    np.save(os.path.join(capture, "poses.npy"), poses, allow_pickle=True)
+    np.save(os.path.join(capture, "bboxes.npy"), bboxes, allow_pickle=True)
+    return time.perf_counter() - t0
+
+
+def waymo_frames(image: bytes):
+    """TOOLS_TIMESTEPS proto-shaped frames, as tests/test_waymo_convert.py's
+    make_frame builds them (ego driving +x, two movers and a slow vehicle,
+    five yawed cameras), at 1920x1280 with `image` (JPEG bytes) from every
+    camera."""
+    from types import SimpleNamespace as ns
+
+    import numpy as np
+
+    def pose(yaw, t):
+        c, s = np.cos(yaw), np.sin(yaw)
+        m = np.eye(4)
+        m[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+        m[:3, 3] = t
+        return list(m.reshape(-1))
+
+    w, h = APP_SCENE["width"], APP_SCENE["height"]
+    focal = 60.0 * w / 48  # make_frame's 60 px at 48 px wide
+    frames = []
+    for t in range(TOOLS_TIMESTEPS):
+        labels = [ns(id=tid, box=ns(center_x=8.0 + i + 0.5 * t, center_y=2.0 * i, center_z=0.8,
+                                    heading=0.3 * i, length=4.2, width=1.9, height=1.6),
+                     metadata=ns(speed_x=3.0, speed_y=2.0), type=1, TYPE_VEHICLE=1)
+                  for i, tid in enumerate(("a", "b"))]
+        labels.append(ns(id="s", box=ns(center_x=15.0, center_y=-3.0, center_z=0.8, heading=0.0,
+                                        length=4.0, width=2.0, height=1.5),
+                         metadata=ns(speed_x=0.5, speed_y=0.5), type=1, TYPE_VEHICLE=1))
+        calibs = [ns(name=cam, width=w, height=h,
+                     intrinsic=[focal, focal, w / 2, h / 2, 0, 0, 0, 0, 0],
+                     extrinsic=ns(transform=pose(0.3 * (cam - 1), [1.5, 0.2 * (cam - 3), 1.8])))
+                  for cam in range(1, 6)]
+        frames.append(ns(pose=ns(transform=pose(0.05 * t, [3.0 * t, 0.1 * t, 1.0])),
+                         laser_labels=labels, images=[ns(name=c, image=image) for c in range(1, 6)],
+                         context=ns(camera_calibrations=calibs)))
+    return frames
+
+
+def waymo_stub_depth(frame, factor, rig_index):
+    """tests/test_waymo_convert.py's stub LIDAR depth: returns in the lower
+    half of the image at 10 + the rig index."""
+    import numpy as np
+
+    calib = frame.context.camera_calibrations[0]
+    d = np.zeros((calib.height // factor, calib.width // factor), np.float32)
+    d[d.shape[0] // 2:, :] = 10.0 + rig_index
+    return d
+
+
+def loss_fell(losses) -> bool:
+    """Finite logged losses whose last TOOLS_LOSS_MEAN average below their
+    first TOOLS_LOSS_MEAN."""
+    n = TOOLS_LOSS_MEAN
+    return (len(losses) >= 2 * n and all(map(math.isfinite, losses))
+            and statistics.mean(losses[-n:]) < statistics.mean(losses[:n]))
+
+
+def tools_train(what, scene, train_dir, gin, dev, card, extra=()):
+    """train.main with `gin` (and the gin parameters `extra`) on a converted
+    scene for TOOLS_STEPS steps, the launch counts set to 0 just before and
+    read just after: K1-K4 on every step, the loss falling. Returns
+    (launches, K1/K2 by width)."""
+    import os
+
+    import torch
+
+    argv = ["--data_dir", scene, "--train_dir", train_dir, "--gin_file", gin,
+            "--max_steps", str(TOOLS_STEPS), "--device", str(dev)]
+    for p in [f"Config.{k} = {v}" for k, v in TOOLS_PARAMS.items()] + list(extra):
+        argv += ["--gin_param", p]
+    logs = []
+    torch.cuda.synchronize()
+    reset_launches()
+    state, secs = _train_cli(argv, logs)
+    torch.cuda.synchronize()
+    launches, widths = training_launches(), width_launches()
+    expect = state.config.model.num_levels * TOOLS_STEPS
+    losses = _app_logs(logs, "loss=")
+    lines = [json.loads(line) for line in open(os.path.join(train_dir, "metrics.jsonl"))]
+    perf = [line for line in lines if "perf/steps_per_sec" in line]
+    print(f"tools: {what}: {TOOLS_STEPS} steps of {os.path.basename(gin)} with {list(extra)} in "
+          f"{secs:.3f} s (load and upload included): launches {launches} (expected {expect} "
+          f"each), K1/K2 by width {widths}; loss {losses}")
+    for line in perf:
+        print(f"tools: {what}: train rate to step {line['step']}: {line['perf/steps_per_sec']} "
+              f"steps/s, {line['perf/rays_per_sec']} rays/s ({card})")
+    if any(v != expect for v in launches.values()):
+        raise SystemExit(f"tools: {what}: training did not launch K1-K4 on every step: {launches}")
+    if not loss_fell(losses):
+        raise SystemExit(f"tools: {what}: the loss did not fall: {losses}")
+    del state
+    torch.cuda.empty_cache()
+    return launches, widths
+
+
+def check_tools(dev, card):
+    """The converters on the card's machine (no PIL there): the JPEG
+    fixtures against PIL's committed decodes; a CARLA capture converted by
+    `python -m durf_tpu_torch.tools.carla_postprocess` and trained with
+    configs/carla_dyn.gin; Waymo-shaped frames with JPEG camera images
+    converted by waymo_convert.convert_frames and trained with
+    configs/waymo_fast.gin. Returns the two trainings' launches by kernel
+    (K1-128 and K2-128: the Waymo run's at 128/128)."""
+    import os
+    import pathlib
+    import shutil
+
+    from durf_tpu_torch.configs import Config
+    from durf_tpu_torch.data import load_scene
+    from durf_tpu_torch.tools import waymo_convert
+
+    t_phase = time.perf_counter()
+    here = pathlib.Path(__file__).resolve().parent
+    root = os.path.join(here, "build", "tools_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    check_jpeg_fixtures(card)
+
+    capture, carla = os.path.join(root, "capture"), os.path.join(root, "carla")
+    secs = write_carla_capture(capture)
+    print(f"tools: carla capture of {TOOLS_TIMESTEPS} x 5 views at {APP_SCENE['width']}x"
+          f"{APP_SCENE['height']} rendered and written in {secs:.3f} s")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "durf_tpu_torch.tools.carla_postprocess",
+                          "--capture_dir", capture, "--out_dir", carla, "--factors", "4"],
+                         cwd=here, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise SystemExit(f"carla_postprocess failed (exit {run.returncode}):\n{run.stdout}\n"
+                         f"{run.stderr}")
+    scene = load_scene(carla, Config(dataset_loader="carla_dyn", factor=4), "train")
+    print(f"tools: carla_postprocess: {secs:.3f} s with the process's start ({card}); scene "
+          f"{scene.n_examples} train images of {scene.images[0].shape}, objects "
+          f"{scene.obj_ids.tolist()}")
+    if scene.images[0].shape != (APP_SCENE["height"] // 4, APP_SCENE["width"] // 4, 3) or \
+            scene.obj_ids.tolist() != [1, 2]:
+        raise SystemExit("tools: the converted CARLA scene is not the capture's")
+    carla_launches, _ = tools_train("carla", carla, os.path.join(root, "carla_train"),
+                                    os.path.join(here, "configs", "carla_dyn.gin"), dev, card,
+                                    CARLA_KERNEL_PARAMS)
+
+    with open(os.path.join(here, *JPEG_FIXTURES, JPEG_LARGE), "rb") as fh:
+        image = fh.read()
+    waymo = os.path.join(root, "waymo")
+    t0 = time.perf_counter()
+    waymo_convert.convert_frames(waymo_frames(image), waymo, factors=(4,),
+                                 depth_fn=waymo_stub_depth)
+    secs = time.perf_counter() - t0
+    n_img = TOOLS_TIMESTEPS * 5
+    scene = load_scene(waymo, Config(dataset_loader="waymo", factor=4), "train")
+    print(f"tools: waymo convert_frames of {n_img} JPEG images at {APP_SCENE['width']}x"
+          f"{APP_SCENE['height']}: {secs:.3f} s, {secs / n_img * 1e3:.1f} ms an image ({card}); "
+          f"scene {scene.n_examples} train images of {scene.images[0].shape}, objects "
+          f"{scene.obj_ids.tolist()}")
+    if scene.images[0].shape != (APP_SCENE["height"] // 4, APP_SCENE["width"] // 4, 3) or \
+            len(scene.obj_ids) != 2:
+        raise SystemExit("tools: the converted Waymo scene is not the frames'")
+    waymo_launches, widths = tools_train("waymo", waymo, os.path.join(root, "waymo_train"),
+                                         os.path.join(here, "configs", "waymo_fast.gin"), dev,
+                                         card)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"tools: phase {time.perf_counter() - t_phase:.1f} s")
+    out = {k: carla_launches[k] + waymo_launches[k] for k in ("K1", "K2", "K3", "K4")}
+    out.update({"K1-128": widths["K1"].get("128/128", 0), "K2-128": widths["K2"].get("128/128", 0)})
+    return out
+
+
 PHASES = ("kernels", "gated", "slice", "train", "exact", "per_object", "centering", "descent",
-          "plain", "proposal", "app", "apps", "pipelines", "multigpu", "bench")
+          "plain", "proposal", "app", "apps", "pipelines", "multigpu", "bench", "tools")
 
 
 def main(argv=None) -> int:
@@ -2402,6 +2733,9 @@ def main(argv=None) -> int:
         multigpu = check_multigpu(dev, smi)
     if "bench" in only:
         check_bench(smi)
+    tools = {}
+    if "tools" in only:
+        tools = check_tools(dev, smi)
     if only != set(PHASES):
         print(f"chip_smoke: partial run ({sorted(only)}), no result line")
         return 0
@@ -2433,7 +2767,8 @@ def main(argv=None) -> int:
              **({"pipelines_launches": pipelines[k]} if k in pipelines else {}),
              **({"multigpu_launches_per_rank_step": multigpu[k]} if k in multigpu else {}),
              **({"app_launches": app[k]} if k in app else {}),
-             **({"apps_launches": apps[k]} if k in apps else {}))
+             **({"apps_launches": apps[k]} if k in apps else {}),
+             **({"tools_launches": tools[k]} if k in tools else {}))
         for k, (name, src, site) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

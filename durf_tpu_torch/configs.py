@@ -9,6 +9,7 @@ comments, tuples) without the gin dependency.
 from __future__ import annotations
 
 import ast
+import dataclasses
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Tuple
@@ -277,3 +278,7 @@ def load_config(gin_files=(), bindings=(), base: Config | None = None) -> Config
     parse_gin_lines(config, bindings)
     return config
 
+
+def config_to_dict(config) -> dict:
+    """Recursive dataclass -> dict (for checkpoint metadata / logging)."""
+    return dataclasses.asdict(config)

@@ -9,11 +9,14 @@ A scene directory holds:
   sky_masks.npz             arr_0: per-image [H, W] binary sky masks
   2D_boxes.npz              arr_0: per-image [H, W] integer instance-id masks
 
-Images are read and written by `read_png` / `write_png`, built on the
+Images are read by `read_image`, which takes PNG through `read_png` and
+JPEG through `data.jpeg`, and written by `write_png`, all built on the
 standard library's zlib and numpy: the port needs no imaging package. The
-reader takes what PIL writes (8-bit gray, gray+alpha, RGB and RGBA,
-non-interlaced, every row filter); anything else (JPEG, 16-bit, palette,
-interlaced) raises a ValueError that names the file. The apps' other
+PNG reader takes what PIL writes (8-bit gray, gray+alpha, RGB and RGBA,
+non-interlaced, every row filter); the JPEG decoder takes baseline,
+extended and progressive Huffman JPEG (its docstring lists what it
+refuses). Anything else (16-bit or palette PNG, interlacing, arithmetic
+coding, CMYK) raises a ValueError that names the file. The apps' other
 outputs are written the same way: float32 depth as TIFF
 (`write_tiff_float32`) and trajectories as animated GIF (`write_gif`).
 """
@@ -27,6 +30,8 @@ import zlib
 from os import path
 
 import numpy as np
+
+from durf_tpu_torch.data.jpeg import decode_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG color type -> channels (gray, RGB, gray+alpha, RGBA); 3 (palette) is refused.
@@ -90,15 +95,27 @@ def _unfilter(rows: np.ndarray, height: int, width: int, channels: int, name: st
     return rec[1:, 1:].astype(np.uint8)
 
 
-def read_png(filename: str) -> np.ndarray:
-    """Read an 8-bit, non-interlaced PNG as uint8: [H, W] for gray, else
-    [H, W, C] (C = 2 gray+alpha, 3 RGB, 4 RGBA), as `np.asarray` of the image
-    opened by PIL gives it. Raises ValueError naming the file for anything
-    else: not a PNG (a JPEG, say), another bit depth, a palette, interlacing."""
-    with open(filename, "rb") as fh:
-        data = fh.read()
+def _read_bytes(file_or_bytes):
+    """(bytes, name for errors) of a file name or of a file's bytes."""
+    if isinstance(file_or_bytes, (bytes, bytearray, memoryview)):
+        return bytes(file_or_bytes), "<bytes>"
+    with open(file_or_bytes, "rb") as fh:
+        return fh.read(), str(file_or_bytes)
+
+
+def read_png(file_or_bytes) -> np.ndarray:
+    """Read an 8-bit, non-interlaced PNG (a file name or the file's bytes)
+    as uint8: [H, W] for gray, else [H, W, C] (C = 2 gray+alpha, 3 RGB, 4
+    RGBA), as `np.asarray` of the image opened by PIL gives it. Raises
+    ValueError naming the file for anything else: not a PNG, another bit
+    depth, a palette, interlacing."""
+    data, filename = _read_bytes(file_or_bytes)
     if not data.startswith(PNG_SIGNATURE):
-        raise ValueError(f"{filename}: not a PNG file (the port reads PNG images only)")
+        raise ValueError(f"{filename}: not a PNG file")
+    return _decode_png(data, filename)
+
+
+def _decode_png(data: bytes, filename: str) -> np.ndarray:
     header, idat = None, []
     for ctype, payload in _chunks(data, filename):
         if ctype == b"IHDR":
@@ -127,6 +144,19 @@ def read_png(filename: str) -> np.ndarray:
     img = _unfilter(flat[: height * stride].reshape(height, stride), height, width, channels,
                     filename)
     return img[..., 0] if channels == 1 else img
+
+
+def read_image(file_or_bytes) -> np.ndarray:
+    """Read a PNG or JPEG image (a file name or the file's bytes) as uint8,
+    as `np.asarray` of the image opened by PIL gives it: `read_png` for the
+    PNG signature, `data.jpeg.decode_jpeg` for JPEG's SOI marker; anything
+    else raises a ValueError naming the file."""
+    data, name = _read_bytes(file_or_bytes)
+    if data.startswith(PNG_SIGNATURE):
+        return _decode_png(data, name)
+    if data.startswith(b"\xff\xd8"):
+        return decode_jpeg(data, name)
+    raise ValueError(f"{name}: neither a PNG nor a JPEG file")
 
 
 def _chunk(ctype: bytes, payload: bytes) -> bytes:
@@ -296,9 +326,9 @@ def write_gif(filename: str, frames, duration_ms: int = 80, loop: int = 0) -> No
 def load_image_dir(data_dir: str, factor: int = 0):
     """Load images_{factor}/ as a list of [H, W, 3] float32 arrays in [0, 1].
 
-    Alpha channels are dropped; gray images are repeated into three
-    channels. Files ending in jpg / jpeg are listed as the reference lists
-    them, and refused by read_png.
+    PNG and JPEG files (by their names' endings, as the reference lists
+    them) are read by `read_image`. Alpha channels are dropped; gray images
+    are repeated into three channels.
     """
     suffix = f"_{factor}" if factor > 0 else ""
     imgdir = path.join(data_dir, "images" + suffix)
@@ -311,7 +341,7 @@ def load_image_dir(data_dir: str, factor: int = 0):
     ]
     images = []
     for f in files:
-        img = read_png(f)
+        img = read_image(f)
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=-1)
         images.append(img.astype(np.float32)[..., :3] / 255.0)

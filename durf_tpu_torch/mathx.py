@@ -84,6 +84,22 @@ def compute_avg_error(psnr: torch.Tensor, ssim: torch.Tensor, lpips: torch.Tenso
     return torch.exp(torch.mean(torch.log(torch.stack([mse, dssim, lpips]))))
 
 
+def linear_to_srgb(linear: torch.Tensor) -> torch.Tensor:
+    """Linear -> sRGB for inputs in [0, 1] (reference math.py:140-145)."""
+    eps = torch.finfo(torch.float32).eps
+    lo = 323 / 25 * linear
+    hi = (211 * torch.clamp(linear, min=eps) ** (5 / 12) - 11) / 200
+    return torch.where(linear <= 0.0031308, lo, hi)
+
+
+def srgb_to_linear(srgb: torch.Tensor) -> torch.Tensor:
+    """sRGB -> linear for inputs in [0, 1] (reference math.py:148-153)."""
+    eps = torch.finfo(torch.float32).eps
+    lo = 25 / 323 * srgb
+    hi = torch.clamp((200 * srgb + 11) / 211, min=eps) ** (12 / 5)
+    return torch.where(srgb <= 0.04045, lo, hi)
+
+
 def log_lerp_decay(
     step,
     v_init: float,

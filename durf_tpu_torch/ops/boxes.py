@@ -42,6 +42,31 @@ def rotate_vec(rot: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     )
 
 
+def rotate_yaw(p: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
+    """Rotate [..., 3] points by yaw about the +y (down-pointing) axis: the
+    NSG yaw-only object-frame convention (reference box_helpers.py:109-128),
+    which the full-SE(3) path supersedes for the model."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    px = c * p[..., 0] + s * p[..., 2]
+    pz = -s * p[..., 0] + c * p[..., 2]
+    return torch.stack([px, p[..., 1], pz], dim=-1)
+
+
+def box_to_world_frames(points: torch.Tensor, box_pos: torch.Tensor,
+                        box_rot: torch.Tensor) -> torch.Tensor:
+    """Inverse of world_to_box_frames for points: x_w = R^T x_obj + p
+    (box_rot is world->object)."""
+    return rotate_vec(box_rot.transpose(-1, -2), points) + box_pos
+
+
+def scale_to_unit_box(p: torch.Tensor, extent: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Scale box-frame points so the box spans [-1, 1]^3 (or back): p [..., 3],
+    extent [..., 3] full box dimensions (reference box_helpers.py:184-205,
+    scale factor 1 / (dim + 1e-9))."""
+    scale = 1.0 / (extent + 1e-9)
+    return p / scale if inverse else p * scale
+
+
 def world_to_box_frames(origins, dirs, box_pos, box_rot):
     """World rays into each object's box frame, x_obj = R @ (x_world - p).
 

@@ -11,11 +11,17 @@
     port refused until the occupancy grid, the row-major and
     full-covariance pipelines, remat_mlp and the kernels without view
     directions were ported, and those ported before them (compaction, the
-    per-object kernel route, proposal levels).
+    per-object kernel route, proposal levels);
+  * the converters and the JPEG decoder import, and convert a CARLA
+    capture and Waymo-shaped frames with JPEG images to scenes the loader
+    reads, in a process where PIL, jax and durf_tpu cannot be imported.
 """
 
 import ast
 import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -225,3 +231,86 @@ def test_randomized_forward_raises():
     )
     assert bool(torch.isfinite(loss)) and len(aux["centering"]) == cfg.num_levels
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+# A CARLA capture of 2 frames x 5 cameras written with the port's PNG
+# writer, converted by the CLI; 3 Waymo-shaped frames whose camera images
+# are a committed JPEG fixture, converted by convert_frames; both loaded.
+_CONVERT_WITHOUT_PIL = textwrap.dedent("""
+    import sys
+    for name in ("PIL", "jax", "durf_tpu"):
+        sys.modules[name] = None
+    import os, types
+    import numpy as np
+    from durf_tpu_torch.configs import Config
+    from durf_tpu_torch.data import format as fmt, jpeg, load_scene
+    from durf_tpu_torch.tools import carla_capture, carla_postprocess, waymo_convert
+
+    out = sys.argv[1]
+    cap = os.path.join(out, "capture")
+    os.makedirs(cap)
+    h, w = 16, 20
+    poses = {f"hwf_{c}": np.array([h, w, 18.0], np.float32) for c in range(5)}
+    boxes = {}
+    for t, frame in enumerate(["00000007", "00000009"]):
+        for c in range(5):
+            c2w = np.eye(4)
+            c2w[:3, 3] = [0.1 * c, 1.5, 0.5 * t]
+            poses[f"{frame}_{c}"] = c2w
+            rgba = np.full((h, w, 4), 255, np.uint8)
+            rgba[..., :3] = (np.arange(h * w * 3).reshape(h, w, 3) * (c + 3)) % 251
+            fmt.write_png(os.path.join(cap, f"{frame}_rgb{c}.png"), rgba)
+            code = np.full((h, w), 838860, np.int64)  # 50 m
+            depth = np.stack([code % 256, code // 256 % 256, code // 65536, code * 0 + 255], -1)
+            fmt.write_png(os.path.join(cap, f"{frame}_depth{c}.png"), depth.astype(np.uint8))
+            sem = np.zeros((h, w, 4), np.uint8)
+            sem[: h // 4, :, 0] = 13
+            fmt.write_png(os.path.join(cap, f"{frame}_sem{c}.png"), sem)
+            inst = np.zeros((h, w, 4), np.uint8)
+            inst[h // 2:, : w // 2, 1] = 1
+            fmt.write_png(os.path.join(cap, f"{frame}_inst{c}.png"), inst)
+        center = np.eye(4, dtype=np.float32)
+        center[:3, 3] = [2.0, 0.5, -5.0 - t]
+        boxes[frame] = {42: {"center": center, "extent": np.array([2.0, 1.0, 0.8], np.float32)}}
+    np.save(os.path.join(cap, "poses.npy"), poses, allow_pickle=True)
+    np.save(os.path.join(cap, "bboxes.npy"), boxes, allow_pickle=True)
+    carla = os.path.join(out, "carla")
+    carla_postprocess.main(["--capture_dir", cap, "--out_dir", carla, "--factors", "2"])
+    scene = load_scene(carla, Config(dataset_loader="carla_dyn", factor=2), "train")
+    assert scene.n_examples == 10 and scene.images[0].shape == (8, 10, 3), scene.images[0].shape
+
+    image = open(sys.argv[2], "rb").read()
+    ih, iw = jpeg.decode_jpeg(image).shape[:2]
+    ns = types.SimpleNamespace
+    def frame(t):
+        calibs = [ns(name=c, width=iw, height=ih, intrinsic=[30.0, 30.0, iw / 2, ih / 2],
+                     extrinsic=ns(transform=list(np.eye(4).reshape(-1)))) for c in range(1, 6)]
+        box = ns(center_x=8.0 + t, center_y=0.0, center_z=0.8, heading=0.1, length=4.0,
+                 width=2.0, height=1.5)
+        label = ns(id="a", box=box, metadata=ns(speed_x=3.0, speed_y=2.0), type=1,
+                   TYPE_VEHICLE=1)
+        pose = np.eye(4)
+        pose[0, 3] = 3.0 * t
+        return ns(pose=ns(transform=list(pose.reshape(-1))), laser_labels=[label],
+                  images=[ns(name=c, image=image) for c in range(1, 6)],
+                  context=ns(camera_calibrations=calibs))
+    def depth_fn(f, factor, rig):
+        return np.full((ih // factor, iw // factor), 10.0 + rig, np.float32)
+    waymo = os.path.join(out, "waymo")
+    waymo_convert.convert_frames([frame(t) for t in range(3)], waymo, factors=(2,),
+                                 depth_fn=depth_fn)
+    scene = load_scene(waymo, Config(dataset_loader="waymo", factor=2), "train")
+    assert scene.n_examples == 13 and scene.images[0].shape == (ih // 2, iw // 2, 3)
+    assert all(sys.modules.get(n) is None for n in ("PIL", "jax", "durf_tpu"))
+    print("converted without PIL or jax")
+""")
+
+
+def test_converters_need_neither_pil_nor_jax(tmp_path):
+    """The converters and the JPEG decoder run where PIL and jax cannot be
+    imported, as on the card's machine."""
+    jpg = os.path.join(REPO, "tests", "data", "jpeg", "q75_420.jpg")
+    run = subprocess.run([sys.executable, "-c", _CONVERT_WITHOUT_PIL, str(tmp_path), jpg],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    assert "converted without PIL or jax" in run.stdout
