@@ -23,6 +23,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from durf_tpu_torch import metrics
 from durf_tpu_torch.rays import Rays
 
 
@@ -146,11 +147,12 @@ def sample_batch(pools: Dict[str, Any], step: int, seed: int, batch_size: int,
     (see the module docstring); the same (seed, step) draws the same batch.
     `rows`: the rows of the `batch_size`-ray batch to gather (a
     data-parallel rank's; parallel.Group.rows), all by default."""
-    ts = draw_timestep(len(pools["counts"]), seed, step)
-    idx = draw_indices(pools["counts"][ts], batch_size, seed, step, pools["pixels"].device)
-    if rows is not None:
-        idx = idx[rows]
-    return gather_batch(pools, ts, idx)
+    with metrics.span("durf.data.draw"):
+        ts = draw_timestep(len(pools["counts"]), seed, step)
+        idx = draw_indices(pools["counts"][ts], batch_size, seed, step, pools["pixels"].device)
+        if rows is not None:
+            idx = idx[rows]
+        return gather_batch(pools, ts, idx)
 
 
 def c2f_factor_index(step: int, c2f_steps, n_factors: int) -> int:

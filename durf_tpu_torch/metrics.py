@@ -1,5 +1,6 @@
 """Metrics / observability: a JSONL scalar log, PNG images, throughput
-counters and torch.profiler traces (the JAX package's `metrics.py`).
+counters, torch.profiler traces (the JAX package's `metrics.py`), and the
+program's spans and counters, which record only under a torch profiler.
 
 `MetricsWriter` always writes `metrics.jsonl` (one JSON object per logged
 step) and each image as a PNG under `images/`; it mirrors both to
@@ -91,14 +92,49 @@ class Throughput:
         return out
 
 
-@contextlib.contextmanager
-def trace(name: str, enabled: bool = True):
-    """A named range in torch.profiler traces (no-op when disabled)."""
-    if enabled:
-        with torch.profiler.record_function(name):
-            yield
-    else:
-        yield
+# Spans and counters are on exactly while a torch profiler records (any of
+# them: the benchmark's traced window, train --profile_dir, profile.py): off,
+# a span is one call and a shared null context, with no dispatcher call.
+_profiling = torch.autograd._profiler_enabled
+_record = torch.profiler.record_function
+_OFF = contextlib.nullcontext()
+# name -> the values count() kept since the last counters().
+_counts: Dict[str, list] = {}
+
+
+def span(name: str):
+    """A named range on the profiler's own clock, in the same Chrome trace as
+    the kernels it launches (each kernel links to its launching runtime call
+    by correlation id): `with metrics.span("durf.step"): ...`."""
+    return _record(name) if _profiling() else _OFF
+
+
+def count(name: str, value) -> None:
+    """Add `value` to the counter `name` while a profiler records. `value`
+    is a host int, a tensor the program has already computed (kept by
+    reference), or a function of no argument returning either, called by
+    counters(); nothing here launches a device operation or waits for one."""
+    if _profiling():
+        _counts.setdefault(name, []).append(value)
+
+
+def counters() -> Dict[str, float]:
+    """Every counter's sum since the last call, then cleared: the deferred
+    values are evaluated and the device sums read back in one copy."""
+    global _counts
+    counts, _counts = _counts, {}
+    out: Dict[str, float] = {}
+    sums = {}
+    for name, values in counts.items():
+        values = [v() if callable(v) else v for v in values]
+        out[name] = sum(v for v in values if not torch.is_tensor(v))
+        tensors = [v.sum().double() for v in values if torch.is_tensor(v)]
+        if tensors:
+            sums[name] = torch.stack(tensors).sum()
+    if sums:
+        for name, v in zip(sums, torch.stack(list(sums.values())).tolist()):
+            out[name] += v
+    return out
 
 
 def start_profiler(log_dir: str) -> torch.profiler.profile:
@@ -115,8 +151,11 @@ def start_profiler(log_dir: str) -> torch.profiler.profile:
 
 def stop_profiler(profiler: torch.profiler.profile, log_dir: str) -> str:
     """Stop a profiler from start_profiler and write its Chrome trace to
-    `log_dir`/trace.json; returns that path."""
+    `log_dir`/trace.json and the counters it switched on (counters()) to
+    `log_dir`/counters.json; returns the trace's path."""
     profiler.stop()
     target = os.path.join(log_dir, "trace.json")
     profiler.export_chrome_trace(target)
+    with open(os.path.join(log_dir, "counters.json"), "w") as f:
+        json.dump(counters(), f)
     return target

@@ -25,7 +25,9 @@ that hit a box first (object-ray compaction), and every dynamic level reads
 out `obj_centroid`, the object-centering prior. A randomized (training) forward draws all its
 randomness from one `torch.Generator`, threaded through the levels. With
 `grid_sampling` each level also returns its contracted sample positions
-and world-frame weights for the trainer's grid update.
+and world-frame weights for the trainer's grid update. Under a torch
+profiler the stages are spans (metrics.span): `durf.model.boxes` once, then
+per level `durf.model.sample`, `objects`, `encode`, `mlp` and `composite`.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from durf_tpu_torch import mathx, ops
+from durf_tpu_torch import mathx, metrics, ops
 from durf_tpu_torch.configs import ModelConfig
 from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.models.mlp import NerfMLP, get_activation
@@ -139,198 +141,208 @@ class MipNerf(nn.Module):
         origins, dirs = rays.origins, rays.directions
         batch = origins.shape[0]
 
-        if self.dynamic:
-            if ext is None or ts is None:
-                raise ValueError("the dynamic model needs ext and ts")
-            t = int(ts)
-            box_pose = self.box_centers[t, :, :3]  # [N_obj, 3]
-            box_rot = self.box_centers[t, :, 3:]
-            if cfg.no_pose_opt:
-                box_pose = box_pose.detach()
-            if cfg.no_yaw_opt:
-                box_rot = box_rot.detach()
-            n_obj = box_pose.shape[0]
-            box_mat = ops.axis_angle_to_matrix(box_rot)
-            origins_o, dirs_o = ops.world_to_box_frames(
-                origins,
-                dirs,
-                box_pose.expand(batch, n_obj, 3),
-                box_mat.expand(batch, n_obj, 3, 3),
+        with metrics.span("durf.model.boxes"):
+            if self.dynamic:
+                if ext is None or ts is None:
+                    raise ValueError("the dynamic model needs ext and ts")
+                t = int(ts)
+                box_pose = self.box_centers[t, :, :3]  # [N_obj, 3]
+                box_rot = self.box_centers[t, :, 3:]
+                if cfg.no_pose_opt:
+                    box_pose = box_pose.detach()
+                if cfg.no_yaw_opt:
+                    box_rot = box_rot.detach()
+                n_obj = box_pose.shape[0]
+                box_mat = ops.axis_angle_to_matrix(box_rot)
+                origins_o, dirs_o = ops.world_to_box_frames(
+                    origins,
+                    dirs,
+                    box_pose.expand(batch, n_obj, 3),
+                    box_mat.expand(batch, n_obj, 3, 3),
+                )
+                box_dims = ext.expand(batch, n_obj, 3)
+                z_in, z_out, hit = ops.ray_box_intersection(origins_o, dirs_o, -box_dims, box_dims)
+                hit = hit.detach()  # [B, N_obj]
+                miss_all = (hit.sum(dim=-1) == 0).to(origins.dtype)  # [B]
+                # Composite rays: object-frame rays where a box is hit (boxes are
+                # assumed not to overlap along a ray), world rays elsewhere.
+                origins_s = (origins_o * hit[..., None]).sum(dim=-2) + miss_all[..., None] * origins
+                dirs_s = (dirs_o * hit[..., None]).sum(dim=-2) + miss_all[..., None] * dirs
+                z_out_ret = (hit * z_out).sum(dim=-1)
+                dyn_mask = hit.sum(dim=-1, keepdim=True)
+            else:
+                origins_s, dirs_s = origins, dirs
+                z_out_ret = torch.zeros((batch,), dtype=origins.dtype, device=origins.device)
+                dyn_mask = torch.zeros((batch, 1), dtype=origins.dtype, device=origins.device)
+                box_pose = torch.zeros((1, 3), dtype=origins.dtype, device=origins.device)
+                box_rot = torch.zeros((1, 3), dtype=origins.dtype, device=origins.device)
+
+            near, far = rays.near, rays.far
+            if self.dynamic and cfg.use_box_nearfar:
+                m = cfg.box_nearfar_margin
+                near = (hit * (z_in - m)).sum(-1, keepdim=True) + miss_all[..., None] * rays.near
+                far = (hit * (z_out + m)).sum(-1, keepdim=True) + miss_all[..., None] * rays.far
+                near = torch.maximum(near, rays.near).detach()
+                far = torch.minimum(torch.maximum(far, near + 1e-3), rays.far).detach()
+
+            viewdirs_enc = (
+                ops.pos_enc(rays.viewdirs, 0, cfg.deg_view, append_identity=True)
+                if cfg.use_viewdirs
+                else None
             )
-            box_dims = ext.expand(batch, n_obj, 3)
-            z_in, z_out, hit = ops.ray_box_intersection(origins_o, dirs_o, -box_dims, box_dims)
-            hit = hit.detach()  # [B, N_obj]
-            miss_all = (hit.sum(dim=-1) == 0).to(origins.dtype)  # [B]
-            # Composite rays: object-frame rays where a box is hit (boxes are
-            # assumed not to overlap along a ray), world rays elsewhere.
-            origins_s = (origins_o * hit[..., None]).sum(dim=-2) + miss_all[..., None] * origins
-            dirs_s = (dirs_o * hit[..., None]).sum(dim=-2) + miss_all[..., None] * dirs
-            z_out_ret = (hit * z_out).sum(dim=-1)
-            dyn_mask = hit.sum(dim=-1, keepdim=True)
-        else:
-            origins_s, dirs_s = origins, dirs
-            z_out_ret = torch.zeros((batch,), dtype=origins.dtype, device=origins.device)
-            dyn_mask = torch.zeros((batch, 1), dtype=origins.dtype, device=origins.device)
-            box_pose = torch.zeros((1, 3), dtype=origins.dtype, device=origins.device)
-            box_rot = torch.zeros((1, 3), dtype=origins.dtype, device=origins.device)
 
-        near, far = rays.near, rays.far
-        if self.dynamic and cfg.use_box_nearfar:
-            m = cfg.box_nearfar_margin
-            near = (hit * (z_in - m)).sum(-1, keepdim=True) + miss_all[..., None] * rays.near
-            far = (hit * (z_out + m)).sum(-1, keepdim=True) + miss_all[..., None] * rays.far
-            near = torch.maximum(near, rays.near).detach()
-            far = torch.minimum(torch.maximum(far, near + 1e-3), rays.far).detach()
-
-        viewdirs_enc = (
-            ops.pos_enc(rays.viewdirs, 0, cfg.deg_view, append_identity=True)
-            if cfg.use_viewdirs
-            else None
-        )
-
-        if self.dynamic:
-            anyhit = hit.sum(dim=-1) > 0  # [B]
-            k_total = batch * group.size
-            k = obj_capacity_k(k_total, cfg.obj_ray_capacity)
-            if k < k_total:
-                # Exclusive prefix of the ranks' hit counts: this rank's
-                # j-th hit ray is the global batch's (prefix + j)-th, kept
-                # while that is below k, in min(B/n, k) slots.
-                counts = group.gather_rows(anyhit.sum().to(torch.float32)[None], group.size)
-                budget = k - counts[: group.rank].sum()
-                k = min(k, batch)
+            if self.dynamic:
+                anyhit = hit.sum(dim=-1) > 0  # [B]
+                k_total = batch * group.size
+                k = obj_capacity_k(k_total, cfg.obj_ray_capacity)
+                if k < k_total:
+                    # Exclusive prefix of the ranks' hit counts: this rank's
+                    # j-th hit ray is the global batch's (prefix + j)-th, kept
+                    # while that is below k, in min(B/n, k) slots.
+                    counts = group.gather_rows(anyhit.sum().to(torch.float32)[None], group.size)
+                    budget = k - counts[: group.rank].sum()
+                    k = min(k, batch)
 
         ret: List[Dict[str, Any]] = []
         t_vals = weights = None
         for i_level in range(cfg.num_levels):
             n_level = cfg.level_samples(i_level)
-            if i_level == 0 and cfg.grid_sampling and grid is not None:
-                t_vals, samples = self._grid_samples(
-                    grid, origins, dirs, origins_s, dirs_s, rays.radii, near, far, dyn_mask,
-                    n_level, randomized, generator,
-                )
-            elif i_level == 0:
-                t_vals, samples = ops.sample_along_rays(
-                    origins_s, dirs_s, rays.radii, n_level, near, far, cfg.lindisp,
-                    cfg.ray_shape, randomized, generator, diag=self.diag, cm=self.cm,
-                )
-            else:
-                t_vals, samples = ops.resample_along_rays(
-                    origins_s,
-                    dirs_s,
-                    rays.radii,
-                    t_vals,
-                    weights,
-                    cfg.ray_shape,
-                    cfg.resample_padding,
-                    num_samples=n_level,
-                    randomized=randomized,
-                    stop_grad=cfg.stop_level_grad,
-                    generator=generator,
-                    diag=self.diag,
-                    cm=self.cm,
-                )
-            # [3, B, S] planes (cm), else [B, S, 3] and [B, S, 3(, 3)]; the
-            # raw mean is the composite rays' positions, before masking.
-            mean, cov = samples
-            raw_mean = mean
-            if cfg.disable_integration:
-                cov = torch.zeros_like(cov)
+            with metrics.span("durf.model.sample"):
+                if i_level == 0 and cfg.grid_sampling and grid is not None:
+                    t_vals, samples = self._grid_samples(
+                        grid, origins, dirs, origins_s, dirs_s, rays.radii, near, far, dyn_mask,
+                        n_level, randomized, generator,
+                    )
+                elif i_level == 0:
+                    t_vals, samples = ops.sample_along_rays(
+                        origins_s, dirs_s, rays.radii, n_level, near, far, cfg.lindisp,
+                        cfg.ray_shape, randomized, generator, diag=self.diag, cm=self.cm,
+                    )
+                else:
+                    t_vals, samples = ops.resample_along_rays(
+                        origins_s,
+                        dirs_s,
+                        rays.radii,
+                        t_vals,
+                        weights,
+                        cfg.ray_shape,
+                        cfg.resample_padding,
+                        num_samples=n_level,
+                        randomized=randomized,
+                        stop_grad=cfg.stop_level_grad,
+                        generator=generator,
+                        diag=self.diag,
+                        cm=self.cm,
+                    )
+                # [3, B, S] planes (cm), else [B, S, 3] and [B, S, 3(, 3)]; the
+                # raw mean is the composite rays' positions, before masking.
+                mean, cov = samples
+                raw_mean = mean
+                if cfg.disable_integration:
+                    cov = torch.zeros_like(cov)
 
             level_out: Dict[str, Any] = {}
-            if self.dynamic:
-                if k < k_total:
-                    obj_rgbs, obj_densities = self._compacted_objects(
-                        mean, cov, viewdirs_enc, hit, anyhit, k, alpha, dtype, budget
+            with metrics.span("durf.model.objects"):
+                if self.dynamic:
+                    if k < k_total:
+                        obj_rgbs, obj_densities = self._compacted_objects(
+                            mean, cov, viewdirs_enc, hit, anyhit, k, alpha, dtype, budget
+                        )
+                    else:
+                        obj_rgbs, obj_densities = self._objects(
+                            mean, cov, viewdirs_enc, hit, alpha, dtype
+                        )
+                    # The readout works on [3, B, S] planes.
+                    planes = (lambda t: t) if self.cm else (lambda t: t.movedim(-1, 0))
+                    level_out["obj_centroid"] = self._centroid(
+                        planes(mean), planes(obj_densities), hit, ext, group
                     )
-                else:
-                    obj_rgbs, obj_densities = self._objects(
-                        mean, cov, viewdirs_enc, hit, alpha, dtype
-                    )
-                # The readout works on [3, B, S] planes.
-                planes = (lambda t: t) if self.cm else (lambda t: t.movedim(-1, 0))
-                level_out["obj_centroid"] = self._centroid(
-                    planes(mean), planes(obj_densities), hit, ext, group
-                )
-                level_out["obj_hit_rays"] = anyhit.sum().to(torch.float32)
-                # The background sees the complement mask, clamped at 0: a ray
-                # hitting two boxes would otherwise flip the covariance
-                # negative (reference obbpose_model.py:205).
-                bkgd = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0).detach()
+                    level_out["obj_hit_rays"] = anyhit.sum().to(torch.float32)
+                    # The background sees the complement mask, clamped at 0: a ray
+                    # hitting two boxes would otherwise flip the covariance
+                    # negative (reference obbpose_model.py:205).
+                    bkgd = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0).detach()
+                    if self.cm:
+                        mask = bkgd[None, :, None]  # over [3, B, S]
+                        mean, cov = mask * mean, mask * cov
+                    else:
+                        mask = bkgd[:, None, None]  # over [B, S, 3]
+                        mean, cov = mask * mean, (mask if self.diag else mask[..., None]) * cov
+
+            with metrics.span("durf.model.encode"):
+                if cfg.contraction:
+                    if self.diag:
+                        mean, cov = ops.contract_gaussian_diag(
+                            mean, cov, threshold=cfg.contract_threshold, dim=0 if self.cm else -1
+                        )
+                    else:
+                        mean, cov = ops.contract_gaussian(
+                            mean, cov, threshold=cfg.contract_threshold
+                        )
+                enc_kwargs = dict(safe=not cfg.fast_trig, recurrent=cfg.recurrent_encode)
                 if self.cm:
-                    mask = bkgd[None, :, None]  # over [3, B, S]
-                    mean, cov = mask * mean, mask * cov
-                else:
-                    mask = bkgd[:, None, None]  # over [B, S, 3]
-                    mean, cov = mask * mean, (mask if self.diag else mask[..., None]) * cov
-
-            if cfg.contraction:
-                if self.diag:
-                    mean, cov = ops.contract_gaussian_diag(
-                        mean, cov, threshold=cfg.contract_threshold, dim=0 if self.cm else -1
+                    samples_enc = ops.integrated_pos_enc_cm(
+                        mean, cov, cfg.min_deg_point, cfg.max_deg_point, **enc_kwargs
                     )
                 else:
-                    mean, cov = ops.contract_gaussian(mean, cov, threshold=cfg.contract_threshold)
-            enc_kwargs = dict(safe=not cfg.fast_trig, recurrent=cfg.recurrent_encode)
-            if self.cm:
-                samples_enc = ops.integrated_pos_enc_cm(
-                    mean, cov, cfg.min_deg_point, cfg.max_deg_point, **enc_kwargs
-                )
-            else:
-                samples_enc = ops.integrated_pos_enc(
-                    (mean, cov), cfg.min_deg_point, cfg.max_deg_point, diag=self.diag, **enc_kwargs
-                )
-            proposal_level = self.use_proposal and i_level < cfg.num_levels - 1
-            level_mlp = self.proposal_mlp if proposal_level else self.background_mlp
-            raw_rgb, raw_density = level_mlp(
-                samples_enc, viewdirs_enc, x_feature_major=self.cm, out_feature_major=self.cm
-            )
-            if self.dynamic:
-                raw_rgb = raw_rgb + obj_rgbs
-                raw_density = raw_density + obj_densities
-            if randomized and cfg.density_noise > 0:
-                raw_density = raw_density + cfg.density_noise * draw(
-                    torch.randn, raw_density.shape, generator, dim=1 if self.cm else 0,
-                    dtype=raw_density.dtype, device=raw_density.device,
-                )
+                    samples_enc = ops.integrated_pos_enc(
+                        (mean, cov), cfg.min_deg_point, cfg.max_deg_point, diag=self.diag,
+                        **enc_kwargs,
+                    )
 
-            rgb = get_activation(cfg.rgb_activation)(raw_rgb)
-            density = get_activation(cfg.density_activation)(raw_density + cfg.density_bias)
-            if self.cm:
-                rendered = ops.volumetric_rendering_cm(
-                    rgb, density[0], t_vals, dirs_s, background=background, generator=generator
+            with metrics.span("durf.model.mlp"):
+                proposal_level = self.use_proposal and i_level < cfg.num_levels - 1
+                level_mlp = self.proposal_mlp if proposal_level else self.background_mlp
+                raw_rgb, raw_density = level_mlp(
+                    samples_enc, viewdirs_enc, x_feature_major=self.cm, out_feature_major=self.cm
                 )
-            else:
-                rendered = ops.volumetric_rendering(
-                    rgb, density, t_vals, dirs_s, background=background, generator=generator
+                if self.dynamic:
+                    raw_rgb = raw_rgb + obj_rgbs
+                    raw_density = raw_density + obj_densities
+                if randomized and cfg.density_noise > 0:
+                    raw_density = raw_density + cfg.density_noise * draw(
+                        torch.randn, raw_density.shape, generator, dim=1 if self.cm else 0,
+                        dtype=raw_density.dtype, device=raw_density.device,
+                    )
+
+            with metrics.span("durf.model.composite"):
+                rgb = get_activation(cfg.rgb_activation)(raw_rgb)
+                density = get_activation(cfg.density_activation)(raw_density + cfg.density_bias)
+                if self.cm:
+                    rendered = ops.volumetric_rendering_cm(
+                        rgb, density[0], t_vals, dirs_s, background=background, generator=generator
+                    )
+                else:
+                    rendered = ops.volumetric_rendering(
+                        rgb, density, t_vals, dirs_s, background=background, generator=generator
+                    )
+                comp_rgb, depth, acc, weights, t_vals, t_mids, t_dists = rendered
+                if cfg.grid_sampling:
+                    # Box-hitting rays' samples are in an object's frame: only
+                    # the world-frame ones are evidence for the world-frame grid
+                    # (a zero weight leaves the non-negative grid unchanged).
+                    level_out["positions_c"] = ops.contract(
+                        raw_mean.movedim(0, -1) if self.cm else raw_mean,
+                        threshold=cfg.contract_threshold,
+                    ).detach()
+                    grid_weights = weights * miss_all[:, None] if self.dynamic else weights
+                    level_out["grid_weights"] = grid_weights.detach()
+                ret.append(
+                    dict(
+                        **level_out,
+                        rgb=comp_rgb,
+                        depth=depth,
+                        acc=acc,
+                        weights=weights,
+                        t_vals=t_vals,
+                        t_mids=t_mids,
+                        t_dists=t_dists,
+                        pose=box_pose,
+                        rot=box_rot,
+                        dyn_mask=dyn_mask,
+                        z_out=z_out_ret,
+                    )
                 )
-            comp_rgb, depth, acc, weights, t_vals, t_mids, t_dists = rendered
-            if cfg.grid_sampling:
-                # Box-hitting rays' samples are in an object's frame: only
-                # the world-frame ones are evidence for the world-frame grid
-                # (a zero weight leaves the non-negative grid unchanged).
-                level_out["positions_c"] = ops.contract(
-                    raw_mean.movedim(0, -1) if self.cm else raw_mean,
-                    threshold=cfg.contract_threshold,
-                ).detach()
-                grid_weights = weights * miss_all[:, None] if self.dynamic else weights
-                level_out["grid_weights"] = grid_weights.detach()
-            ret.append(
-                dict(
-                    **level_out,
-                    rgb=comp_rgb,
-                    depth=depth,
-                    acc=acc,
-                    weights=weights,
-                    t_vals=t_vals,
-                    t_mids=t_mids,
-                    t_dists=t_dists,
-                    pose=box_pose,
-                    rot=box_rot,
-                    dyn_mask=dyn_mask,
-                    z_out=z_out_ret,
-                )
-            )
         return ret
 
     def _compacted_objects(self, mean, cov, viewdirs_enc, hit, anyhit, k, alpha, dtype, budget):
@@ -529,15 +541,17 @@ def render_image(render_fn, rays: Rays, chunk: int = 8192) -> Dict[str, np.ndarr
                     .reshape(num_rays, r.shape[-1]))
     outs = []
     for i in range(0, num_rays, chunk):
-        chunk_rays = flat.map(lambda r: r[i : i + chunk])
-        pad = chunk - chunk_rays.origins.shape[0]
-        if pad > 0:
-            chunk_rays = chunk_rays.map(
-                lambda r: torch.cat([r, r[-1:].expand(pad, r.shape[-1])], dim=0)
-            )
+        with metrics.span("durf.render.slice"):
+            chunk_rays = flat.map(lambda r: r[i : i + chunk])
+            pad = chunk - chunk_rays.origins.shape[0]
+            if pad > 0:
+                chunk_rays = chunk_rays.map(
+                    lambda r: torch.cat([r, r[-1:].expand(pad, r.shape[-1])], dim=0)
+                )
         out = render_fn(chunk_rays)
         if pad > 0:
             out = {k: v[: chunk - pad] for k, v in out.items()}
         outs.append(out)  # stays on the device; one transfer at the end
-    merged = {k: torch.cat([o[k] for o in outs], dim=0).cpu().numpy() for k in outs[0]}
+    with metrics.span("durf.render.fetch"):
+        merged = {k: torch.cat([o[k] for o in outs], dim=0).cpu().numpy() for k in outs[0]}
     return {k: v.reshape((height, width) + v.shape[1:]) for k, v in merged.items()}

@@ -39,6 +39,7 @@ import ctypes
 
 import torch
 
+from durf_tpu_torch import metrics
 from durf_tpu_torch.ops.kernels import build, hopper_mlp
 from durf_tpu_torch.ops.kernels.fused_mlp import (
     check_bwd_config,
@@ -130,20 +131,14 @@ def kept_pairs(hit, n: int, s_per_ray: int, rows: int = TILE_ROWS):
     return (count[:, r1 + 1] - count[:, r0] > 0).T
 
 
-# Set to a list to log (hit, N, S) of every K3 launch (K4 runs the same
-# pairs as the K3 launch whose residuals it reads); profile.py reads the
-# share of pairs that ran from it. None: no log.
-pair_log = None
-
-
-def pairs_ran(log) -> tuple:
-    """(pairs that ran, pairs) summed over a pair_log."""
-    ran = total = 0
-    for hit, n, s in log:
-        kept = kept_pairs(hit, n, s)
-        ran += int(kept.sum())
-        total += kept.numel()
-    return ran, total
+def count_pairs(hit, n: int, s_per_ray: int) -> None:
+    """Count a K3 launch's (tile, object) pairs while a profiler records
+    (metrics.count): `k3.pairs` all of them, `k3.pairs_ran` those it runs
+    (K4 runs the same pairs as the K3 launch whose residuals it reads).
+    The launch keeps `hit` by reference; kept_pairs reduces it in
+    metrics.counters(), after the traced window."""
+    metrics.count("k3.pairs", -(-n // TILE_ROWS) * hit.shape[0])
+    metrics.count("k3.pairs_ran", lambda: kept_pairs(hit, n, s_per_ray).sum())
 
 
 _c = ctypes
@@ -203,8 +198,7 @@ def _k3_launch(x, hit, cond_lin, weights, config, s_per_ray: int, save: bool):
         )
     build.check(err, "fused_obj_mlp")
     fused_obj_mlp.launches += 1
-    if pair_log is not None:
-        pair_log.append((hit, n, s_per_ray))
+    count_pairs(hit, n, s_per_ray)
     return rgb, den, res
 
 

@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing
 
+from durf_tpu_torch import metrics
 from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.parallel.group import Group, one_process
 from durf_tpu_torch.rays import Rays
@@ -59,19 +60,22 @@ class ProcessGroup(Group):
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
         y = x.detach().clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM)
+        with metrics.span("durf.comm"):
+            dist.all_reduce(y, op=dist.ReduceOp.SUM)
         return y
 
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         y = x.detach().clone()
-        dist.all_reduce(y, op=dist.ReduceOp.MAX)
+        with metrics.span("durf.comm"):
+            dist.all_reduce(y, op=dist.ReduceOp.MAX)
         return y
 
     def gather_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
         """An all-reduce SUM of a zero-filled buffer (no gradient)."""
         full = local.new_zeros((n,) + tuple(local.shape[1:]))
         full[self.rows(n)] = local.detach()
-        dist.all_reduce(full, op=dist.ReduceOp.SUM)
+        with metrics.span("durf.comm"):
+            dist.all_reduce(full, op=dist.ReduceOp.SUM)
         return full
 
     def gather_live(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,7 +84,8 @@ class ProcessGroup(Group):
 
     def sum_flat(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        with metrics.span("durf.comm"):
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
         return [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
@@ -92,12 +97,14 @@ class ProcessGroup(Group):
         with torch.no_grad():
             for group in by_dtype.values():
                 flat = torch.cat([t.reshape(-1).to(self.device) for t in group])
-                dist.broadcast(flat, src=0)
+                with metrics.span("durf.comm"):
+                    dist.broadcast(flat, src=0)
                 for t, piece in zip(group, flat.split([t.numel() for t in group])):
                     t.copy_(piece.view_as(t))
 
     def barrier(self) -> None:
-        dist.barrier()
+        with metrics.span("durf.comm"):
+            dist.barrier()
 
 
 def init_group(device="cuda", backend: Optional[str] = None) -> ProcessGroup:

@@ -20,16 +20,18 @@ grid (bench.py --grid_sampling), --no-coord_major takes row-major samples
 and --no-diag_covariance the full covariance (both on the per-object
 route), and --one_rank_group takes the data-parallel group path of a
 one-rank NCCL group that this process forms on localhost (parallel/).
-Either runs under torch.profiler, then prints the device-time table by
-kernel, the host-time table by operation, and one JSON line: ms per unit (host clock, synchronized),
-device busy ms per unit, the idle share, device ms per unit of each
-hand-written kernel and of everything else, K2's and K4's device ms split by
-their launches (tile kernel, weight gradients, their reduction, the per-ray
-sums), K1's and K2's launches and tile-kernel device ms per unit split by
-width (256/128 and 128/128, by the kernel each build launches), the share of
-(tile, object) pairs K3 and K4 ran, the device operations (kernels, copies),
-the host's synchronizations with the card and the collectives per unit. A
-unit is a chunk or a step.
+Either runs under torch.profiler, which also switches on the program's
+spans and counters (metrics.span, metrics.count), then prints the
+device-time table by kernel, the host-time table by operation, and one JSON
+line: ms per unit (host clock, synchronized, slowed by the profiler),
+device busy ms per unit, device ms per unit of each hand-written kernel and
+of everything else, K2's and K4's device ms split by their launches (tile
+kernel, weight gradients, their reduction, the per-ray sums), K1's and K2's
+launches and tile-kernel device ms per unit split by width (256/128 and
+128/128, by the kernel each build launches), the share of (tile, object)
+pairs K3 and K4 ran (the counter `k3.pairs_ran` over `k3.pairs`), the
+device operations (kernels, copies), the host's synchronizations with the
+card and the collectives per unit. A unit is a chunk or a step.
 """
 
 from __future__ import annotations
@@ -82,10 +84,12 @@ WIDTHS = {
 
 def _device_us(evt) -> float:
     """Device microseconds of a kernel or copy row; 0 for a CPU-op row,
-    whose 'self' device time repeats the time of the kernels it launched."""
+    whose 'self' device time repeats the time of the kernels it launched,
+    and for a span's copy on the device's timeline (metrics.span)."""
     from torch.autograd import DeviceType
 
-    if getattr(evt, "device_type", None) != DeviceType.CUDA:
+    if (getattr(evt, "device_type", None) != DeviceType.CUDA
+            or getattr(evt, "is_user_annotation", False)):
         return 0.0
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -134,8 +138,8 @@ def main(argv=None) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from durf_tpu_torch import metrics
     from durf_tpu_torch.devices import resolve_device
-    from durf_tpu_torch.ops.kernels import obj_mlp as k3
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--train", action="store_true", help="profile the training step")
@@ -181,15 +185,14 @@ def main(argv=None) -> None:
     for _ in range(2):
         one()
     torch.cuda.synchronize()
-    k3.pair_log = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(units):
             one()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ran, total = k3.pairs_ran(k3.pair_log)
-    k3.pair_log = None
+    counts = metrics.counters()
+    ran, total = counts.get("k3.pairs_ran", 0), counts.get("k3.pairs", 0)
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=args.top))
     print(events.table(sort_by="self_cpu_time_total", row_limit=args.top))
@@ -233,7 +236,6 @@ def main(argv=None) -> None:
                 "diag_covariance": args.diag_covariance or not args.train,
                 f"ms_per_{unit}": wall_ms,
                 f"device_busy_ms_per_{unit}": busy_ms,
-                "idle_share": 1.0 - busy_ms / wall_ms,
                 f"device_ops_per_{unit}": n_device / units,
                 # Host waits for the card (copies from pageable memory, and
                 # the synchronize that ends the timed window).

@@ -226,36 +226,41 @@ def make_grad_fn(model: MipNerf, config: Config, seed: int = 1,
         device = batch["rays"].origins.device
         gen = mathx.RowShard(step_generator(seed, step, device), group.rank, group.size)
         eps, alpha = eps_fn(step + 1), alpha_fn(step + 1)
-        model.train()
-        for p in model.parameters():
-            p.grad = None
-        ts = batch.get("ts")
-        out = model(
-            batch["rays"], ext=batch.get("ext"), ts=ts, background=background, alpha=alpha,
-            randomized=config.randomized, generator=gen, grid=grid, group=group,
-        )
-        if dynamic:
-            # Previous-timestep pose for the TV loss, from the live table.
-            table = model.box_centers.detach()
-            prev_pose = table[ts + 1 if ts == 0 else ts - 1]
-        else:
-            prev_pose = torch.zeros((out[0]["pose"].shape[0], 6), device=device)
-        total, aux = compute_losses(config, out, batch, prev_pose, eps, group)
-        if config.weight_decay_mult > 0:
-            total = total + group.on_rank0(config.weight_decay_mult * weight_l2(model.parameters()))
-        if dynamic:
-            aux["obj_hit_rays"] = out[-1]["obj_hit_rays"]
-        if config.model.grid_sampling:
-            # Box-hitting rays carry zero weight (models/mipnerf.py).
-            aux["grid_positions"] = out[-1]["positions_c"]
-            aux["grid_weights"] = out[-1]["grid_weights"]
-        total.backward()
-        aux = {k: v.detach() for k, v in aux.items()}
-        grads = {
-            n: p.grad if p.grad is not None else torch.zeros_like(p)
-            for n, p in model.named_parameters()
-        }
-        grads = dict(zip(grads, group.sum_flat(list(grads.values()))))
+        with metrics.span("durf.step.forward"):
+            model.train()
+            for p in model.parameters():
+                p.grad = None
+            ts = batch.get("ts")
+            out = model(
+                batch["rays"], ext=batch.get("ext"), ts=ts, background=background, alpha=alpha,
+                randomized=config.randomized, generator=gen, grid=grid, group=group,
+            )
+        with metrics.span("durf.step.loss"):
+            if dynamic:
+                # Previous-timestep pose for the TV loss, from the live table.
+                table = model.box_centers.detach()
+                prev_pose = table[ts + 1 if ts == 0 else ts - 1]
+            else:
+                prev_pose = torch.zeros((out[0]["pose"].shape[0], 6), device=device)
+            total, aux = compute_losses(config, out, batch, prev_pose, eps, group)
+            if config.weight_decay_mult > 0:
+                total = total + group.on_rank0(
+                    config.weight_decay_mult * weight_l2(model.parameters())
+                )
+            if dynamic:
+                aux["obj_hit_rays"] = out[-1]["obj_hit_rays"]
+            if config.model.grid_sampling:
+                # Box-hitting rays carry zero weight (models/mipnerf.py).
+                aux["grid_positions"] = out[-1]["positions_c"]
+                aux["grid_weights"] = out[-1]["grid_weights"]
+        with metrics.span("durf.step.backward"):
+            total.backward()
+            aux = {k: v.detach() for k, v in aux.items()}
+            grads = {
+                n: p.grad if p.grad is not None else torch.zeros_like(p)
+                for n, p in model.named_parameters()
+            }
+            grads = dict(zip(grads, group.sum_flat(list(grads.values()))))
         return total.detach(), aux, grads
 
     return grad_fn
@@ -278,9 +283,8 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
     lr_fn = make_lr_schedule(config)
     eps_fn, alpha_fn = make_eps_schedule(config), make_alpha_schedule(config)
 
-    def train_step(state: TrainState, batch: Dict[str, Any]):
-        step = state.step
-        loss, aux, grads = grad_fn(step, batch, state.grid)
+    def update(state: TrainState, step: int, loss, aux, grads):
+        """Gradient hygiene, the optimizer, the grid update, the stats."""
         with torch.no_grad():
             # Gradient hygiene (reference train_boxpose.py:262-286): NaN and
             # +-Inf scrubbed to 0, value clip, global-norm clip.
@@ -328,6 +332,13 @@ def make_train_step(model: MipNerf, config: Config, optimizer: ScheduledAdam, se
         if "obj_hit_rays" in aux:
             stats["obj/hit_frac"] = aux["obj_hit_rays"] / config.batch_size
         return state, _derive_stats(stats, config)
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        with metrics.span("durf.step"):
+            step = state.step
+            loss, aux, grads = grad_fn(step, batch, state.grid)
+            with metrics.span("durf.step.update"):
+                return update(state, step, loss, aux, grads)
 
     return train_step
 
@@ -407,14 +418,17 @@ def make_render_fn(model: MipNerf, config: Config, device="cuda",
                 f"(pad the chunk size)"
             )
         rows = group.rows(n)
-        rays = rays.map(lambda r: r[rows]).to(device)
-        ext_t = None if ext is None else torch.as_tensor(ext, dtype=torch.float32, device=device)
-        with torch.inference_mode():
-            out = model(
-                rays, ext=ext_t, ts=ts, background=eval_background, alpha=alpha, group=group
-            )[-1]
-        local = torch.cat([out["rgb"], out["depth"][:, None], out["acc"][:, None]], dim=1)
-        full = group.gather_rows(local, n)
+        with metrics.span("durf.render.upload"):
+            rays = rays.map(lambda r: r[rows]).to(device)
+            ext_t = (None if ext is None
+                     else torch.as_tensor(ext, dtype=torch.float32, device=device))
+        with metrics.span("durf.render.forward"):
+            with torch.inference_mode():
+                out = model(
+                    rays, ext=ext_t, ts=ts, background=eval_background, alpha=alpha, group=group
+                )[-1]
+            local = torch.cat([out["rgb"], out["depth"][:, None], out["acc"][:, None]], dim=1)
+            full = group.gather_rows(local, n)
         return {"rgb": full[:, :3], "depth": full[:, 3], "acc": full[:, 4]}
 
     return render_chunk

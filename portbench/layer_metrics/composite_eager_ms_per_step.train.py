@@ -1,0 +1,9 @@
+"""Device ms per traced step of the kernels, copies and sets outside K1-K6 that
+the program launched under `durf.model.composite`: activations and
+volumetric rendering."""
+
+from portbench import spans
+
+
+def read(s):
+    return spans.ms_per(s, "eager", ("durf.model.composite",), "units")

@@ -33,6 +33,7 @@ import torch
 
 from durf_tpu.configs import MLPConfig as JMLPConfig
 from durf_tpu.ops.pallas.obj_mlp import obj_mlps_apply as j_obj_apply
+from durf_tpu_torch import metrics
 from durf_tpu_torch.configs import MLPConfig
 from durf_tpu_torch.ops.kernels import fused_mlp as k1
 from durf_tpu_torch.ops.kernels import hopper_mlp as hm
@@ -110,8 +111,10 @@ def test_a_pair_is_skipped_iff_every_ray_of_its_tile_misses(s_per_ray, b):
         for o in range(n_obj):
             assert bool(kept[t, o]) == any(float(hit[o, r]) != 0 for r in rays), (t, o)
     assert not kept[:, 2].any()
-    ran, total = k3.pairs_ran([(hit, n, s_per_ray)])
-    assert (ran, total) == (int(kept.sum()), tiles * n_obj)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        k3.count_pairs(hit, n, s_per_ray)
+    counts = metrics.counters()
+    assert (counts["k3.pairs_ran"], counts["k3.pairs"]) == (int(kept.sum()), tiles * n_obj)
 
 
 def _restricted(x, hit, cond_lin, weights, cfg, s, g_rgb, g_den):

@@ -263,11 +263,15 @@ def test_throughput_and_trace(tmp_path):
     assert report["perf/rays_per_sec"] == pytest.approx(512 * report["perf/steps_per_sec"])
     assert report["perf/ray_samples_per_sec"] == pytest.approx(256 * report["perf/rays_per_sec"])
     assert meter.report()["perf/steps_per_sec"] == 0.0  # the window restarts
+    with metrics.span("durf.off"):  # no profiler records yet
+        metrics.count("test.off", 1)
     profiler = metrics.start_profiler(str(tmp_path))
-    with metrics.trace("durf/step"):
+    with metrics.span("durf.step"):
         torch.ones(4).sum()
-    with metrics.trace("durf/off", enabled=False):
-        pass
+        metrics.count("test.on", 2)
+        metrics.count("test.on", torch.ones(3))
     trace = json.load(open(metrics.stop_profiler(profiler, str(tmp_path))))
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "durf/step" in names and "durf/off" not in names
+    assert "durf.step" in names and "durf.off" not in names
+    assert json.load(open(tmp_path / "counters.json")) == {"test.on": 5.0}
+    assert metrics.counters() == {}  # stop_profiler read and cleared them
