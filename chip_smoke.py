@@ -172,7 +172,20 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      configs/waymo_fast.gin for 50 steps; each run K1-K4 levels x steps
      launches and its loss falling; the conversion times and train rates
      beside the card's name and power limit;
- 23. a JSON line with every kernel's numbers (launches from the path that
+ 23. E1 (`encode`, csrc/encode.cu, the model's encodings): each mode against
+     its plain composition of ops/encoding.py at [3, 16384, 128] (a
+     training level), [3, 8192, 128] (a render chunk) and [3, 1000, 77]:
+     the background's mask, contraction and IPE (recurrent, direct with and
+     without the range reduction; contraction on and off; 3% of rays in
+     each of two boxes, 1% in both), the windowed IPE at alpha 10, mid-ramp
+     and on the card, the zero sample, the view encoding; bitwise, else
+     within 2e-6, the identity planes exact; each mode's backward against
+     autograd of the plain composition (relative L2 1e-3); on the flagship
+     step 2 x levels + 1 launches a step (the view once) and no backward,
+     every sample encoded by the kernel (`enc.kernel_samples` /
+     `enc.samples` under a profiler) and the step's host syncs; each mode
+     timed beside its bytes bound and its plain composition;
+ 24. a JSON line with every kernel's numbers (launches from the path that
      runs the kernel: K1-K4 the main path, K5/K6 phase 8, K1 and K2 at
      128/128 phase 16, with phase 12's, phase 17's, phase 18's, phase
      19's, phase 20's, per rank and step, and phase 22's beside them; K3 and K4 timed
@@ -2308,6 +2321,242 @@ def check_multigpu(dev, card):
     return per_step
 
 
+# E1 (the encodings): the training level's samples, a render chunk's
+# (waymo_fast, 8192 rays of 128 samples) and a shape that is not a block
+# multiple; rays hitting each of two boxes with ENC_HIT, some both; the
+# object MLPs' window open (alpha 10) and mid-ramp.
+ENC_SHAPES = ((16384, 128), (8192, 128), (1000, 77))
+ENC_HIT, ENC_ALPHAS, ENC_STEPS = 0.03, (10.0, 3.7), 3
+# The forward is the plain composition's arithmetic; where a plane is not
+# bitwise equal (a CUDA math library other than PyTorch's build), it may
+# differ by one or two float32 roundings of a feature in [-1, 1].
+ENC_FWD_TOL = 2e-6
+# The backward writes the chain rule out (d sin = 2^k cos, d exp = -4^k/2
+# exp, the contraction's Jacobian in closed form) where autograd runs
+# through the recurrent double-angle updates: relative L2 per gradient.
+ENC_BWD_TOL = 1e-3
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+
+
+def enc_samples(b, s, gen, dev):
+    """[3, b, s] means from near the origin to 40 away (the flagship's far
+    plane), frustum variances (t * 2e-3)^2 with a few exact zeros and small
+    negatives (the clamp), and a [b, 2] 0/1 hit mask."""
+    import torch
+
+    scale = torch.logspace(-1.5, math.log10(40.0), b * s).reshape(1, b, s)
+    mean = torch.randn((3, b, s), generator=gen) * scale
+    var = (scale * 2e-3) ** 2 * (0.5 + torch.rand((3, b, s), generator=gen))
+    var = torch.where(torch.rand((3, b, s), generator=gen) < 0.01,
+                      -1e-6 * torch.rand((3, b, s), generator=gen), var)
+    var[:, :, 0] = 0.0
+    hit = (torch.rand((b, 2), generator=gen) < ENC_HIT).float()
+    hit[: b // 100] = 1.0  # rays inside both boxes: the mask's clamp
+    return mean.to(dev), var.to(dev), hit.to(dev)
+
+
+def enc_compare(what, got, ref, identity=0):
+    """The kernel's output against the plain composition's: bitwise, else
+    within ENC_FWD_TOL; the first `identity` planes (the mean) exact."""
+    import torch
+
+    bitwise = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    equal = torch.equal(got, ref)
+    gap = float((got - ref).abs().max())
+    share = float((got == ref).float().mean())
+    print(f"E1 {what}: bitwise {bitwise}, equal {equal}, max |d| {gap:.3e}, "
+          f"equal share {share:.7f}, finite {bool(torch.isfinite(got).all())}")
+    if identity and not torch.equal(got[:identity].view(torch.int32),
+                                    ref[:identity].view(torch.int32)):
+        raise SystemExit(f"E1 {what}: the identity planes are not the mean's")
+    if not equal and not gap <= ENC_FWD_TOL:
+        raise SystemExit(f"E1 {what}: {gap} from the plain composition > {ENC_FWD_TOL}")
+    return gap
+
+
+def enc_grads(what, kernel_fn, plain_fn, leaves, g):
+    """Each leaf's gradient through the kernel's backward against autograd
+    through the plain composition, relative L2."""
+    import torch
+
+    got, ref = [], []
+    for fn, out in ((kernel_fn, got), (plain_fn, ref)):
+        xs = [t.clone().requires_grad_() for t in leaves]
+        fn(*xs).backward(g)
+        out.extend(x.grad for x in xs)
+    gaps = [rel_err(a, b) for a, b in zip(got, ref)]
+    print(f"E1 {what} backward: relative L2 {['%.3e' % e for e in gaps]}")
+    if not all(math.isfinite(e) and e <= ENC_BWD_TOL for e in gaps):
+        raise SystemExit(f"E1 {what} backward disagrees with autograd: {gaps} > {ENC_BWD_TOL}")
+    return max(gaps)
+
+
+def enc_bytes(spec, n: int) -> int:
+    """The least bytes an E1 forward call on n samples (VIEW: rays) moves:
+    each input read once, each output written once, the hit mask per ray."""
+    from durf_tpu_torch.ops.kernels import encode as e1
+
+    if spec.mode == e1.VIEW:
+        return 4 * n * (3 + spec.features())
+    hit = 0 if spec.hit is None else spec.hit.numel() * 4
+    return 4 * n * (6 + spec.features()) + hit
+
+
+def enc_device_ms(fn, calls: int = 10) -> float:
+    """E1's device milliseconds a call of fn, from torch.profiler's kernel
+    times (a small call's wrapper time is the host's launch cost)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+             if "encode_fwd" in e.key)
+    if us <= 0:
+        raise SystemExit("E1: the profiler saw no encode_fwd kernel")
+    return us / calls / 1e3
+
+
+def check_encode(dev, card):
+    """E1 (csrc/encode.cu) against the plain compositions of ops/encoding.py
+    on the card: each mode and form forward at ENC_SHAPES, bitwise or within
+    ENC_FWD_TOL; each mode's backward against autograd; the launches and the
+    samples the kernel encodes on the flagship step, and its syncs; each
+    mode timed beside its bytes bound and its plain composition. Returns
+    (numbers, launches a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from durf_tpu_torch import metrics
+    from durf_tpu_torch.entry import train_entry
+    from durf_tpu_torch.ops import encoding
+    from durf_tpu_torch.ops.kernels import encode as e1
+
+    gen = torch.Generator().manual_seed(18)
+    worst, times = 0.0, {}
+    forms = (("recurrent", dict(recurrent=True, safe=True)),
+             ("direct safe", dict(recurrent=False, safe=True)),
+             ("direct", dict(recurrent=False, safe=False)))
+    for b, s in ENC_SHAPES:
+        mean, var, hit = enc_samples(b, s, gen, dev)
+        tag = f"[3, {b}, {s}]"
+        for name, form in forms:
+            for contraction, mask in ((True, hit), (True, None), (False, hit)):
+                got = e1.background_ipe(mean, var, mask, 0, 10, contraction, 0.1, **form)
+                ref = encoding.background_ipe_cm(mean, var, mask, 0, 10, contraction, 0.1, **form)
+                worst = max(worst, enc_compare(
+                    f"background {tag} {name}, contraction {contraction}, "
+                    f"mask {mask is not None}", got, ref))
+            for alpha in ENC_ALPHAS:
+                got = e1.windowed_ipe(mean, var, 0, 10, alpha, **form)
+                ref = encoding.windowed_ipe_cm(mean, var, 0, 10, alpha, **form)
+                worst = max(worst, enc_compare(f"windowed {tag} {name}, alpha {alpha}", got,
+                                               ref, identity=3))
+        alpha_t = torch.tensor(3.7, device=dev)
+        got = e1.windowed_ipe(mean, var, 0, 10, alpha_t, recurrent=True)
+        ref = encoding.windowed_ipe_cm(mean, var, 0, 10, alpha_t, recurrent=True)
+        worst = max(worst, enc_compare(f"windowed {tag} recurrent, alpha on the card", got, ref,
+                                       identity=3))
+        zero = torch.zeros((3, 1, 1), device=dev)
+        worst = max(worst, enc_compare(
+            "windowed zero sample (c0)", e1.windowed_ipe(zero, zero, 0, 10, 10.0, recurrent=True),
+            encoding.windowed_ipe_cm(zero, zero, 0, 10, 10.0, recurrent=True), identity=3))
+        dirs = torch.nn.functional.normalize(torch.randn((b, 3), generator=gen), dim=-1).to(dev)
+        got, ref = e1.view_pe(dirs, 4), encoding.pos_enc(dirs, 0, 4, append_identity=True)
+        worst = max(worst, enc_compare(f"view [{b}, 3]", got, ref))
+        if (b, s) == ENC_SHAPES[0]:
+            bwd = {}
+            g = torch.randn((60, b, s), generator=gen).to(dev)
+            bwd["background"] = enc_grads(
+                f"background {tag}",
+                lambda m, v: e1.background_ipe(m, v, hit, 0, 10, True, 0.1, recurrent=True),
+                lambda m, v: encoding.background_ipe_cm(m, v, hit, 0, 10, True, 0.1,
+                                                        recurrent=True),
+                (mean, var), g)
+            g = torch.randn((63, b, s), generator=gen).to(dev)
+            bwd["windowed"] = enc_grads(
+                f"windowed {tag}",
+                lambda m, v: e1.windowed_ipe(m, v, 0, 10, 3.7, recurrent=True),
+                lambda m, v: encoding.windowed_ipe_cm(m, v, 0, 10, 3.7, recurrent=True),
+                (mean, var), g)
+            g = torch.randn((b, 27), generator=gen).to(dev)
+            bwd["view"] = enc_grads(
+                f"view [{b}, 3]", lambda d: e1.view_pe(d, 4),
+                lambda d: encoding.pos_enc(d, 0, 4, append_identity=True), (dirs,), g)
+            del g
+            calls = {
+                "windowed": (lambda: e1.windowed_ipe(mean, var, 0, 10, 10.0, recurrent=True),
+                             lambda: encoding.windowed_ipe_cm(mean, var, 0, 10, 10.0,
+                                                              recurrent=True),
+                             e1.Spec(e1.WINDOWED, 0, 10), b * s),
+                "background": (lambda: e1.background_ipe(mean, var, hit, 0, 10, True, 0.1,
+                                                         recurrent=True),
+                               lambda: encoding.background_ipe_cm(mean, var, hit, 0, 10, True,
+                                                                  0.1, recurrent=True),
+                               e1.Spec(e1.BACKGROUND, 0, 10, hit=hit), b * s),
+                "view": (lambda: e1.view_pe(dirs, 4),
+                         lambda: encoding.pos_enc(dirs, 0, 4, append_identity=True),
+                         e1.Spec(e1.VIEW, 0, 4), b),
+            }
+            for mode, (kernel, plain, spec, n) in calls.items():
+                ms, plain_ms = time_ms(kernel, iters=20), time_ms(plain, iters=5)
+                device_ms = enc_device_ms(kernel)
+                nbytes = enc_bytes(spec, n)
+                bound_ms, bound_by = bound(0.0, nbytes)
+                times[mode] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, roofline=bound_ms / device_ms,
+                                   bwd_rel_l2=bwd[mode])
+                print(f"E1 {mode} {tag if mode != 'view' else f'[{b}, 3]'}: wrapper {ms:.4f} ms, "
+                      f"kernel {device_ms:.4f} ms ({nbytes / device_ms / 1e6:.1f} GB/s, "
+                      f"{100 * bound_ms / device_ms:.1f}% of the bound), plain {plain_ms:.3f} ms, "
+                      f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.4f} GB) ({card})")
+        del mean, var, hit, dirs, got, ref
+        torch.cuda.empty_cache()
+    # The flagship step: 2 x levels + 1 forward launches a step, the view
+    # once, no backward (nothing before the encodings needs a gradient).
+    step_fn, state, batch = train_entry(dev, batch_size=TRAIN_BATCH, obj_capacity=OBJ_CAPACITY)
+    state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    e1.encode.launches = e1.encode_bwd.launches = 0
+    e1.encode.mode_launches.clear()
+    for _ in range(ENC_STEPS):
+        state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    levels = state.config.model.num_levels
+    modes = dict(e1.encode.mode_launches)
+    print(f"E1 on the flagship step: {e1.encode.launches} launches in {ENC_STEPS} steps "
+          f"{modes}, backward {e1.encode_bwd.launches}")
+    want = {"windowed": levels * ENC_STEPS, "background": levels * ENC_STEPS, "view": ENC_STEPS}
+    if e1.encode.launches != (2 * levels + 1) * ENC_STEPS or modes != want \
+            or e1.encode_bwd.launches != 0:
+        raise SystemExit(f"E1 launches on the flagship step: {modes}, expected {want}")
+    metrics.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    counts = metrics.counters()
+    syncs = sum(e.name in SYNC_CALLS for e in prof.events())
+    share = counts.get("enc.kernel_samples", 0) / counts["enc.samples"]
+    print(f"E1 on a traced flagship step: enc.kernel_samples / enc.samples = "
+          f"{counts.get('enc.kernel_samples', 0)} / {counts['enc.samples']} = {100 * share:.1f}%; "
+          f"host syncs in the step {syncs}")
+    if share != 1.0:
+        raise SystemExit("E1 did not encode every sample of the flagship step")
+    del step_fn, state, batch
+    torch.cuda.empty_cache()
+    nums = dict(max_abs_err=worst, modes=times,
+                ms=times["windowed"]["ms"] + times["background"]["ms"],
+                plain_ms=times["windowed"]["plain_ms"] + times["background"]["plain_ms"],
+                bound_ms=times["windowed"]["bound_ms"] + times["background"]["bound_ms"],
+                bound_by="bytes", syncs_per_step=syncs)
+    return nums, e1.encode.launches // ENC_STEPS
+
+
 def check_bench(card):
     """python -m durf_tpu_torch.bench --steps 10, its JSON line beside the
     card's name and power limit."""
@@ -2642,7 +2891,7 @@ def check_tools(dev, card):
 
 
 PHASES = ("kernels", "gated", "slice", "train", "exact", "per_object", "centering", "descent",
-          "plain", "proposal", "app", "apps", "pipelines", "multigpu", "bench", "tools")
+          "plain", "proposal", "app", "apps", "pipelines", "multigpu", "bench", "tools", "encode")
 
 
 def main(argv=None) -> int:
@@ -2736,6 +2985,8 @@ def main(argv=None) -> int:
     tools = {}
     if "tools" in only:
         tools = check_tools(dev, smi)
+    if "encode" in only:
+        nums["E1"], launches["E1"] = check_encode(dev, smi)
     if only != set(PHASES):
         print(f"chip_smoke: partial run ({sorted(only)}), no result line")
         return 0
@@ -2757,6 +3008,8 @@ def main(argv=None) -> int:
                    "durf_tpu_torch/csrc/fused_mlp.cu", "durf_tpu/ops/pallas/fused_mlp.py:389"),
         "K2-128": ("K2 fused_nerf_mlp_bwd at 128/128 (per-object route, proposal MLP)",
                    "durf_tpu_torch/csrc/fused_mlp_bwd.cu", "durf_tpu/ops/pallas/fused_mlp.py:562"),
+        "E1": ("E1 encode (windowed IPE; mask, contraction and IPE; view PE)",
+               "durf_tpu_torch/csrc/encode.cu", "none: XLA fuses the JAX package's encodings"),
     }
     # K1-128 and K2-128: launches from the proposal step, and beside them
     # those of the per-object route's step.

@@ -28,6 +28,10 @@ randomness from one `torch.Generator`, threaded through the levels. With
 and world-frame weights for the trainer's grid update. Under a torch
 profiler the stages are spans (metrics.span): `durf.model.boxes` once, then
 per level `durf.model.sample`, `objects`, `encode`, `mlp` and `composite`.
+On coordinate-major samples the encodings run E1 (ops/kernels/encode.py:
+the windowed IPE, the background's mask + contraction + IPE, the view
+encoding, each one pass on the card); the row-major and full-covariance
+pipelines keep the plain functions of ops/encoding.py.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from durf_tpu_torch.configs import ModelConfig
 from durf_tpu_torch.devices import resolve_device
 from durf_tpu_torch.models.mlp import NerfMLP, get_activation
 from durf_tpu_torch.ops import grid as gridops
+from durf_tpu_torch.ops.kernels import encode as e1
 from durf_tpu_torch.ops.kernels import obj_mlp as k3
 from durf_tpu_torch.mathx import draw
 from durf_tpu_torch.parallel.group import Group
@@ -185,11 +190,11 @@ class MipNerf(nn.Module):
                 near = torch.maximum(near, rays.near).detach()
                 far = torch.minimum(torch.maximum(far, near + 1e-3), rays.far).detach()
 
-            viewdirs_enc = (
-                ops.pos_enc(rays.viewdirs, 0, cfg.deg_view, append_identity=True)
-                if cfg.use_viewdirs
-                else None
-            )
+            viewdirs_enc = None
+            if cfg.use_viewdirs and self.cm:
+                viewdirs_enc = e1.view_pe(rays.viewdirs, cfg.deg_view)
+            elif cfg.use_viewdirs:
+                viewdirs_enc = ops.pos_enc(rays.viewdirs, 0, cfg.deg_view, append_identity=True)
 
             if self.dynamic:
                 anyhit = hit.sum(dim=-1) > 0  # [B]
@@ -258,33 +263,32 @@ class MipNerf(nn.Module):
                         planes(mean), planes(obj_densities), hit, ext, group
                     )
                     level_out["obj_hit_rays"] = anyhit.sum().to(torch.float32)
-                    # The background sees the complement mask, clamped at 0: a ray
-                    # hitting two boxes would otherwise flip the covariance
-                    # negative (reference obbpose_model.py:205).
-                    bkgd = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0).detach()
-                    if self.cm:
-                        mask = bkgd[None, :, None]  # over [3, B, S]
-                        mean, cov = mask * mean, mask * cov
-                    else:
+                    if not self.cm:
+                        # The background sees the complement mask, clamped at 0:
+                        # a ray hitting two boxes would otherwise flip the
+                        # covariance negative (reference obbpose_model.py:205).
+                        # On [3, B, S] planes E1 applies it.
+                        bkgd = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0).detach()
                         mask = bkgd[:, None, None]  # over [B, S, 3]
                         mean, cov = mask * mean, (mask if self.diag else mask[..., None]) * cov
 
             with metrics.span("durf.model.encode"):
-                if cfg.contraction:
-                    if self.diag:
+                enc_kwargs = dict(safe=not cfg.fast_trig, recurrent=cfg.recurrent_encode)
+                if self.cm:
+                    samples_enc = e1.background_ipe(
+                        mean, cov, hit if self.dynamic else None, cfg.min_deg_point,
+                        cfg.max_deg_point, cfg.contraction, cfg.contract_threshold, **enc_kwargs,
+                    )
+                else:
+                    if cfg.contraction and self.diag:
                         mean, cov = ops.contract_gaussian_diag(
-                            mean, cov, threshold=cfg.contract_threshold, dim=0 if self.cm else -1
+                            mean, cov, threshold=cfg.contract_threshold
                         )
-                    else:
+                    elif cfg.contraction:
                         mean, cov = ops.contract_gaussian(
                             mean, cov, threshold=cfg.contract_threshold
                         )
-                enc_kwargs = dict(safe=not cfg.fast_trig, recurrent=cfg.recurrent_encode)
-                if self.cm:
-                    samples_enc = ops.integrated_pos_enc_cm(
-                        mean, cov, cfg.min_deg_point, cfg.max_deg_point, **enc_kwargs
-                    )
-                else:
+                    metrics.count("enc.samples", mean.numel() // 3)
                     samples_enc = ops.integrated_pos_enc(
                         (mean, cov), cfg.min_deg_point, cfg.max_deg_point, diag=self.diag,
                         **enc_kwargs,
@@ -408,16 +412,17 @@ class MipNerf(nn.Module):
         )
         gate = hit.T[..., None]  # [N_obj, B, 1]
         if self.cm:
-            enc = ops.windowed_ipe_cm(mean, cov, **enc_kwargs)
+            enc = e1.windowed_ipe(mean, cov, **enc_kwargs)
             if cfg.use_pallas_mlp and cfg.fused_objects and viewdirs_enc is not None:
                 return k3.obj_mlps_apply(
                     self.object_mlps.operands(), cfg.box_mlp, enc, viewdirs_enc, hit, dtype
                 )
             zero = torch.zeros((3, 1, 1), dtype=mean.dtype, device=mean.device)
-            c0 = ops.windowed_ipe_cm(zero, zero, **enc_kwargs)  # [F, 1, 1]
+            c0 = e1.windowed_ipe(zero, zero, **enc_kwargs)  # [F, 1, 1]
             obj_rgb, obj_density = self.object_mlps(enc, viewdirs_enc, gate, c0)
             hit_fm = hit.T[:, None, :, None]  # [N_obj, 1, B, 1] over [N_obj, C, B, S]
             return (hit_fm * obj_rgb).sum(dim=0), (hit_fm * obj_density).sum(dim=0)
+        metrics.count("enc.samples", mean.shape[0] * mean.shape[1] + 1)  # the samples and c0
         enc = ops.windowed_ipe((mean, cov), diag=self.diag, **enc_kwargs)
         zero = torch.zeros((1, 1, 3), dtype=mean.dtype, device=mean.device)
         zero_cov = zero if self.diag else torch.zeros((1, 1, 3, 3), dtype=mean.dtype, device=mean.device)

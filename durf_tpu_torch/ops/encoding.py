@@ -15,6 +15,7 @@ import math
 import torch
 
 from durf_tpu_torch import mathx
+from durf_tpu_torch.ops.contraction import contract_gaussian_diag
 
 # The recurrent IPE restarts from fresh transcendentals every _RESTART
 # degrees, so the squaring / double-angle chains never amplify a seed's
@@ -246,3 +247,21 @@ def windowed_ipe_cm(
     sin_p = [w[i // dims] * p for i, p in enumerate(sin_p)]
     cos_p = [w[i // dims] * p for i, p in enumerate(cos_p)]
     return torch.stack(list(x.unbind(0)) + sin_p + cos_p, dim=0)
+
+
+def background_ipe_cm(
+    x, x_var, hit, min_deg: int, max_deg: int, contraction: bool, threshold: float = 0.1,
+    safe: bool = True, recurrent: bool = False,
+) -> torch.Tensor:
+    """The background MLP's input from coordinate-major samples ([3, B, S]
+    mean and variance diagonal): with `hit` ([B, N_obj] 0/1) the samples
+    masked by the complement clamp(1 - sum_o hit_o, 0) of their ray (a ray
+    hitting two boxes would otherwise flip the covariance negative,
+    reference obbpose_model.py:205), then with `contraction`
+    contract_gaussian_diag, then integrated_pos_enc_cm: [F, B, S]."""
+    if hit is not None:
+        mask = torch.clamp(1.0 - hit.sum(dim=-1), min=0.0).detach()[None, :, None]
+        x, x_var = mask * x, mask * x_var
+    if contraction:
+        x, x_var = contract_gaussian_diag(x, x_var, threshold=threshold, dim=0)
+    return integrated_pos_enc_cm(x, x_var, min_deg, max_deg, safe, recurrent)

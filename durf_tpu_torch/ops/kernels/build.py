@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "durf_tpu_torch_kernels"
 SOURCES = (
     "fused_mlp", "obj_mlp", "fused_mlp_gated", "fused_mlp_bwd", "obj_mlp_bwd",
-    "fused_mlp_gated_bwd",
+    "fused_mlp_gated_bwd", "encode",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
