@@ -7,7 +7,12 @@ own size, many seeds in one process:
   control: the reference in fp8 (e4m3, one scale per tensor: the precision
     below the configuration's bf16) put in the program's place;
   half_batch (training): the reference on the first half of each batch,
-    its means taken over that half, put in the program's place.
+    its means taken over that half, put in the program's place;
+  pose_frozen, window_bwd_zeroed (training, where the configuration
+    trains the box poses): the reference with the pose table frozen
+    (translation and rotation), and with the objects' windowed encoding
+    cut from its inputs (the photometric pose gradient lost, the
+    box-surface prior's kept), put in the program's place.
 A state left unchanged reads 1 on change_gap and needs no run.
 
     python3 portbench/control.py --workload <cell> --seeds 11,12,13 [--program_seeds 1-12]
@@ -60,7 +65,10 @@ def train_readings(run: harness.Run, program: bool, control: bool) -> dict:
     if control:
         x = train_mode.Inputs(run)
         ref = x.reference()
-        for what, kw in (("control", {"precision": "fp8"}), ("half_batch", {"half": True})):
+        kinds = [("control", {"precision": "fp8"}), ("half_batch", {"half": True})]
+        if "pose_rows" in ref:
+            kinds += [(f, {"fault": f}) for f in train_mode.FAULTS]
+        for what, kw in kinds:
             out[what] = compare.train_numbers(x.reference(**kw), ref)
     return out
 

@@ -13,7 +13,22 @@ it draws itself from the same inputs, with the same random draws.
 The traffic is a scene (traffic/): written to disk and trained through the
 app's data path (get_dataset, its auto capacity, device-resident pools,
 each step's batch drawn by device_data.sample_batch); the reference reads
-the same raw scene and draws the same rows.
+the same raw scene and draws the same rows, instance ids and object ids
+with them.
+
+A cell may start mid-run: the traffic's `start_step` (default 0) is the
+step both sides begin at, for the schedules (learning rate, eps, the
+objects' frequency window alpha), the batch draws and each step's random
+stream, and Adam's count. It stands for a run resumed from its checkpoint
+of that step whose optimizer moments were not carried: the weights are
+the seed's, and Adam's moments and bias correction start afresh on both
+sides.
+
+Where the configuration trains the box poses, the readings also keep the
+pose table's first gradient as Adam got it and its change as vectors; the
+reference keeps besides, for each row (timestep) the check steps drew, its
+gradient as Adam got it at the first step that drew the row, from which
+compare.py picks the entries whose change it compares.
 """
 
 from __future__ import annotations
@@ -34,6 +49,19 @@ STEP_SEED = 20200823
 CHECK_STEPS = 3
 BETA1 = 0.9
 POSE = "box_centers"
+
+
+def trains_pose(c: dict) -> bool:
+    """Whether the configuration trains the box poses (translation or yaw)."""
+    m = c["model"]
+    return m["dynamics"] and not (m["no_pose_opt"] and m["no_yaw_opt"])
+
+
+# Planted faults of the reference in the program's place (control.py and
+# the tests): the pose table frozen (translation and rotation); the
+# objects' encoding cut from its inputs, which drops the photometric pose
+# gradient and keeps the prior's.
+FAULTS = ("pose_frozen", "window_bwd_zeroed")
 
 
 def reference_shapes(c: dict, n_obj: int, timesteps: int) -> list:
@@ -63,6 +91,7 @@ class Inputs:
         self.t = run.workload["traffic"]
         c = self.c = cells.run_config(run.config, run.workload)
         self.batch = self.t["batch"]
+        self.start_step = self.t.get("start_step", 0)
         self.sample_seed = run.seed % (1 << 31)
         self.scene = traffic.Scene(self.t)
         self.w = weights.make(reference_shapes(c, self.scene.n_obj, self.scene.timesteps), run.seed, dev)
@@ -85,31 +114,57 @@ class Inputs:
         return self._read
 
     def ref_batch(self, i: int, half: bool = False) -> dict:
-        """The reference's batch of step i (its first half with `half`)."""
+        """The reference's batch of step i (its first half with `half`):
+        the drawn rows (their instance ids `inst` where the scene has
+        usable masks), the timestep's boxes and the object ids 1..N_obj."""
         pools, ext = self.read()["pools"], self.read()["ext"]
         counts = [p["pixels"].shape[0] for p in pools]
         ts, idx = ref_scene.draw(len(pools), counts, self.batch, self.sample_seed, i, self.device)
         n = self.batch // (2 if half else 1)
         rows = {k: v.index_select(0, idx[:n]) for k, v in pools[ts].items()}
-        return {"rays": ref_nerf.Rays(*(rows[k] for k in traffic.RAY_KEYS)), "pixels": rows["pixels"],
-                "depth": rows["depth"], "sky": rows["sky"], "ext": ext[ts], "ts": ts}
+        out = {"rays": ref_nerf.Rays(*(rows[k] for k in traffic.RAY_KEYS)), "pixels": rows["pixels"],
+               "depth": rows["depth"], "sky": rows["sky"], "ext": ext[ts], "ts": ts}
+        if "inst" in rows:
+            out["inst"] = rows["inst"]
+        if ext.shape[1] > 0:
+            out["obj_ids"] = torch.arange(1, ext.shape[1] + 1, dtype=torch.int32, device=self.device)
+        return out
 
-    def reference(self, precision="float32", half=False) -> dict:
-        """The reference's readings of CHECK_STEPS steps."""
+    def reference(self, precision="float32", half=False, fault=None) -> dict:
+        """The reference's readings of CHECK_STEPS steps from `start_step`
+        (with `fault`, one of FAULTS, planted)."""
         ref_nerf.strict_fp32()
         c, r = self.c, self.read()
+        if fault == "pose_frozen":
+            c = {**c, "model": {**c["model"], "no_pose_opt": True, "no_yaw_opt": True}}
         model = ref_nerf.MipNerf(c["model"], r["init"].shape[1], r["init"].shape[0]).to(self.device)
+        model.window_grad = fault != "window_bwd_zeroed"
         weights.load(model, {**self.w, POSE: r["init"]})
-        opt = ref_step.ScheduledAdam(c, list(model.named_parameters()))
+        opt = ref_step.ScheduledAdam(c, list(model.named_parameters()), start=self.start_step)
         p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        pose = trains_pose(self.c) and model.dynamic
         out = {"loss": []}
+        if pose:
+            out["pose_rows"] = []
+            out["pose_first_grad"] = torch.zeros_like(p0[POSE], device="cpu")
         for i in range(CHECK_STEPS):
-            loss, grads = ref_step.train_step(model, opt, c, self.ref_batch(i, half), i, STEP_SEED,
+            step = self.start_step + i
+            batch = self.ref_batch(step, half)
+            loss, grads = ref_step.train_step(model, opt, c, batch, step, STEP_SEED,
                                               precision=precision, capacity=r["capacity"])
             out["loss"].append(loss)
             if i == 0:
                 out["grad"] = {n: float(g.norm()) for n, g in grads.items()}
+                if pose:
+                    out["pose_grad"] = grads[POSE].detach().cpu()
+            if pose:
+                row = batch["ts"]
+                if row not in out["pose_rows"]:
+                    out["pose_first_grad"][row] = grads[POSE][row].detach().cpu()
+                out["pose_rows"].append(row)
         out["change"] = {n: float((p.detach() - p0[n]).norm()) for n, p in model.named_parameters()}
+        if pose:
+            out["pose_change"] = (model.box_centers.detach() - p0[POSE]).cpu()
         return out
 
 
@@ -133,11 +188,14 @@ class Driver:
         p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
         opt = ptrain.make_optimizer(pc, model)
         self.state = ptrain.create_train_state(pc, model, opt)
+        start = x.start_step
+        self.state.step = opt.count = start
         self.step_fn = ptrain.make_train_step(model, pc, opt, seed=STEP_SEED)
         self.losses = []
         self.readings = {"loss": []}
+        pose = trains_pose(x.c) and POSE in p0
         for i in range(CHECK_STEPS):
-            self.step(self.draw(i))
+            self.step(self.draw(start + i))
             self.readings["loss"].append(float(self.losses[-1]))
             if i == 0:
                 # A parameter Adam has no state for got no gradient.
@@ -146,9 +204,14 @@ class Driver:
                     if "exp_avg" in opt.opt.state[p] else 0.0
                     for n, p in model.named_parameters()
                 }
+                if pose:
+                    self.readings["pose_grad"] = (opt.opt.state[model.box_centers]["exp_avg"]
+                                                  / (1.0 - BETA1)).cpu()
         self.readings["change"] = {n: float((p.detach() - p0[n]).norm())
                                    for n, p in model.named_parameters()}
-        self.done = CHECK_STEPS
+        if pose:
+            self.readings["pose_change"] = (model.box_centers.detach() - p0[POSE]).cpu()
+        self.done = start + CHECK_STEPS
         self.losses = []
 
     def _load_scene(self, ptrain):

@@ -385,6 +385,9 @@ class MipNerf(nn.Module):
         if self.dynamic:
             self.object_mlps = NerfMLP(cfg["box_mlp"], 3 + ipe, cond, num_stack=num_objects)
             self.box_centers = nn.Parameter(torch.zeros((timesteps, num_objects, 6)))
+        # False cuts the objects' encoding from its inputs, so no gradient
+        # reaches the samples (or the pose) through it: a planted fault.
+        self.window_grad = True
         self.use_proposal = cfg["use_proposal"] and cfg["num_levels"] > 1
         if self.use_proposal:
             self.proposal_mlp = NerfMLP(cfg["proposal_mlp"], ipe, cond)
@@ -493,6 +496,8 @@ class MipNerf(nn.Module):
             hit_c, venc_c = hit.index_select(0, idx), venc.index_select(0, idx)
         else:
             mean_c, cov_c, hit_c, venc_c = mean, cov, hit, venc
+        if not self.window_grad:
+            mean_c, cov_c = mean_c.detach(), cov_c.detach()
         sin_p, cos_p = ipe_pieces(mean_c, cov_c, cfg["min_deg_point"], cfg["max_deg_point"],
                                   cfg["recurrent_encode"], not cfg["fast_trig"])
         w = barf_window(alpha, cfg["min_deg_point"], cfg["max_deg_point"], mean.dtype, mean.device)

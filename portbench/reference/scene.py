@@ -10,7 +10,9 @@ scaled by 1/5; box poses mapped into that frame, rotations stored as the
 rotation vector of the world->object rotation, the initial table noised by
 `box_noise` under `random_box` (numpy's default_rng(20201473)); depth / 5,
 sky masks set to 0.975; pinhole rays with radii from the x-neighbour
-directions (no NDC: the Waymo presets spherify). The Waymo split keeps
+directions (no NDC: the Waymo presets spherify); each image's instance ids
+kept when every image of the split has a mask of its size and one of them
+names an object (the port's Scene.inst_usable). The Waymo split keeps
 images 10 and 12 for test; the render split holds all of them.
 """
 
@@ -101,8 +103,9 @@ RAY_KEYS = ("origins", "directions", "viewdirs", "radii", "lossmult", "near", "f
 
 def load(raw: dict, c: dict, split: str) -> dict:
     """One split of the raw scene: per image its rays, pixels, depth and sky
-    ([H, W, C] numpy), its 1-based timestep, and the box tables: `init` [T,
-    N_obj, 6] (the noised poses under random_box), `ext` [T, N_obj, 3]."""
+    ([H, W, C] numpy) and, where usable, its instance ids `inst` ([H, W, 1]
+    int32), its 1-based timestep, and the box tables: `init` [T, N_obj, 6]
+    (the noised poses under random_box), `ext` [T, N_obj, 3]."""
     f = c["factor"]
     poses = raw["poses_hwf"].astype(np.float32).copy()
     n = poses.shape[0]
@@ -127,6 +130,10 @@ def load(raw: dict, c: dict, split: str) -> dict:
                              for t in range(1, total + 1)]),
            "ext": np.stack([np.stack([boxes[f"{t}_{o}_ext"] for o in range(1, n_obj + 1)])
                             for t in range(1, total + 1)])}
+    masks = raw.get("inst")
+    use_inst = (n_obj > 0 and masks is not None and len(masks) == n
+                and all(masks[i].shape == raw["images"][i].shape[:2] for i in idx)
+                and any(masks[i].any() for i in idx))
     for i in idx:
         d = raw["depth"][i].astype(np.float32).copy()
         d[d > 0.0] = d[d > 0.0] / WORLD_SCALE
@@ -138,19 +145,22 @@ def load(raw: dict, c: dict, split: str) -> dict:
             "pixels": raw["images"][i].astype(np.float32)[..., :3] / 255.0,
             "depth": d[..., None], "sky": s[..., None],
         })
+        if use_inst:
+            out["images"][-1]["inst"] = masks[i].astype(np.int32)[..., None]
     return out
 
 
 def pools(split: dict, device) -> list:
     """Per timestep (0-based), the train rows of its images in order, as
-    device tensors {field: [N_t, C]}."""
+    device tensors {field: [N_t, C]}; `inst` when the images carry it."""
     out = []
     for t in range(1, split["total_timesteps"] + 1):
         imgs = [im for im, ts in zip(split["images"], split["timesteps"]) if ts == t]
         rows = {k: np.concatenate([im["rays"][k].reshape(-1, im["rays"][k].shape[-1]) for im in imgs])
                 for k in RAY_KEYS}
-        for k in ("pixels", "depth", "sky"):
-            rows[k] = np.concatenate([im[k].reshape(-1, im[k].shape[-1]) for im in imgs])
+        for k in ("pixels", "depth", "sky", "inst"):
+            if k in imgs[0]:
+                rows[k] = np.concatenate([im[k].reshape(-1, im[k].shape[-1]) for im in imgs])
         out.append({k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in rows.items()})
     return out
 

@@ -173,9 +173,10 @@ def compute_losses(c, levels: List[Dict[str, Any]], batch, prev_pose, eps):
 
 class ScheduledAdam:
     """Adam (betas 0.9 / 0.999, eps 1e-8) in two groups, the fields and the
-    pose table, each at lr(count + 1) times its group's scale."""
+    pose table, each at lr(count + 1) times its group's scale; `count`
+    starts at `start` (the schedules' step), the moments at zero."""
 
-    def __init__(self, c, named_params):
+    def __init__(self, c, named_params, start: int = 0):
         self.c = c
         fields = [p for n, p in named_params if n != POSE_PARAM]
         pose = [p for n, p in named_params if n == POSE_PARAM]
@@ -183,7 +184,7 @@ class ScheduledAdam:
         if pose:
             groups.append({"params": pose, "name": "pose"})
         self.opt = torch.optim.Adam(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
-        self.count = 0
+        self.count = start
 
     def _window(self, count):
         c = self.c

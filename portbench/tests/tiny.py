@@ -12,10 +12,11 @@ from portbench import cells, harness
 
 
 def tiny_run(name: str, seconds: float = 0.5, traced: bool = False, seed: int = 3,
-             dtype: str = "float32", plain: bool = False) -> harness.Run:
+             dtype: str = "float32", plain: bool = False, root=cells.ROOT) -> harness.Run:
     """The cell at a tiny size; `plain` runs the port's MLPs on its plain
-    route in `dtype` (the kernels' CPU versions round to bf16)."""
-    cell = cells.cell(name)
+    route in `dtype` (the kernels' CPU versions round to bf16); `root`
+    holds the BENCHMARK.json that names the cell."""
+    cell = cells.cell(name, root)
     w, c = copy.deepcopy(cell["workload"]), copy.deepcopy(cell["config"])
     m = c["config"]["model"]
     m.update(num_samples=8, max_deg_point=4, deg_view=2, compute_dtype=dtype)
