@@ -22,7 +22,15 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      weight and bias gradient) finite and within relative L2 2e-2, and two
      calls on the same inputs bitwise equal; at 4096 x 128 also the whole
      autograd Function (K1 then K2, with the per-ray condition product)
-     against autograd of the plain forward, and its time and bound;
+     against autograd of the plain forward, and its time and bound; at
+     the first training cell's per-level shape (N = 16384 x 128) K1 with
+     save against its plain version, the relu masks it saves as bits
+     equal to its saved activations > 0 packed on the card, bitwise, in
+     every trunk and head layer, K2 with and without dx against the plain
+     backward (relative L2 2e-2) and two calls bitwise equal, the k2.*
+     counters under a profiler read a share of 1 (every launch handed the
+     bit plane), and the device ms of K1 with save, K2's tile kernel and
+     its dW products print beside their bytes bounds;
   5. K3 (objects-in-grid MLP forward, the wgmma + TMA kernel that skips
      the (tile, object) pairs no ray hits) like K1 at N_obj = 2, 4, 8 and
      hit shares 1.0, 0.5, 0.03 (N = 8192 x 128), at 1000 x 77, and at the
@@ -216,9 +224,13 @@ TOL = 2e-2
 K1_SHAPES = ((8192, 128), (1000, 77))
 K3_RAYS, K3_SAMPLES, K3_OBJECTS = 8192, 128, (2, 4, 8)
 SLICE_SIZE, SLICE_CHUNK = 128, 8192
-# Backward checks: the training step's shape (4096 rays x 128 samples) and
-# one that is not a tile multiple; K4 at these object counts.
+# Backward checks: the training phases' batch (TRAIN_BATCH rays x 128
+# samples) and one that is not a tile multiple; K4 at these object counts.
 BWD_SHAPES = ((4096, 128), (1000, 77))
+# The first training cell's per-level shape (flagship.train-b16384: 16384
+# rays x 128 samples), where K1 with save and K2 are checked against their
+# plain versions, K1's mask plane bitwise, and both are timed.
+CELL_SHAPE = (16384, 128)
 K4_OBJECTS = (2, 4, 8)
 # Relative L2 error per backward output: bf16 operands, float32 sums in
 # another order, and isolated relu flips.
@@ -283,6 +295,33 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, names, calls: int = 3, launches: int = 1, tries: int = 3) -> dict:
+    """Device milliseconds a call of fn spends in the kernels whose names
+    hold each of `names`, each launched `launches` times a call, from
+    torch.profiler's kernel times (a small call's wrapper time is the
+    host's launch cost). A reading in which the profiler recorded another
+    number of launches of some name than calls x launches is dropped and
+    taken again; after `tries` such readings this raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        seen = {name: [e for e in events if name in e.key] for name in names}
+        counts = {name: sum(e.count for e in es) for name, es in seen.items()}
+        if all(c == calls * launches for c in counts.values()):
+            return {name: sum(getattr(e, "device_time_total", 0) for e in es) / calls / 1e3
+                    for name, es in seen.items()}
+    raise SystemExit(f"the profiler recorded {counts} launches, not {calls * launches} of each, "
+                     f"in {tries} readings")
 
 
 def bound(flops: float, nbytes: float):
@@ -604,6 +643,123 @@ def check_k2(dev, gen):
         del x, cond, cond_lin, g_rgb, g_den, res
         torch.cuda.empty_cache()
     return result
+
+
+def check_k2_masks(dev, gen):
+    """K1 with save and K2 at the first training cell's per-level shape:
+    K1's outputs against its plain version (TOL); the relu-mask plane
+    against the saved activations > 0 packed on the card, bitwise, layer by
+    layer; K2 without and with dx against the plain backward (BWD_TOL) and
+    two calls bitwise equal; the k2.* counters under a profiler; device ms
+    of K1 with save, K2's tile kernel and its dW products beside their
+    bytes bounds."""
+    import torch
+
+    from durf_tpu_torch import metrics
+    from durf_tpu_torch.configs import MLPConfig
+    from durf_tpu_torch.ops.kernels import fused_mlp as k1
+    from durf_tpu_torch.ops.kernels import hopper_mlp as hm
+
+    cfg, f_in, f_c = MLPConfig(), 60, 27
+    b, s = CELL_SHAPE
+    n = b * s
+    d, dc = cfg.net_depth, cfg.net_depth_condition
+    w = random_mlp(cfg, f_in, f_c, None, gen, dev)
+    x = (2 * torch.rand((f_in, n), generator=gen) - 1).to(dev)
+    cond = (2 * torch.rand((b, f_c), generator=gen) - 1).to(dev)
+    cond_lin = k1.cond_linear(cond, w[k1.head0_index(cfg)], cfg).contiguous()
+    g_rgb = torch.randn((3, n), generator=gen).to(dev)
+    g_den = torch.randn((1, n), generator=gen).to(dev)
+    rgb, den, res = k1._k1_launch(x, cond_lin, w, cfg, s, save=True)
+    torch.cuda.synchronize()
+    # The plain versions over BWD_SHAPES[0]'s rays at a time (the plain
+    # backward holds every layer's float32 activations): the forward's
+    # largest error, and the backward's outputs whole (dx and d cond_lin
+    # joined, the gradients summed over the chunks).
+    step = BWD_SHAPES[0][0]
+    err, ref_dx, ref_dcond, ref_grads = 0.0, [], [], None
+    for r0 in range(0, b, step):
+        rays, cols = slice(r0, r0 + step), slice(r0 * s, (r0 + step) * s)
+        ref = k1.fused_nerf_mlp_reference(x[:, cols], cond[rays], w, cfg, s)
+        err = max(err, max_err((rgb[:, cols], den[:, cols]), ref))
+        dx_c, dcond_c, grads_c = k1.fused_nerf_mlp_bwd_reference(
+            x[:, cols], cond_lin[rays], w, cfg, s, g_rgb[:, cols], g_den[:, cols])
+        ref_dx.append(dx_c)
+        ref_dcond.append(dcond_c)
+        ref_grads = grads_c if ref_grads is None else [a + c for a, c in zip(ref_grads, grads_c)]
+        del ref, dx_c, dcond_c, grads_c
+    ref_dx, ref_dcond = torch.cat(ref_dx, 1), torch.cat(ref_dcond)
+    finite = all(bool(torch.isfinite(t).all()) for t in (rgb, den))
+    print(f"K1 with save N={n} (B={b}, S={s}): max_abs_err {err:.3e} against the plain forward, "
+          f"finite={finite}")
+    if not finite or err > TOL:
+        raise SystemExit(f"K1 with save at the cell's shape disagrees with its plain version: "
+                         f"{err} > {TOL}")
+    del rgb, den
+    _, act, act_offs, _, _, _, (words, mask_offs) = res
+    tiles = -(-n // hm.ROWS)
+    segs = list(range(d)) + [d + 1 + i for i in range(dc)]
+    for seg, off in zip(segs, mask_offs):
+        cols = cfg.net_width if seg < d else cfg.net_width_condition
+        active = torch.zeros((tiles * hm.ROWS, cols), dtype=torch.bool, device=dev)
+        active[:n] = act[act_offs[seg] :][: n * cols].view(n, cols) > 0
+        want = hm.pack_masks(active)
+        got = words[off:][: want.numel()]
+        if not torch.equal(got, want):
+            raise SystemExit(f"K1's mask plane differs from its saved activations > 0 in segment "
+                             f"{seg}: {int((got != want).sum())} of {want.numel()} words")
+        del active, want
+    mask_bytes = 4 * words.numel()
+    print(f"K1 N={n} (B={b}, S={s}): the relu-mask plane ({mask_bytes / n:.1f} B a sample, "
+          f"{mask_bytes / 1e9:.3f} GB) equals the saved activations > 0 packed, bitwise, in all "
+          f"{len(segs)} layers")
+    for need_dx in (False, True):
+        one = k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s, need_dx=need_dx)
+        two = k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s, need_dx=need_dx)
+        torch.cuda.synchronize()
+        flat = lambda o: [t for t in (o[0], o[1], *o[2]) if t is not None]  # noqa: E731
+        same = all(torch.equal(p, q) for p, q in zip(flat(one), flat(two)))
+        finite = all(bool(torch.isfinite(t).all()) for t in flat(one))
+        print(f"K2 N={n} need_dx={need_dx}: two calls bitwise equal: {same}, finite={finite}")
+        if not same or not finite:
+            raise SystemExit("K2 at the cell's shape is not bitwise reproducible or not finite")
+        want = ([ref_dx] if need_dx else []) + [ref_dcond, *ref_grads]
+        compare_grads(f"K2 fused_nerf_mlp_bwd N={n} need_dx={need_dx} against the plain backward",
+                      flat(one), want, ("dx", "dcond_lin") if need_dx else ("dcond_lin",))
+        del one, two, want
+    del ref_dx, ref_dcond, ref_grads
+    metrics.counters()
+    bwd = lambda: k1.fused_nerf_mlp_bwd(res, g_rgb, g_den, w, cfg, s, need_dx=False)  # noqa: E731
+    ms = kernel_device_ms(bwd, ("wide_mlp_bwd_kernel<2>", "wide_dw_kernel<2"))
+    counts = metrics.counters()
+    share = counts.get("k2.mask_bit_samples", 0) / max(counts.get("k2.samples", 0), 1)
+    print(f"K2 under a profiler: k2.mask_bit_samples / k2.samples = "
+          f"{counts.get('k2.mask_bit_samples', 0)} / {counts.get('k2.samples', 0)} = {share}")
+    if share != 1.0:
+        raise SystemExit("K2's launches were not handed the relu masks' bit plane for every sample")
+    # Bytes each must move, every input read once: the tile kernel reads the
+    # masks and the head cotangents and writes G; the dW products read
+    # x_save, the activations and G; K1 reads x and writes the outputs,
+    # x_save, the activations and the masks.
+    g_cols = sum(k1.g_widths(cfg))
+    _, act_stride = k1.act_layout(cfg, n)
+    saved = 2.0 * (k1.x_cols(cfg, f_in) * n + act_stride)
+    tile_bytes = mask_bytes + 4.0 * 4 * n + 2.0 * g_cols * n
+    dw_bytes = saved + 2.0 * g_cols * n
+    k1_bytes_ = 4.0 * (f_in + 4) * n + saved + mask_bytes
+    fwd = lambda: k1._k1_launch(x, cond_lin, w, cfg, s, save=True)  # noqa: E731
+    ms.update(kernel_device_ms(fwd, ("wide_mlp_fwd_kernel<1>",)))
+    out = {}
+    for name, key, nbytes in (("K1 save", "wide_mlp_fwd_kernel<1>", k1_bytes_),
+                              ("K2 tile", "wide_mlp_bwd_kernel<2>", tile_bytes),
+                              ("K2 dW", "wide_dw_kernel<2", dw_bytes)):
+        bound_ms = 1e3 * nbytes / PEAK_BYTES
+        print(f"{name} N={n}: device {ms[key]:.3f} ms, bytes bound {bound_ms:.3f} ms "
+              f"({nbytes / 1e9:.3f} GB, {nbytes / ms[key] / 1e6:.0f} GB/s)")
+        out[name] = dict(device_ms=ms[key], bound_ms=bound_ms, gb=nbytes / 1e9)
+    del res, words, act, x, cond, cond_lin, g_rgb, g_den
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_k4(dev, gen):
@@ -2403,25 +2559,6 @@ def enc_bytes(spec, n: int) -> int:
     return 4 * n * (6 + spec.features()) + hit
 
 
-def enc_device_ms(fn, calls: int = 10) -> float:
-    """E1's device milliseconds a call of fn, from torch.profiler's kernel
-    times (a small call's wrapper time is the host's launch cost)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-             if "encode_fwd" in e.key)
-    if us <= 0:
-        raise SystemExit("E1: the profiler saw no encode_fwd kernel")
-    return us / calls / 1e3
-
-
 def check_encode(dev, card):
     """E1 (csrc/encode.cu) against the plain compositions of ops/encoding.py
     on the card: each mode and form forward at ENC_SHAPES, bitwise or within
@@ -2505,7 +2642,7 @@ def check_encode(dev, card):
             }
             for mode, (kernel, plain, spec, n) in calls.items():
                 ms, plain_ms = time_ms(kernel, iters=20), time_ms(plain, iters=5)
-                device_ms = enc_device_ms(kernel)
+                device_ms = kernel_device_ms(kernel, ("encode_fwd",), calls=10)["encode_fwd"]
                 nbytes = enc_bytes(spec, n)
                 bound_ms, bound_by = bound(0.0, nbytes)
                 times[mode] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
@@ -2943,6 +3080,7 @@ def main(argv=None) -> int:
     if "kernels" in only:
         nums["K1"] = check_k1(dev, gen)
         nums["K2"] = check_k2(dev, gen)
+        nums["K2"]["cell_shape"] = check_k2_masks(dev, gen)
         nums["K3"] = check_k3(dev, gen)
         nums["K4"] = check_k4(dev, gen)
         nums["K1-128"] = check_k1_object_width(dev, gen)

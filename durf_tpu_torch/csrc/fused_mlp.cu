@@ -19,7 +19,9 @@
 // also writes the input tile and every stored activation in bf16 to device
 // memory (save_x / save_act), the residuals K2 (fused_mlp_bwd.cu) reads:
 // 2432 columns a sample at the flagship width, so with `save` its bound is
-// the bytes of that save.
+// the bytes of that save. The wide build also writes the relu masks of the
+// trunk and head layers as bits (save_mask: 272 bytes a sample), which K2's
+// tile kernel reads in place of the activations.
 //
 // Three builds: at the flagship widths (256 / 128) wide_mlp_fwd_kernel of
 // mlp_wide.cuh, wgmma products whose weight slices arrive by TMA through an
@@ -79,12 +81,14 @@ static int launch(const float* x, const float* cond, const bf16* w, const float*
 // K1 at 256 / 128 (mlp_wide.cuh): the tensor maps and the slice schedule
 // come from the Python side (specs, slices; ops/kernels/hopper_mlp.py).
 static int launch_wide(const float* x, const float* cond, const bf16* w, const float* b, float* rgb,
-                       float* den, bf16* save_x, bf16* save_act, const bf16* wt, long long n,
-                       int s_per_ray, const MlpDesc& d, const long long* specs, int n_specs,
+                       float* den, bf16* save_x, bf16* save_act, uint32_t* save_mask,
+                       const long long* mask_off, const bf16* wt, long long n, int s_per_ray,
+                       const MlpDesc& d, const long long* specs, int n_specs,
                        const long long* slices, int n_slices, cudaStream_t stream) {
   wide::WideDesc wd;
-  wide::fill_desc(wd, d, n, s_per_ray);
-  if (wt == nullptr || wd.xc > 2 || n >= wide::MAX_SAMPLES || n_slices != wide::fwd_slices(wd))
+  wide::fill_desc(wd, d, n, s_per_ray, mask_off);
+  if (wt == nullptr || wd.xc > 2 || n >= wide::MAX_SAMPLES || n_slices != wide::fwd_slices(wd) ||
+      (save_x != nullptr && (save_mask == nullptr || mask_off == nullptr)))
     return -1;
   wide::Plan plan;
   const void* bases[5] = {save_x, save_act, nullptr, nullptr, wt};
@@ -95,7 +99,7 @@ static int launch_wide(const float* x, const float* cond, const bf16* w, const f
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long grid = (n + wide::ROWS - 1) / wide::ROWS;
-  kern<<<(unsigned)grid, wide::THREADS_TILE, smem, stream>>>(x, cond, w, b, rgb, den,
+  kern<<<(unsigned)grid, wide::THREADS_TILE, smem, stream>>>(x, cond, w, b, rgb, den, save_mask,
                                                             save_x != nullptr, plan, wd);
   return (int)cudaGetLastError();
 }
@@ -110,7 +114,8 @@ extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const 
                                        int wc, int depth_cond, int n_rgb, int n_den,
                                        const long long* w_off, const long long* b_off,
                                        int n_layers, void* save_x, void* save_act,
-                                       const long long* act_off, int n_act, const void* wt,
+                                       const long long* act_off, int n_act, void* save_mask,
+                                       const long long* mask_off, const void* wt,
                                        const long long* specs, int n_specs,
                                        const long long* slices, int n_slices, void* stream) {
   MlpDesc d;
@@ -122,8 +127,9 @@ extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const 
   auto sa = static_cast<durf::bf16*>(save_act);
   auto s = static_cast<cudaStream_t>(stream);
   if (width == 256 && wc == 128)
-    return durf::launch_wide(x, cond, wb, b, rgb, den, sx, sa, static_cast<const durf::bf16*>(wt),
-                             n, s_per_ray, d, specs, n_specs, slices, n_slices, s);
+    return durf::launch_wide(x, cond, wb, b, rgb, den, sx, sa, static_cast<uint32_t*>(save_mask),
+                             mask_off, static_cast<const durf::bf16*>(wt), n, s_per_ray, d, specs,
+                             n_specs, slices, n_slices, s);
   if (width == 128 && wc == 128) {  // one object: K3's maps and schedule (hopper_mlp.obj_fwd_plan)
     durf::obj::ObjDesc od;
     if (durf::obj::make_desc(od, in_dim, width, depth, skip, wc, depth_cond, n_rgb, n_den, w_off,

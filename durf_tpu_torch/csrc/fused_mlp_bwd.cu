@@ -7,12 +7,15 @@
 // ray) and fp32 gradients of every weight and bias. head_0's condition rows
 // get theirs from autograd through the per-ray product outside the kernel.
 //
-// Bound on the H100: operations for its products (the dX and dW products,
-// twice the forward's 1.18 MFLOP per sample at the flagship width, ~1.24
-// TFLOP at N = 4096 x 128, 1.25 ms at the bf16 peak), but the split design
-// below moves ~10 GB a launch at that shape (the saved activations read for
-// the masks and the dW products, each layer's cotangent written and read
-// back), ~3 ms at full bandwidth.
+// Bound on the H100: bytes. Its products (the dX and dW products, twice
+// the forward's 1.18 MFLOP per sample at the flagship width) take 5.0 ms at
+// the bf16 peak at N = 16384 x 128, but the split design below moves ~32 GB
+// a launch at that shape, 9.4 ms at full bandwidth: the tile kernel reads
+// the relu masks as bits (272 bytes a sample) and writes each layer's
+// cotangent G (4896), and the dW products read G back with the saved
+// activations (x_save and act, 4992). Fusing dW into the tile kernel would
+// drop G's round trip, but one tile's fp32 partial of one 256 x 256 layer
+// is 256 KB, more than an SM holds.
 //
 // What the TPU design relied on that Hopper lacks, and what this design does:
 //  * A sequential grid carried the weight-gradient sums: the TPU kernel
@@ -24,8 +27,9 @@
 //  * The recomputed activations and vjp residuals lived in ~18 MB of VMEM;
 //    an SM has 227 KB and one 64-sample tile's activations alone are
 //    311 KB. K1 writes them (bf16) to device memory when called from the
-//    autograd Function's forward, and this kernel reads them back for the
-//    relu masks and the dW products instead of recomputing.
+//    autograd Function's forward, with their relu masks as bits, and this
+//    kernel reads the masks back for the walk and the activations for the
+//    dW products instead of recomputing.
 //  * A tile held whole rays: d cond_lin is a per-ray sum, taken here by
 //    ray_sum_kernel over the head_0 cotangent rows for any samples-per-ray.
 // Two builds, both wgmma + TMA, both with no transposed weight pack (B is
@@ -52,15 +56,14 @@ int bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const Ga
   if (d.width == 128 && d.wc == 128) return obj::launch_narrow_bwd<2>(a, d, e, ga, wa, stream);
   if (d.width != 256 || d.wc != 128) return -2;
   wide::WideDesc wd;
-  wide::fill_desc(wd, d, a.n, a.s_per_ray);
-  wd.act_last = d.act_off[d.depth + d.depth_cond];
+  wide::fill_desc(wd, d, a.n, a.s_per_ray, wa.mask_off);
   wd.g_rgb = e.g_off[d.depth + 2 + d.depth_cond];
   wd.g_den = e.g_off[d.depth];
-  if (a.jobs_host == nullptr || wd.xc > 2 || a.n >= wide::MAX_SAMPLES ||
-      wa.n_slices != wide::bwd_slices(wd, a.dx != nullptr))
+  if (a.jobs_host == nullptr || wd.xc > 2 || a.n >= wide::MAX_SAMPLES || wa.mask == nullptr ||
+      wa.mask_off == nullptr || wa.n_slices != wide::bwd_slices(wd, a.dx != nullptr))
     return -1;
   wide::Plan plan;
-  const void* bases[5] = {a.x_save, a.act, a.g, a.w, nullptr};
+  const void* bases[5] = {a.x_save, nullptr, a.g, a.w, nullptr};
   int err = wide::make_plan(plan, wa.specs, wa.n_specs, wa.slices, wa.n_slices, bases);
   if (err != 0) return err;
   wide::DwPlan dwp;
@@ -72,7 +75,7 @@ int bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const Ga
   cudaError_t ce = cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
   const long long grid = (a.n + wide::ROWS - 1) / wide::ROWS;
-  tile<<<(unsigned)grid, wide::THREADS_TILE, smem, stream>>>(a.g_rgb, a.g_den, a.w, a.act, a.g,
+  tile<<<(unsigned)grid, wide::THREADS_TILE, smem, stream>>>(a.g_rgb, a.g_den, a.w, wa.mask, a.g,
                                                              a.dx, plan, wd);
   if ((err = (int)cudaGetLastError()) != 0) return err;
 

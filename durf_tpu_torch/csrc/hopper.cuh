@@ -100,6 +100,19 @@ __device__ __forceinline__ void tma_store_commit() {
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+// One thread's copy of `bytes` (4, 8 or 16) from device memory into its own
+// shared memory, in a cp.async group of its own; cp_async_wait makes every
+// such copy of the thread land.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               "cp.async.commit_group;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 // Generic-proxy writes to shared memory become visible to TMA and wgmma.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

@@ -134,12 +134,15 @@ int launch_ray_sum(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, cudaStr
 }
 
 // The producer's schedule (specs, slices) of the wgmma + TMA tile kernels,
-// as the Python side built it.
+// as the Python side built it; for K2 at the flagship widths also the relu
+// masks K1 saved as bits and each layer's word offset (wide::MaskWords).
 struct WideArgs {
   const long long* specs;
   int n_specs;
   const long long* slices;
   int n_slices;
+  const uint32_t* mask = nullptr;
+  const long long* mask_off = nullptr;
 };
 
 // The launches of one backward: each .cu that expands DURF_DEFINE_BWD_ENTRY
@@ -176,7 +179,8 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
 }  // namespace durf
 
 // The C entry point NAME of K2 (TAG 2) and K6 (TAG 6); each .cu expands it
-// once. The gate pointers (gx .. dfill) are null except for K6.
+// once. The gate pointers (gx .. dfill) are null except for K6; the masks
+// (mask, mask_off) except for K2 at the flagship widths.
 #define DURF_DEFINE_BWD_ENTRY(NAME, TAG)                                                         \
   extern "C" int NAME(                                                                           \
       const float* g_rgb, const float* g_den, long long n_rays, const void* w, const void* act,  \
@@ -186,8 +190,8 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
       int width, int depth, int skip, int wc, int depth_cond, int n_rgb, int n_den,              \
       const long long* w_off, const long long* act_off, const long long* g_off, int n_layers,    \
       const void* gx, const float* gate, const void* gfill, float* dgate, float* dfill_part,     \
-      float* dfill, const long long* specs, int n_specs, const long long* slices, int n_slices,  \
-      void* stream) {                                                                            \
+      float* dfill, const void* mask, const long long* mask_off, const long long* specs,         \
+      int n_specs, const long long* slices, int n_slices, void* stream) {                        \
     durf::MlpDesc d;                                                                             \
     durf::BwdDesc e;                                                                             \
     int err = durf::make_bwd_descs(d, e, in_dim, width, depth, skip, wc, depth_cond, n_rgb,      \
@@ -215,6 +219,7 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
                     s_per_ray};                                                                  \
     durf::GateArgs ga{static_cast<const durf::bf16*>(gx), gate,                                  \
                       static_cast<const durf::bf16*>(gfill), dgate, dfill_part, dfill};          \
-    durf::WideArgs wa{specs, n_specs, slices, n_slices};                                         \
+    durf::WideArgs wa{specs, n_specs, slices, n_slices, static_cast<const uint32_t*>(mask),      \
+                      mask_off};                                                                 \
     return durf::bwd_launch<TAG>(a, d, e, ga, wa, static_cast<cudaStream_t>(stream));            \
   }

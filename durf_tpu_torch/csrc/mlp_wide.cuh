@@ -21,14 +21,20 @@
 //    in the swizzled layout wgmma reads as its A operand; each layer's
 //    epilogue (bias, per-ray condition rows for head_0, relu, bf16) writes
 //    them back in place, and with `save` a TMA store sends the same tile to
-//    the activation workspace while the next layer's product runs. B is the
-//    transposed weight pack, K-major.
+//    the activation workspace while the next layer's product runs, and the
+//    epilogue writes the layer's relu mask, one bit a value (MaskWords). B
+//    is the transposed weight pack, K-major.
 //  * wide_mlp_bwd_kernel (K2's tile kernel): the reverse walk. G_l (bf16)
 //    in shared memory is A; B is the forward pack, which is already the
-//    K-major operand of G_l W_l^T. The saved activation tile of layer l - 1
-//    arrives by TMA while layer l's product runs, so the relu mask is read
-//    from shared memory; G_{l-1} goes out by a TMA store from the tile the
-//    next product reads.
+//    K-major operand of G_l W_l^T. The relu mask of layer l - 1 comes from
+//    K1's bit plane, each thread's words copied (cp.async) into its own 16
+//    bytes of shared memory while layer l's product runs: the walk reads
+//    272 bytes a sample of masks where the bf16 activations it used to test
+//    would be 4352, and the 64 KB the activation tile took deepen the
+//    weight ring from 3 to 4 stages. Its bound is then the bytes of G it
+//    writes (4896 a sample at the flagship widths), with the weight slices
+//    streaming from L2 for every tile. G_{l-1} goes out by a TMA store from
+//    the tile the next product reads.
 //  * wide_dw_kernel (K2's, K4's and K6's weight gradients): dW = A^T G over a slice of
 //    samples per block, 128 x N output tiles (N = the layer's 64, 128 or
 //    256 columns) over the two warpgroups, both operands MN-major (samples
@@ -56,7 +62,8 @@ constexpr int THREADS_DW = 288;           // 2 consumer warpgroups + 1 producer 
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int CONSUMER_WARPS = 8;
 constexpr int SLICE_BYTES = 32768;        // one weight slice: <= 256 rows x 64 columns
-constexpr int FWD_STAGES = 4, BWD_STAGES = 3;
+constexpr int FWD_STAGES = 4, BWD_STAGES = 4;
+constexpr int MASK_SLOTS = 256 * 16;      // K2: each consumer thread's 16 bytes of mask words
 // Kept so that a launch's parameters stay within 4 KB.
 constexpr int MAX_MAPS = 16, MAX_SLICES = 64, MAX_JOBS = 14;
 constexpr int TILE_BYTES = ROWS * W * 2;  // a 128 x 256 bf16 tile
@@ -68,10 +75,10 @@ constexpr int DW_STAGES = 4;
 // Buffer ids of MapSpec::buf.
 enum { BUF_XSAVE = 0, BUF_ACT = 1, BUF_G = 2, BUF_W = 3, BUF_WT = 4 };
 // Fixed map slots: K1's x_save, activation (trunk and bottleneck), head
-// activation maps; K2's activation, head activation, cotangent, head
-// cotangent maps. Weight maps follow.
+// activation maps; K2's cotangent (trunk and bottleneck) and head cotangent
+// maps. Weight maps follow.
 enum { F_XSAVE = 0, F_ACT = 1, F_ACT_HEAD = 2 };
-enum { B_ACT = 0, B_ACT_HEAD = 1, B_G = 2, B_G_HEAD = 3 };
+enum { B_G = 0, B_G_HEAD = 1 };
 
 struct Slice {
   int spec, c0, c1, c2;
@@ -95,8 +102,8 @@ struct WideDesc {
   long long n;
   long long b_off[MAX_LAYERS];  // fp32 bias offsets
   long long w_off[MAX_LAYERS];  // bf16 forward-pack offsets
-  long long act_last;           // K2: element offset of head_{dc-1}'s saved activations
   long long g_rgb, g_den;       // K2: element offsets of the 8-wide head cotangent rows
+  long long m_off[MAX_LAYERS];  // word offsets of the relu masks: trunk_0.., head_0..
 };
 
 __host__ __device__ inline bool reads_x(const WideDesc& d, int i) {
@@ -253,14 +260,98 @@ __device__ __forceinline__ float ld_bf(const unsigned char* tile, int row, int c
   return __bfloat162float(*reinterpret_cast<const bf16*>(tile + swz(ROWS, row, col)));
 }
 
+// ---- the relu masks K1 saves for K2's tile kernel ----
+//
+// One bit per (sample, column) of trunk_0..depth-1 and head_0..dc-1: the
+// stored bf16 activation > 0, the test the backward's relu makes. The words
+// follow the accumulator's layout, so that each consumer thread writes, and
+// later reads, its own words with no exchange: for a layer of N columns,
+// the 128 rows of tile b are 4 N words from m_off + 4 N b (4 KB at 256, 2 KB
+// at 128), thread p = 128 wg + t holding N / 64 of them from N p / 64 on;
+// its word i N / 128 + h holds columns acc_col(t, 16 h + jj) and acc_col + 1
+// of row 64 wg + acc_row(t, i) in bits jj and 16 + jj. Rows at or past n are
+// 0. ops/kernels/hopper_mlp.py (mask_layout, pack_masks) describes the same
+// order.
+template <int N>
+struct MaskWords {
+  uint32_t w[N / 64];
+};
+
+// The thread's words of the layer whose masks start at word `off`.
+template <int N>
+__device__ __forceinline__ uint32_t* mask_words(const uint32_t* plane, long long off, int wg,
+                                                int t) {
+  return const_cast<uint32_t*>(plane) + off + (long long)blockIdx.x * (ROWS * N / 32) +
+         (128 * wg + t) * (N / 64);
+}
+
+// K1: the two mask bits of a bf16 pair after the relu (bits 15 and 31 of
+// the result). A relu output is +0, -0 (0x8000), positive or +inf, never
+// NaN (fmaxf returns the other operand), so "> 0" is "some bit of the 15
+// below the sign is set and the sign is clear": adding 0x7fff carries into
+// bit 15 exactly then, and no half carries into the other.
+__device__ __forceinline__ uint32_t relu_bits(__nv_bfloat162 h) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(&h);
+  return (u + 0x7fff7fffu) & ~u & 0x80008000u;
+}
+
+// A streaming store (evict first): K2 reads the words a whole forward
+// later, and L2 keeps the weight slices every tile streams.
+template <int N>
+__device__ __forceinline__ void store_mask(uint32_t* p, const MaskWords<N>& m) {
+  if constexpr (N == 256)
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(m.w[0], m.w[1], m.w[2], m.w[3]));
+  else
+    __stcs(reinterpret_cast<uint2*>(p), make_uint2(m.w[0], m.w[1]));
+}
+
+// K2: the thread's words of a layer, copied into its own 16 bytes of shared
+// memory while the product runs; cp.async holds no register meanwhile, and
+// the epilogue reads a word where it used to read an activation pair.
+template <int N>
+struct SlotMask {
+  const uint32_t* words;  // the thread's slot, in shared memory
+};
+template <int N>
+__device__ __forceinline__ void fetch_mask(unsigned char* slot, const uint32_t* p) {
+  hop::cp_async<N / 16>(slot, p);
+}
+// The slot once the copy has landed.
+template <int N>
+__device__ __forceinline__ SlotMask<N> take_mask(const unsigned char* slot) {
+  hop::cp_async_wait();
+  return SlotMask<N>{reinterpret_cast<const uint32_t*>(slot)};
+}
+
+// relu' of columns col and col + 1 of the thread's fragment row i, column
+// pair j (bit 0: col, bit 1: col + 1): from an activation tile in shared
+// memory (K4, and K2 at 128 / 128), or from the mask words K1 saved.
+__device__ __forceinline__ unsigned relu_pair(const unsigned char* tile, int row, int col, int,
+                                              int) {
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(tile + swz(ROWS, row, col));
+  return (__low2float(a) > 0.f ? 1u : 0u) | (__high2float(a) > 0.f ? 2u : 0u);
+}
+template <int N>
+__device__ __forceinline__ unsigned relu_pair(SlotMask<N> m, int, int, int i, int j) {
+  const uint32_t w = m.words[i * (N / 128) + j / 16] >> (j % 16);
+  return (w & 1u) | ((w >> 15) & 2u);
+}
+
 // ---- K1 ----
 
 // tile[row, col] = bf16(act(acc + bias[col] + cond[ray(row), col])); COND:
-// add the per-ray condition rows, RELU: apply relu.
-template <int N, bool RELU, bool COND>
-__device__ void fwd_epilogue(const float (&acc)[N / 2], unsigned char* __restrict__ tile,
-                             const float* __restrict__ bias, const float* __restrict__ cond,
-                             long long tile0, long long n, int s_per_ray, int wg, int t) {
+// add the per-ray condition rows, RELU: apply relu; BITS: also return the
+// thread's mask words (stored value > 0; 0 at or past n), which the caller
+// stores once the tile is out of the way of the next product.
+template <int N, bool RELU, bool COND, bool BITS>
+__device__ __forceinline__ MaskWords<N> fwd_epilogue_(const float (&acc)[N / 2],
+                                                      unsigned char* __restrict__ tile,
+                                                      const float* __restrict__ bias,
+                                                      const float* __restrict__ cond,
+                                                      long long tile0, long long n, int s_per_ray,
+                                                      int wg, int t) {
+  static_assert(!BITS || (RELU && (N == 128 || N == 256)), "masks of the wide relu layers only");
+  MaskWords<N> m{};
   const float* crow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -285,9 +376,37 @@ __device__ void fwd_epilogue(const float (&acc)[N / 2], unsigned char* __restric
         v0 = fmaxf(v0, 0.f);
         v1 = fmaxf(v1, 0.f);
       }
-      *reinterpret_cast<__nv_bfloat162*>(tile + swz(ROWS, row, col)) = __floats2bfloat162_rn(v0, v1);
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(tile + swz(ROWS, row, col)) = h;
+      if constexpr (BITS) {  // 16 pairs a word, in j order: pair jj ends at bits jj, 16 + jj
+        uint32_t& w = m.w[i * (N / 128) + j / 16];
+        w = (w >> 1) + relu_bits(h);
+      }
     }
   }
+  if constexpr (BITS) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (tile0 + 64 * wg + acc_row(t, i) >= n)
+#pragma unroll
+        for (int h = 0; h < N / 128; ++h) m.w[i * (N / 128) + h] = 0u;
+  }
+  return m;
+}
+
+// fwd_epilogue_, forming mask words where `bits` (K1 with `save`, at the
+// relu layers): a branch at run time, so that a forward that saves nothing
+// runs the epilogue it ran before.
+template <int N, bool RELU, bool COND>
+__device__ __forceinline__ MaskWords<N> fwd_epilogue(const float (&acc)[N / 2],
+                                                     unsigned char* __restrict__ tile,
+                                                     const float* __restrict__ bias,
+                                                     const float* __restrict__ cond,
+                                                     long long tile0, long long n, int s_per_ray,
+                                                     int wg, int t, bool bits = false) {
+  if constexpr (RELU && (N == 128 || N == 256))
+    if (bits) return fwd_epilogue_<N, RELU, COND, true>(acc, tile, bias, cond, tile0, n, s_per_ray, wg, t);
+  return fwd_epilogue_<N, RELU, COND, false>(acc, tile, bias, cond, tile0, n, s_per_ray, wg, t);
 }
 
 // A C <= 4 wide head on the CUDA cores over k columns of the tile: two
@@ -314,7 +433,8 @@ template <int TAG>
 __global__ void __launch_bounds__(THREADS_TILE, 1)
     wide_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cond,
                         const bf16* __restrict__ w, const float* __restrict__ b,
-                        float* __restrict__ rgb_out, float* __restrict__ den_out, int save,
+                        float* __restrict__ rgb_out, float* __restrict__ den_out,
+                        uint32_t* __restrict__ mask, int save,
                         const __grid_constant__ Plan plan, const __grid_constant__ WideDesc d) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* act = align1024(smem_raw);
@@ -367,9 +487,13 @@ __global__ void __launch_bounds__(THREADS_TILE, 1)
       if (i > 0) product<W, FWD_STAGES, true>(acc, act, W / 64, ring, wg);
       if (reads_x(d, i)) product<W, FWD_STAGES, true>(acc, xt, d.xc, ring, wg);  // concat(h, x) @ k
       before_overwrite(wg, t);
-      fwd_epilogue<W, true, false>(acc, act, b + d.b_off[i], cond, tile0, n, d.s_per_ray, wg, t);
+      const MaskWords<W> m = fwd_epilogue<W, true, false>(acc, act, b + d.b_off[i], cond, tile0, n,
+                                                          d.s_per_ray, wg, t, save);
       after_write(wg);
-      if (save) store_rows(&plan.maps[F_ACT], act, W / 64, tile0, i, wg, t);
+      if (save) {
+        store_rows(&plan.maps[F_ACT], act, W / 64, tile0, i, wg, t);
+        store_mask<W>(mask_words<W>(mask, d.m_off[i], wg, t), m);
+      }
     }
     float den[4];
     small_head_wide(act, W, w + d.w_off[d.depth], b + d.b_off[d.depth], d.n_den, wg, t, den);
@@ -390,14 +514,16 @@ __global__ void __launch_bounds__(THREADS_TILE, 1)
       zero(acc);
       product<WC, FWD_STAGES, true>(acc, act, (i == 0 ? W : WC) / 64, ring, wg);
       before_overwrite(wg, t);
-      if (i == 0)
-        fwd_epilogue<WC, true, true>(acc, act, b + d.b_off[d.depth + 2], cond, tile0, n,
-                                     d.s_per_ray, wg, t);
-      else
-        fwd_epilogue<WC, true, false>(acc, act, b + d.b_off[d.depth + 2 + i], cond, tile0, n,
-                                      d.s_per_ray, wg, t);
+      const MaskWords<WC> m =
+          i == 0 ? fwd_epilogue<WC, true, true>(acc, act, b + d.b_off[d.depth + 2], cond, tile0, n,
+                                                d.s_per_ray, wg, t, save)
+                 : fwd_epilogue<WC, true, false>(acc, act, b + d.b_off[d.depth + 2 + i], cond,
+                                                 tile0, n, d.s_per_ray, wg, t, save);
       after_write(wg);
-      if (save) store_rows(&plan.maps[F_ACT_HEAD], act, WC / 64, tile0, i, wg, t);
+      if (save) {
+        store_rows(&plan.maps[F_ACT_HEAD], act, WC / 64, tile0, i, wg, t);
+        store_mask<WC>(mask_words<WC>(mask, d.m_off[d.depth + i], wg, t), m);
+      }
     }
   }
   float rgb[4];
@@ -413,13 +539,14 @@ __global__ void __launch_bounds__(THREADS_TILE, 1)
 // ---- K2: the tile kernel ----
 
 // G tile[row, col] = bf16(relu'(row, col) * (acc + den_term)), MASK: relu'
-// from the activation tile `mask`; DEN: den_term = sum_c gd_c w_den[col][c]
+// from `mask` (relu_pair: an activation tile in shared memory, or the
+// thread's mask words); DEN: den_term = sum_c gd_c w_den[col][c]
 // with gd_c = bf16(h g_den[c][sample]) (n_den <= 4), h = hit[ray] with HIT
 // (the object's 0/1 gate, S samples a ray), else 1. Rows at or past n
 // become 0.
-template <int N, bool MASK, bool DEN, bool HIT = false>
+template <int N, bool MASK, bool DEN, bool HIT = false, class Mask = const unsigned char*>
 __device__ void bwd_epilogue(const float (&acc)[N / 2], unsigned char* __restrict__ gt,
-                             const unsigned char* __restrict__ mask, const float* __restrict__ g_den,
+                             Mask mask, const float* __restrict__ g_den,
                              const bf16* __restrict__ w_den, int n_den, long long tile0,
                              long long n, int wg, int t, const float* __restrict__ hit = nullptr,
                              int s_per_ray = 1) {
@@ -454,10 +581,10 @@ __device__ void bwd_epilogue(const float (&acc)[N / 2], unsigned char* __restric
           v1 = fmaf(gd[i][c], wd1[c], v1);
         }
       }
-      if (MASK) {
-        const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(mask + swz(ROWS, row, col));
-        if (!(__low2float(a) > 0.f)) v0 = 0.f;
-        if (!(__high2float(a) > 0.f)) v1 = 0.f;
+      if constexpr (MASK) {
+        const unsigned on = relu_pair(mask, row, col, i, j);
+        if (!(on & 1u)) v0 = 0.f;
+        if (!(on & 2u)) v1 = 0.f;
       }
       if (!valid[i]) v0 = v1 = 0.f;
       *reinterpret_cast<__nv_bfloat162*>(gt + swz(ROWS, row, col)) = __floats2bfloat162_rn(v0, v1);
@@ -501,13 +628,16 @@ __device__ void dx_accumulate(const float (&acc)[32], float* dx, int c, int in_d
 // sum_c gr_c w_rgb[k][c]) with gr_c = bf16(h g_rgb[c][sample]); also the
 // rounded head cotangents bf16(h g) as 8-wide rows of G_rgb and G_den; h =
 // hit[ray] with HIT, else 1. `scratch` (2 KB of the warpgroup's own shared
-// memory) holds w_rgb as fp32 [WC][4].
-template <bool HIT = false>
+// memory) holds w_rgb as fp32 [WC][4]. BITS: the masks come from head
+// dc-1's mask words of the tile, from `bits` (a row's 128 columns are one
+// word of each of 4 threads), not from act_last.
+template <bool HIT = false, bool BITS = false>
 __device__ void rgb_head_bwd_wide(unsigned char* gt, float* scratch, const bf16* act_last,
                                   const bf16* w_rgb, int n_rgb, const float* g_rgb,
                                   const float* g_den, int n_den, bf16* g_rgb_out, bf16* g_den_out,
                                   long long tile0, long long n, int wg, int t,
-                                  const float* hit = nullptr, int s_per_ray = 1) {
+                                  const float* hit = nullptr, int s_per_ray = 1,
+                                  const uint32_t* bits = nullptr) {
   for (int i = t; i < WC * 4; i += 128)
     scratch[i] = (i & 3) < n_rgb ? __bfloat162float(w_rgb[(i >> 2) * n_rgb + (i & 3)]) : 0.f;
   hop::named_sync(1 + wg, 128);
@@ -518,14 +648,24 @@ __device__ void rgb_head_bwd_wide(unsigned char* gt, float* scratch, const bf16*
   float gr[4] = {0.f, 0.f, 0.f, 0.f};
   for (int c = 0; valid && c < n_rgb; ++c) gr[c] = bf16_round(h * g_rgb[c * n + sample]);
   const int k0 = half * (WC / 2);
-  uint4 a8s[WC / 16];  // this thread's activations, loaded ahead of the stores
+  uint4 a8s[BITS ? 1 : WC / 16];  // this thread's activations, loaded ahead of the stores
+  uint32_t mw[4];  // BITS: columns k0 + 8 jj + 2 q (+ 1) in bits jj (16 + jj) of mw[q]
+  if constexpr (BITS) {
+    // Row r of the warpgroup is fragment row i = (r / 8) % 2 of threads
+    // 32 (r / 16) + 4 (r % 8) + q, q < 4; bits 8.. and 24.. hold columns 64..
+    const int r = t >> 1;
+    const uint32_t* p = bits + (128 * wg + 32 * (r >> 4) + 4 * (r & 7)) * (WC / 64) + ((r >> 3) & 1);
 #pragma unroll
-  for (int kb = 0; kb < WC / 2; kb += 8)
-    a8s[kb / 8] = valid ? *reinterpret_cast<const uint4*>(act_last + sample * WC + k0 + kb)
-                        : make_uint4(0, 0, 0, 0);
+    for (int q = 0; q < 4; ++q) mw[q] = valid ? p[q * (WC / 64)] >> (8 * half) : 0u;
+  } else {
+#pragma unroll
+    for (int kb = 0; kb < WC / 2; kb += 8)
+      a8s[kb / 8] = valid ? *reinterpret_cast<const uint4*>(act_last + sample * WC + k0 + kb)
+                          : make_uint4(0, 0, 0, 0);
+  }
 #pragma unroll
   for (int kb = 0; kb < WC / 2; kb += 8) {
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a8s[kb / 8]);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a8s[BITS ? 0 : kb / 8]);
 #pragma unroll
     for (int e = 0; e < 8; e += 2) {
       const int k = k0 + kb + e;
@@ -533,8 +673,17 @@ __device__ void rgb_head_bwd_wide(unsigned char* gt, float* scratch, const bf16*
       const float4 w1 = *reinterpret_cast<const float4*>(scratch + 4 * k + 4);
       float v0 = fmaf(gr[3], w0.w, fmaf(gr[2], w0.z, fmaf(gr[1], w0.y, fmaf(gr[0], w0.x, 0.f))));
       float v1 = fmaf(gr[3], w1.w, fmaf(gr[2], w1.z, fmaf(gr[1], w1.y, fmaf(gr[0], w1.x, 0.f))));
-      if (!valid || !(__low2float(a2[e / 2]) > 0.f)) v0 = 0.f;
-      if (!valid || !(__high2float(a2[e / 2]) > 0.f)) v1 = 0.f;
+      bool on0, on1;
+      if constexpr (BITS) {
+        const uint32_t b = mw[e / 2] >> (kb / 8);
+        on0 = b & 1u;
+        on1 = b & 0x10000u;
+      } else {
+        on0 = __low2float(a2[e / 2]) > 0.f;
+        on1 = __high2float(a2[e / 2]) > 0.f;
+      }
+      if (!valid || !on0) v0 = 0.f;
+      if (!valid || !on1) v1 = 0.f;
       *reinterpret_cast<__nv_bfloat162*>(gt + swz(ROWS, row, k)) = __floats2bfloat162_rn(v0, v1);
     }
   }
@@ -552,23 +701,20 @@ __device__ void rgb_head_bwd_wide(unsigned char* gt, float* scratch, const bf16*
 template <int TAG>
 __global__ void __launch_bounds__(THREADS_TILE, 1)
     wide_mlp_bwd_kernel(const float* __restrict__ g_rgb, const float* __restrict__ g_den,
-                        const bf16* __restrict__ w, const bf16* __restrict__ act,
+                        const bf16* __restrict__ w, const uint32_t* __restrict__ mask,
                         bf16* __restrict__ g, float* __restrict__ dx,
                         const __grid_constant__ Plan plan, const __grid_constant__ WideDesc d) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* gt = align1024(smem_raw);
-  unsigned char* mt = gt + TILE_BYTES;
-  unsigned char* stages = mt + TILE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(stages + BWD_STAGES * SLICE_BYTES);
+  unsigned char* stages = gt + TILE_BYTES;
+  unsigned char* slots = stages + BWD_STAGES * SLICE_BYTES;  // MASK_SLOTS: 16 bytes a thread
+  uint64_t* full = reinterpret_cast<uint64_t*>(slots + MASK_SLOTS);
   uint64_t* empty = full + BWD_STAGES;
-  uint64_t* mbar = empty + BWD_STAGES;  // one per warpgroup: its activation rows
   if (threadIdx.x == 0) {
     for (int s = 0; s < BWD_STAGES; ++s) {
       hop::mbar_init(&full[s], 1);
       hop::mbar_init(&empty[s], CONSUMER_WARPS);
     }
-    hop::mbar_init(&mbar[0], 1);
-    hop::mbar_init(&mbar[1], 1);
     hop::mbar_init_fence();
   }
   __syncthreads();
@@ -581,27 +727,25 @@ __global__ void __launch_bounds__(THREADS_TILE, 1)
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   const long long n = d.n, tile0 = (long long)blockIdx.x * ROWS;
   Ring<BWD_STAGES> ring{stages, full, empty, 0};
-  int mphase = 0;
-  auto wait_mask = [&]() {
-    hop::mbar_wait(&mbar[wg], mphase);
-    mphase ^= 1;
-  };
-  const int l_den = d.depth, l_h0 = d.depth + 2;
+  const int l_den = d.depth, l_h0 = d.depth + 2, m_head = d.depth;
+  unsigned char* slot = slots + 16 * (128 * wg + t);
 
-  rgb_head_bwd_wide(gt, reinterpret_cast<float*>(mt + wg * 64 * 128), act + d.act_last,
-                    w + d.w_off[l_h0 + d.dc], d.n_rgb, g_rgb, g_den, d.n_den, g + d.g_rgb,
-                    g + d.g_den, tile0, n, wg, t);
+  // The rgb head's w_rgb scratch is the warpgroup's 2 KB of mask slots,
+  // whose first copy is issued once all its threads are past the head.
+  rgb_head_bwd_wide<false, true>(
+      gt, reinterpret_cast<float*>(slots + wg * MASK_SLOTS / 2), nullptr, w + d.w_off[l_h0 + d.dc],
+      d.n_rgb, g_rgb, g_den, d.n_den, g + d.g_rgb, g + d.g_den, tile0, n, wg, t, nullptr, 1,
+      mask + d.m_off[m_head + d.dc - 1] + (long long)blockIdx.x * (ROWS * WC / 32));
   after_write(wg);
   store_rows(&plan.maps[B_G_HEAD], gt, WC / 64, tile0, d.dc - 1, wg, t);
   {
     float acc[WC / 2];
     for (int i = d.dc - 1; i >= 1; --i) {  // head_i -> head_{i-1}
-      load_rows(&plan.maps[B_ACT_HEAD], mt, WC / 64, tile0, i - 1, &mbar[wg], wg, t);
+      fetch_mask<WC>(slot, mask_words<WC>(mask, d.m_off[m_head + i - 1], wg, t));
       zero(acc);
       product<WC>(acc, gt, WC / 64, ring, wg);
-      wait_mask();
       before_overwrite(wg, t);
-      bwd_epilogue<WC, true, false>(acc, gt, mt, g_den, w, 0, tile0, n, wg, t);
+      bwd_epilogue<WC, true, false>(acc, gt, take_mask<WC>(slot), g_den, w, 0, tile0, n, wg, t);
       after_write(wg);
       store_rows(&plan.maps[B_G_HEAD], gt, WC / 64, tile0, i - 1, wg, t);
     }
@@ -611,16 +755,16 @@ __global__ void __launch_bounds__(THREADS_TILE, 1)
   zero(acc);
   product<W>(acc, gt, WC / 64, ring, wg);
   before_overwrite(wg, t);
-  bwd_epilogue<W, false, false>(acc, gt, mt, g_den, w, 0, tile0, n, wg, t);
+  bwd_epilogue<W, false, false>(acc, gt, nullptr, g_den, w, 0, tile0, n, wg, t);
   after_write(wg);
   store_rows(&plan.maps[B_G], gt, W / 64, tile0, d.depth, wg, t);
   // bottleneck and density head -> trunk_{depth-1}.
-  load_rows(&plan.maps[B_ACT], mt, W / 64, tile0, d.depth - 1, &mbar[wg], wg, t);
+  fetch_mask<W>(slot, mask_words<W>(mask, d.m_off[d.depth - 1], wg, t));
   zero(acc);
   product<W>(acc, gt, W / 64, ring, wg);
-  wait_mask();
   before_overwrite(wg, t);
-  bwd_epilogue<W, true, true>(acc, gt, mt, g_den, w + d.w_off[l_den], d.n_den, tile0, n, wg, t);
+  bwd_epilogue<W, true, true>(acc, gt, take_mask<W>(slot), g_den, w + d.w_off[l_den], d.n_den,
+                              tile0, n, wg, t);
   after_write(wg);
   store_rows(&plan.maps[B_G], gt, W / 64, tile0, d.depth - 1, wg, t);
   bool dx_first = true;  // the first x-part of the walk stores, later ones add
@@ -635,12 +779,11 @@ __global__ void __launch_bounds__(THREADS_TILE, 1)
       dx_first = false;
     }
     if (i == 0) break;
-    load_rows(&plan.maps[B_ACT], mt, W / 64, tile0, i - 1, &mbar[wg], wg, t);
+    fetch_mask<W>(slot, mask_words<W>(mask, d.m_off[i - 1], wg, t));
     zero(acc);
     product<W>(acc, gt, W / 64, ring, wg);
-    wait_mask();
     before_overwrite(wg, t);
-    bwd_epilogue<W, true, false>(acc, gt, mt, g_den, w, 0, tile0, n, wg, t);
+    bwd_epilogue<W, true, false>(acc, gt, take_mask<W>(slot), g_den, w, 0, tile0, n, wg, t);
     after_write(wg);
     store_rows(&plan.maps[B_G], gt, W / 64, tile0, i - 1, wg, t);
   }
@@ -833,7 +976,9 @@ __global__ void __launch_bounds__(THREADS_DW, 1)
 inline size_t fwd_smem(const WideDesc& d) {
   return 1024 + TILE_BYTES + (size_t)d.xc * ROWS * 128 + FWD_STAGES * SLICE_BYTES + 2 * FWD_STAGES * 8;
 }
-inline size_t bwd_smem() { return 1024 + 2 * TILE_BYTES + BWD_STAGES * SLICE_BYTES + (2 * BWD_STAGES + 2) * 8; }
+inline size_t bwd_smem() {
+  return 1024 + TILE_BYTES + BWD_STAGES * SLICE_BYTES + MASK_SLOTS + 2 * BWD_STAGES * 8;
+}
 // `flags`: K4's per-stage flags (chunk / DW_BK bytes).
 inline size_t dw_smem(size_t flags = 0) { return 1024 + DW_STAGES * DW_STAGE + 2 * DW_STAGES * 8 + flags; }
 
@@ -863,7 +1008,10 @@ inline int make_plan(Plan& plan, const long long* specs, int n_specs, const long
   return 0;
 }
 
-inline void fill_desc(WideDesc& wd, const MlpDesc& d, long long n, int s_per_ray) {
+// mask_off: the relu masks' word offsets (trunk_0.., head_0..), or nullptr
+// where no masks are read or written.
+inline void fill_desc(WideDesc& wd, const MlpDesc& d, long long n, int s_per_ray,
+                      const long long* mask_off) {
   wd = WideDesc{};
   wd.in_dim = d.in_dim;
   wd.xc = (d.in_dim + 63) / 64;
@@ -878,6 +1026,7 @@ inline void fill_desc(WideDesc& wd, const MlpDesc& d, long long n, int s_per_ray
     wd.b_off[l] = d.b_off[l];
     wd.w_off[l] = d.w_off[l];
   }
+  for (int l = 0; mask_off != nullptr && l < d.depth + d.depth_cond; ++l) wd.m_off[l] = mask_off[l];
 }
 
 // The dW maps of every job: A over the rows of x_save or act, G over the

@@ -28,9 +28,10 @@ per ray (bf16 operands, fp32 accumulation, as the JAX kernel computes it per
 sample) outside the kernel, by autograd-visible PyTorch, and added to every
 sample of the ray; its gradient is the per-ray sum of head_0's cotangent.
 
-`FusedNerfMlpFn` runs K1 forward (saving the bf16 activations K2 reads) and
-K2 backward on CUDA tensors, and the plain versions on CPU tensors. On a
-CUDA tensor every wrapper launches its kernel or raises.
+`FusedNerfMlpFn` runs K1 forward (saving the bf16 activations K2 reads, and
+at the flagship widths their relu masks as bits) and K2 backward on CUDA
+tensors, and the plain versions on CPU tensors. On a CUDA tensor every
+wrapper launches its kernel or raises.
 
 K5 (`csrc/fused_mlp_gated.cu`) and K6 (`csrc/fused_mlp_gated_bwd.cu`)
 replace durf_tpu/ops/pallas/fused_mlp.py:fused_nerf_mlp_gated (the same
@@ -51,6 +52,7 @@ import functools
 
 import torch
 
+from durf_tpu_torch import metrics
 from durf_tpu_torch.ops.kernels import build, hopper_mlp
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
@@ -539,7 +541,7 @@ def unpack_grads(flat, weights, config, in_dim: int, stacked: bool):
 def kernel_smem_bytes(config, in_dim: int) -> int:
     """Shared memory of one forward CTA of the mma.sync or wide kernels
     (mirrors smem_bytes in csrc/mlp_tile.cuh, fwd_smem in csrc/mlp_wide.cuh);
-    the wide backward CTA needs 230 KB. The object kernels (csrc/mlp_obj.cuh,
+    the wide backward CTA needs 197 KB. The object kernels (csrc/mlp_obj.cuh,
     also K1, K2, K5 and K6 at 128 / 128) fit at every in_dim they take
     (check_obj_config)."""
     if hopper_mlp.is_wide(config):
@@ -642,16 +644,16 @@ _c = ctypes
 _P, _I, _L = _c.c_void_p, _c.c_int, _c.c_longlong
 _OFFS = _c.POINTER(_c.c_longlong)
 # The forward entry points' shared arguments (K5 prefixes its gate and
-# appends its plan, K1 appends the wide kernel's transposed pack and its
-# plan); the last is the stream.
+# appends its plan, K1 appends the relu masks' plane and word offsets, the
+# wide kernel's transposed pack and its plan); the last is the stream.
 _FWD_ARGTYPES = [_P] * 6 + [_L] + [_I] * 9 + [_OFFS, _OFFS, _I, _P, _P, _OFFS, _I, _P]
 _PLAN_ARGTYPES = [_OFFS, _I, _OFFS, _I]
-_K1_ARGTYPES = _FWD_ARGTYPES[:-1] + [_P] + _PLAN_ARGTYPES + [_P]
+_K1_ARGTYPES = _FWD_ARGTYPES[:-1] + [_P, _OFFS, _P] + _PLAN_ARGTYPES + [_P]
 _K5_ARGTYPES = [_P, _P] + _FWD_ARGTYPES[:-1] + _PLAN_ARGTYPES + [_P]
 # The K2 / K6 entry point (DURF_DEFINE_BWD_ENTRY in csrc/mlp_bwd.cuh).
 BWD_ARGTYPES = (
     [_P, _P, _L] + [_P] * 8 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 9
-    + [_OFFS] * 3 + [_I] + [_P] * 6 + _PLAN_ARGTYPES + [_P]
+    + [_OFFS] * 3 + [_I] + [_P] * 6 + [_P, _OFFS] + _PLAN_ARGTYPES + [_P]
 )
 _NO_PLAN = (None, 0, None, 0)
 
@@ -665,8 +667,9 @@ def _k1_function():
 
 def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
     """Launch K1. Returns (rgb, den, residuals) with residuals = (x_save,
-    act, act offsets, stride, forward weight pack, in_dim) when `save`, else
-    None."""
+    act, act offsets, stride, forward weight pack, in_dim, masks) when
+    `save`, else None; masks = (the relu masks' int32 words, each layer's
+    word offset; hopper_mlp.mask_layout) at the flagship widths, else None."""
     in_dim, n = x.shape
     check_obj_config(config, in_dim)
     check_cuda_operand(x, "x", x.device)
@@ -674,12 +677,18 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
     w, b, w_offs, b_offs, w_stride, _ = pack_weights(weights, config, x.device)
     rgb = torch.empty((config.num_rgb_channels, n), dtype=torch.float32, device=x.device)
     den = torch.empty((config.num_density_channels, n), dtype=torch.float32, device=x.device)
-    res, ptrs = None, (None, None, None, 0)
+    res, ptrs = None, (None, None, None, 0, None, None)
     act_offs, _ = act_layout(config, n)
     if save:
         x_save, act, act_offs, act_stride = save_buffers(config, in_dim, n, 1, x.device)
-        res = (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim)
-        ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs))
+        masks = None
+        if hopper_mlp.is_wide(config):
+            mask_offs, words = hopper_mlp.mask_layout(config, n)
+            masks = (torch.empty((words,), dtype=torch.int32, device=x.device), mask_offs)
+        res = (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim, masks)
+        ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs),
+                None if masks is None else masks[0].data_ptr(),
+                None if masks is None else build.offsets(masks[1]))
     wt, plan = None, _NO_PLAN
     if hopper_mlp.is_wide(config):  # B of the wgmma products: the transposed pack
         wt, wt_offs, wtx_offs, _ = pack_weights_t(weights, config, in_dim, x.device)
@@ -714,7 +723,7 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
     dx is then always formed. Returns (dx [F, N] or None, d cond_lin [B,
     W_c], flat weight grads, and for K6 (dgate [N] per sample, dfill [F]))."""
     check_bwd_config(config, what)
-    x_save, act, act_offs, _, (w, w_offs, w_stride), in_dim = residuals
+    x_save, act, act_offs, _, (w, w_offs, w_stride), in_dim, masks = residuals
     dev = x_save.device
     n = x_save.shape[0]
     n_rays = n // s_per_ray
@@ -726,8 +735,14 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
     check_cuda_operand(g_den, "g_den", dev, (config.num_density_channels, n))
     need_dx = need_dx or gate is not None
     g_offs, g_size = g_layout(config, n)
+    mask_ptrs = (None, None)
     if hopper_mlp.is_wide(config):
-        plan = hopper_mlp.c_plan("bwd", config, in_dim, n, (w_offs, act_offs, g_offs), need_dx)
+        plan = hopper_mlp.c_plan("bwd", config, in_dim, n, (w_offs, g_offs), need_dx)
+        mask_ptrs = (masks[0].data_ptr(), build.offsets(masks[1]))
+        # The samples the tile kernel walks; those it is handed relu masks
+        # for as K1's bit plane (the pointer below).
+        metrics.count("k2.samples", n)
+        metrics.count("k2.mask_bit_samples", n if mask_ptrs[0] else 0)
     else:  # K4's kernels for one object, on its cotangent workspace of whole planes
         plan = hopper_mlp.c_obj_plan("obj_bwd", config, in_dim, n, 1, w_offs, w_stride, need_dx)
         g_size = hopper_mlp.obj_g_stride(config, n)
@@ -763,7 +778,7 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
             config.net_width_condition, config.net_depth_condition,
             config.num_rgb_channels, config.num_density_channels,
             build.offsets(w_offs), build.offsets(act_offs), build.offsets(g_offs), len(w_offs),
-            *gate_ptrs, *plan, stream_of(dev),
+            *gate_ptrs, *mask_ptrs, *plan, stream_of(dev),
         )
     build.check(err, what)
     return (dx, dcond, flat) + gate_out
@@ -949,7 +964,7 @@ def _k5_launch(x, gate, fill, cond_lin, weights, config, s_per_ray: int, save: b
     if save:
         x_save, act, act_offs, act_stride = save_buffers(config, in_dim, n, 1, dev)
         res = (
-            (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim),
+            (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim, None),
             (x_rows, gate, fill_row),
         )
         ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs))

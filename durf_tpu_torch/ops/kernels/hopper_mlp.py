@@ -16,6 +16,9 @@ take.
 
 K1 multiplies activation tiles by WT's K-major slices; K2 multiplies
 cotangent tiles by W's, which is already the K-major operand of G W^T.
+With `save`, K1 also writes the relu masks of the trunk and head layers as
+bits, in the order of the wgmma accumulator's fragments (mask_layout,
+pack_masks), and K2's tile kernel reads those instead of the activations.
 
 K3 and K4 at the object width (8x128 trunk, head 128; csrc/mlp_obj.cuh)
 read only the forward pack. At that width every activation and cotangent
@@ -37,6 +40,8 @@ from __future__ import annotations
 
 import functools
 
+import torch
+
 from durf_tpu_torch.ops.kernels import build
 
 WIDE_WIDTHS = (256, 128)  # (net_width, net_width_condition) of the wide kernels
@@ -49,10 +54,11 @@ OBJ_FWD_BOXES = 2  # boxes a K3 slice loads: c0 and c0 + 64
 SPEC_FIELDS, SLICE_FIELDS = 9, 4
 XSAVE, ACT, G, W, WT = range(5)
 # Fixed map slots: K1 x_save, activations (trunk and bottleneck), head
-# activations; K2 activations, head activations, cotangents (trunk and
-# bottleneck), head cotangents. Weight maps follow.
+# activations; K2 cotangents (trunk and bottleneck), head cotangents. Weight
+# maps follow.
 F_XSAVE, F_ACT, F_ACT_HEAD = range(3)
-B_ACT, B_ACT_HEAD, B_G, B_G_HEAD = range(4)
+B_G, B_G_HEAD = range(2)
+ROWS = 128  # samples per tile of the wide kernels
 # K3's and K4's map slots.
 O_XSAVE, O_ACT, O_W = range(3)
 OB_ACT, OB_G, OB_W, OB_WX = range(4)
@@ -123,11 +129,12 @@ def fwd_plan(config, in_dim: int, n: int, wt_offs, wtx_offs, act_offs):
     return specs, slices
 
 
-def bwd_plan(config, in_dim: int, n: int, w_offs, act_offs, g_offs, need_dx: bool):
+def bwd_plan(config, in_dim: int, n: int, w_offs, g_offs, need_dx: bool):
     """K2's tile-kernel maps and slice schedule. w_offs: the forward pack's
-    offsets (pack_weights); act_offs, g_offs: act_layout and g_layout, in
-    which the trunk and bottleneck segments, and the head segments, follow
-    each other at a fixed stride (one 3-D map each)."""
+    offsets (pack_weights); g_offs: g_layout, in which the trunk and
+    bottleneck segments, and the head segments, follow each other at a fixed
+    stride (one 3-D map each). The relu masks come from K1's bit plane, by
+    plain loads (mask_layout), so no map reads the activations."""
     from durf_tpu_torch.ops.kernels.fused_mlp import reads_x  # fused_mlp imports this module
 
     w, wc = config.net_width, config.net_width_condition
@@ -135,12 +142,7 @@ def bwd_plan(config, in_dim: int, n: int, w_offs, act_offs, g_offs, need_dx: boo
     xc = x_chunks(in_dim)
     if g_offs[d + 1] != g_offs[0] + d * w * n or g_offs[d + 2 + dc - 1] != g_offs[d + 2] + (dc - 1) * wc * n:
         raise ValueError("the cotangent layout does not keep its segments at a fixed stride")
-    specs = [
-        spec(ACT, act_offs[0], w, n, d + 1),
-        spec(ACT, act_offs[d + 1], wc, n, dc),
-        spec(G, g_offs[0], w, n, d + 1),
-        spec(G, g_offs[d + 2], wc, n, dc),
-    ]
+    specs = [spec(G, g_offs[0], w, n, d + 1), spec(G, g_offs[d + 2], wc, n, dc)]
     slices = []
 
     def weights(offset, k, rows, box_rows=None):
@@ -163,6 +165,40 @@ def bwd_plan(config, in_dim: int, n: int, w_offs, act_offs, g_offs, need_dx: boo
             slices += [[m, BOX * s, 0, 0] for s in range(w // BOX)]
     _check(specs, slices)
     return specs, slices
+
+
+def mask_layout(config, n: int):
+    """The relu masks K1 saves for K2's tile kernel (int32 words): one bit a
+    (sample, column) of trunk_0..trunk_{depth-1}, then head_0..
+    head_{dc-1}, each layer 4 x its width words a 128-sample tile, in
+    pack_masks' order. Returns (each layer's word offset, total words)."""
+    tiles = -(-n // ROWS)
+    widths = [config.net_width] * config.net_depth
+    widths += [config.net_width_condition] * config.net_depth_condition
+    offs, o = [], 0
+    for cols in widths:
+        offs.append(o)
+        o += tiles * 4 * cols
+    return offs, o
+
+
+def pack_masks(active: torch.Tensor) -> torch.Tensor:
+    """A layer's relu masks as K1 writes them (csrc/mlp_wide.cuh, MaskWords):
+    active [rows, N] bool, rows a multiple of 128, N 128 or 256, to int32
+    words [rows * N / 32]. Row 128 b + 64 wg + 16 warp + 8 i + lane // 4 and
+    column 128 h + 8 jj + 2 (lane % 4) + e are those of the wgmma
+    accumulator fragment that thread (wg, warp, lane) holds (acc_row,
+    acc_col); the thread's N / 64 words follow each other from word (N / 64)
+    (128 (2 b + wg) + 32 warp + lane) on, its word i N / 128 + h holding the
+    column in bit 16 e + jj."""
+    rows, cols = active.shape
+    # dims: tile, wg, warp, i, lane // 4, h, jj, lane % 4, e
+    a = active.reshape(rows // ROWS, 2, 4, 2, 8, cols // 128, 16, 4, 2)
+    bits = a.permute(0, 1, 2, 4, 7, 3, 5, 8, 6).reshape(-1, 32)
+    words = torch.zeros(bits.shape[0], dtype=torch.int64, device=active.device)
+    for b in range(32):
+        words |= bits[:, b].long() << b
+    return (words - ((words >> 31) << 32)).to(torch.int32)
 
 
 def is_obj(config) -> bool:
@@ -279,7 +315,7 @@ def _c_plan(kind: str, config, in_dim: int, n: int, offsets, need_dx: bool):
 def c_plan(kind: str, config, in_dim: int, n: int, offsets, need_dx: bool = True):
     """The plan as the C entry points take it (specs, n_specs, slices,
     n_slices), built once per shape. kind: "fwd" (offsets = (wt_offs,
-    wtx_offs, act_offs)) or "bwd" ((w_offs, act_offs, g_offs))."""
+    wtx_offs, act_offs)) or "bwd" ((w_offs, g_offs))."""
     frozen = tuple(tuple(o) for o in offsets)
     return _c_plan(kind, Keyed(config), in_dim, n, frozen, need_dx)
 

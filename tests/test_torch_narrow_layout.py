@@ -270,8 +270,11 @@ def test_k2_takes_the_wgmma_kernels_without_a_transposed_pack(spy, widths):
     if widths == (128, 128):  # K4's maps: activations, cotangents, W K-major, W's x rows
         assert [m[0] for m in specs] == [hm.ACT, hm.G, hm.W, hm.W]
         assert all(sl[0] in (hm.OB_W, hm.OB_WX) for sl in slices)
-    else:
-        assert [m[0] for m in specs[:4]] == [hm.ACT, hm.ACT, hm.G, hm.G]
+    else:  # cotangent maps, then W; the relu masks come from K1's bit plane, not from act
+        assert [m[0] for m in specs[:2]] == [hm.G, hm.G]
+        assert {m[0] for m in specs[2:]} == {hm.W}
+        mask, mask_off = args[-7:-5]
+        assert mask == res[6][0].data_ptr() and list(mask_off) == res[6][1]
     assert k1.fused_nerf_mlp_bwd.launches == 1
 
 

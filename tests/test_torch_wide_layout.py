@@ -3,12 +3,14 @@ csrc/mlp_wide.cuh) read and write, held on the CPU.
 
 Those kernels run only on the card, but every address they use comes from
 Python: the tensor-map specs and the producer's slice schedule of
-ops/kernels/hopper_mlp.py, and the dW job table of ops/kernels/fused_mlp.py.
-These tests replay the kernels' dataflow in PyTorch through exactly those
+ops/kernels/hopper_mlp.py, the relu masks' bit plane (mask_layout,
+pack_masks), and the dW job table of ops/kernels/fused_mlp.py. These tests
+replay the kernels' dataflow in PyTorch through exactly those
 descriptions: each TMA box is cut from its buffer by the spec's offset,
-dims, strides and box (zeros past the dims, stores clipped at them), and
-the tile walks take their weight slices in schedule order. A wrong offset,
-stride, box or slice order changes the result. The replays are held against
+dims, strides and box (zeros past the dims, stores clipped at them), the
+tile walks take their weight slices in schedule order, and K1 writes, K2
+reads, each tile's mask words at the layer's offset. A wrong offset,
+stride, box, slice or word order changes the result. The replays are held against
 the plain versions (and the forward against the JAX package's XLA reference)
 at the flagship widths on a ragged N. Tolerances: relative L2 1e-3 where
 both sides round at the same points (float32 sums in another order can land
@@ -114,9 +116,36 @@ class _Ring:
         assert next(self.it, None) is None, "the schedule has slices no consumer takes"
 
 
+def _unpack_masks(words, cols):
+    """hm.pack_masks' inverse, as K2's threads read their words: the
+    [rows][cols] bool masks of whole tiles."""
+    bits = (words.long()[:, None] >> torch.arange(32)) & 1
+    # dims: tile, wg, warp, lane // 4, lane % 4, i, h, e, jj
+    a = bits.reshape(-1, 2, 4, 8, 4, 2, cols // 128, 2, 16).permute(0, 1, 2, 5, 3, 6, 8, 4, 7)
+    return a.reshape(-1, cols).bool()
+
+
+def _tile_words(masks, off, tile0, cols):
+    """The mask words of one layer's 128-row tile at tile0: 4 x cols words."""
+    return masks[off + tile0 // ROWS * 4 * cols :][: 4 * cols]
+
+
+def _mask_plane(cfg, n, trunk, heads):
+    """The relu-mask plane of the stored activations (trunk_0.., head_0..),
+    packed whole layer by layer, rows past n zero."""
+    offs, words = hm.mask_layout(cfg, n)
+    masks = torch.zeros((words,), dtype=torch.int32)
+    tiles = -(-n // ROWS)
+    for off, a in zip(offs, trunk + heads):
+        active = torch.zeros((tiles * ROWS, a.shape[1]), dtype=torch.bool)
+        active[:n] = a > 0
+        masks[off : off + tiles * 4 * a.shape[1]] = hm.pack_masks(active)
+    return masks
+
+
 def _replay_k1(cfg, in_dim, x, cond_lin, weights, s_per_ray):
-    """K1's tile walk through its maps and schedule. Returns (rgb [3, N],
-    den [1, N], x_save, act, the forward pack)."""
+    """K1's tile walk through its maps, schedule and mask layout. Returns
+    (rgb [3, N], den [1, N], x_save, act, the forward pack, the mask plane)."""
     n = x.shape[1]
     d, dc, w, wc = cfg.net_depth, cfg.net_depth_condition, cfg.net_width, cfg.net_width_condition
     xc = hm.x_chunks(in_dim)
@@ -125,6 +154,8 @@ def _replay_k1(cfg, in_dim, x, cond_lin, weights, s_per_ray):
     x_save, act, act_offs, _ = k1.save_buffers(cfg, in_dim, n, 1, "cpu")
     x_save.fill_(float("nan"))
     act.fill_(float("nan"))
+    mask_offs, words = hm.mask_layout(cfg, n)
+    masks = torch.full((words,), -1, dtype=torch.int32)
     specs, slices = hm.fwd_plan(cfg, in_dim, n, wt_offs, wtx_offs, act_offs)
     bias = lambda l, cols: bpack[b_offs[l] : b_offs[l] + cols]  # noqa: E731
     head = lambda l, k, c: wpack[w_offs[l] : w_offs[l] + k * c].reshape(k, c).float()  # noqa: E731
@@ -133,6 +164,11 @@ def _replay_k1(cfg, in_dim, x, cond_lin, weights, s_per_ray):
         ring = _Ring(wt, specs, slices)
         rows = torch.arange(tile0, tile0 + ROWS)
         valid = rows < n
+
+        def store_masks(seg, h):  # the epilogue's mask words: stored value > 0, 0 past n
+            _tile_words(masks, mask_offs[seg], tile0, h.shape[1])[:] = hm.pack_masks(
+                (h > 0) & valid[:, None])
+
         xt = torch.zeros((ROWS, 64 * xc))
         xt[valid, :in_dim] = _bf(x.T[rows[valid]])
         _store_tile(x_save, specs[hm.F_XSAVE], xt, tile0, 0)
@@ -143,6 +179,7 @@ def _replay_k1(cfg, in_dim, x, cond_lin, weights, s_per_ray):
                 acc = acc + ring.product(xt, xc)
             h = _bf(torch.relu(acc + bias(i, w)))
             _store_tile(act, specs[hm.F_ACT], h, tile0, i)
+            store_masks(i, h)
         dn = h @ _bf(head(d, w, 1)) + bias(d, 1)
         h = _bf(ring.product(h, w // 64) + bias(d + 1, w))
         _store_tile(act, specs[hm.F_ACT], h, tile0, d)
@@ -153,18 +190,24 @@ def _replay_k1(cfg, in_dim, x, cond_lin, weights, s_per_ray):
                 acc = acc + cond_lin[ray]
             h = _bf(torch.relu(acc))
             _store_tile(act, specs[hm.F_ACT_HEAD], h, tile0, i)
+            store_masks(d + i, h)
         rg = h @ head(d + 2 + dc, wc, 3) + bias(d + 2 + dc, 3)
         ring.done()
         rgb[:, rows[valid]] = rg[valid].T
         den[:, rows[valid]] = dn[valid].T
-    return rgb, den, x_save, act, (wpack, w_offs)
+    return rgb, den, x_save, act, (wpack, w_offs), masks
 
 
-def _replay_k2(cfg, in_dim, x, cond_lin, weights, s_per_ray, g_rgb, g_den, chunk):
-    """K2's three launches through their maps, schedule and job table: the
-    tile walk, the dW tiles over sample splits (chunk samples each), the
-    fixed-order reduction and the per-ray sums. Returns (dx, d cond_lin,
-    weight grads in operand order, coverage counts [splits, total])."""
+def _replay_k2(cfg, in_dim, x, cond_lin, weights, s_per_ray, g_rgb, g_den, chunk,
+               masks_from="plane", need_dx=True):
+    """K2's three launches through their maps, schedule, mask layout and job
+    table: the tile walk, the dW tiles over sample splits (chunk samples
+    each), the fixed-order reduction and the per-ray sums. The walk takes
+    its relu masks from K1's bit plane, as the kernel does, or (masks_from
+    "act") from the saved activations through 3-D maps over them: the walk
+    the plane must match bitwise. Returns (dx or None, d cond_lin, weight
+    grads in operand order, coverage counts [splits, total], the G
+    workspace)."""
     n = x.shape[1]
     d, dc, w, wc = cfg.net_depth, cfg.net_depth_condition, cfg.net_width, cfg.net_width_condition
     xc = hm.x_chunks(in_dim)
@@ -178,11 +221,21 @@ def _replay_k2(cfg, in_dim, x, cond_lin, weights, s_per_ray, g_rgb, g_den, chunk
     x_save[:, :in_dim] = xr
     for seg, a in enumerate(trunk + [bneck] + heads):
         act[act_offs[seg] : act_offs[seg] + a.numel()] = a.reshape(-1)
+    masks, (mask_offs, _) = _mask_plane(cfg, n, trunk, heads), hm.mask_layout(cfg, n)
+    act_maps = [hm.spec(hm.ACT, act_offs[0], w, n, d + 1), hm.spec(hm.ACT, act_offs[d + 1], wc, n, dc)]
+
+    def relu_mask(tile0, seg, cols):  # trunk_seg, or head_{seg - d}
+        if masks_from == "plane":
+            return _unpack_masks(_tile_words(masks, mask_offs[seg], tile0, cols), cols)
+        trunk_seg = seg < d
+        return _load_tile(act, act_maps[0 if trunk_seg else 1], tile0, seg if trunk_seg else seg - d,
+                          cols) > 0
+
     g_offs, g_stride = k1.g_layout(cfg, n)
     gbuf = torch.full((g_stride,), float("nan"), dtype=torch.bfloat16)
-    specs, slices = hm.bwd_plan(cfg, in_dim, n, w_offs, act_offs, g_offs, True)
+    specs, slices = hm.bwd_plan(cfg, in_dim, n, w_offs, g_offs, need_dx)
     head = lambda l, k, c: wpack[w_offs[l] : w_offs[l] + k * c].reshape(k, c).float()  # noqa: E731
-    dx = torch.zeros((in_dim, n))
+    dx = torch.zeros((in_dim, n)) if need_dx else None
     l_rgb = d + 2 + dc
     for tile0 in range(0, n, ROWS):
         ring = _Ring(wpack, specs, slices)
@@ -190,8 +243,7 @@ def _replay_k2(cfg, in_dim, x, cond_lin, weights, s_per_ray, g_rgb, g_den, chunk
         valid = (rows < n)[:, None]
         rc = torch.clamp(rows, max=n - 1)
         gr = _bf(g_rgb.T[rc]) * valid
-        act_last = _load_tile(act, specs[hm.B_ACT_HEAD], tile0, dc - 1, wc)
-        g = _bf((gr @ head(l_rgb, wc, 3).T) * (act_last > 0))
+        g = _bf((gr @ head(l_rgb, wc, 3).T) * relu_mask(tile0, d + dc - 1, wc))
         for l, src in ((l_rgb, g_rgb), (d, g_den)):
             rows8 = torch.zeros((ROWS, 8))
             rows8[:, : src.shape[0]] = _bf(src.T[rc])
@@ -199,25 +251,22 @@ def _replay_k2(cfg, in_dim, x, cond_lin, weights, s_per_ray, g_rgb, g_den, chunk
             seg[rows[valid[:, 0]]] = rows8[valid[:, 0]].to(torch.bfloat16)
         _store_tile(gbuf, specs[hm.B_G_HEAD], g, tile0, dc - 1)
         for i in range(dc - 1, 0, -1):
-            mask = _load_tile(act, specs[hm.B_ACT_HEAD], tile0, i - 1, wc)
-            g = _bf(ring.product(g, wc // 64) * (mask > 0)) * valid
+            g = _bf(ring.product(g, wc // 64) * relu_mask(tile0, d + i - 1, wc)) * valid
             _store_tile(gbuf, specs[hm.B_G_HEAD], g, tile0, i - 1)
         g = _bf(ring.product(g, wc // 64)) * valid
         _store_tile(gbuf, specs[hm.B_G], g, tile0, d)
-        mask = _load_tile(act, specs[hm.B_ACT], tile0, d - 1, w)
         gd = _bf(g_den.T[rc]) * valid
-        g = _bf((ring.product(g, w // 64) + gd @ head(d, w, 1).T) * (mask > 0)) * valid
+        g = _bf((ring.product(g, w // 64) + gd @ head(d, w, 1).T) * relu_mask(tile0, d - 1, w)) * valid
         _store_tile(gbuf, specs[hm.B_G], g, tile0, d - 1)
         for i in range(d - 1, -1, -1):
-            if k1.reads_x(cfg, i):
+            if need_dx and k1.reads_x(cfg, i):
                 for c in range(xc):
                     part = ring.product(g, w // 64)
                     cols = min(64, in_dim - 64 * c)
                     dx[64 * c : 64 * c + cols, rows[valid[:, 0]]] += part[valid[:, 0], :cols].T
             if i == 0:
                 break
-            mask = _load_tile(act, specs[hm.B_ACT], tile0, i - 1, w)
-            g = _bf(ring.product(g, w // 64) * (mask > 0)) * valid
+            g = _bf(ring.product(g, w // 64) * relu_mask(tile0, i - 1, w)) * valid
             _store_tile(gbuf, specs[hm.B_G], g, tile0, i - 1)
         ring.done()
 
@@ -257,7 +306,7 @@ def _replay_k2(cfg, in_dim, x, cond_lin, weights, s_per_ray, g_rgb, g_den, chunk
         flat = flat + part[split]
     grads = k1.unpack_grads(flat, weights, cfg, in_dim, stacked=False)
     g_h0 = gbuf[g_offs[d + 2] : g_offs[d + 2] + n * wc].reshape(-1, s_per_ray, wc).float()
-    return dx, g_h0.sum(1), grads, count
+    return dx, g_h0.sum(1), grads, count, gbuf
 
 
 @pytest.fixture(scope="module")
@@ -279,7 +328,7 @@ def flagship():
 
 def test_k1_maps_and_schedule_replay_the_forward(flagship):
     cfg, w, x, cond, cond_lin, s, _, _ = flagship
-    rgb, den, x_save, act, _ = _replay_k1(cfg, F_IN, x, cond_lin, w, s)
+    rgb, den, x_save, act, _, _ = _replay_k1(cfg, F_IN, x, cond_lin, w, s)
     ref_rgb, ref_den = k1.fused_nerf_mlp_reference(x, cond, w, cfg, s)
     assert float((rgb - ref_rgb).abs().max()) < 2e-2 and float((den - ref_den).abs().max()) < 2e-2
     # The saved residuals are the plain version's stored activations.
@@ -305,13 +354,74 @@ def test_k1_maps_and_schedule_replay_the_forward(flagship):
 @pytest.mark.parametrize("chunk", [64, 128])
 def test_k2_maps_schedule_and_dw_tiles_replay_the_backward(flagship, chunk):
     cfg, w, x, _, cond_lin, s, g_rgb, g_den = flagship
-    dx, dcond, grads, count = _replay_k2(cfg, F_IN, x, cond_lin, w, s, g_rgb, g_den, chunk)
+    dx, dcond, grads, count, _ = _replay_k2(cfg, F_IN, x, cond_lin, w, s, g_rgb, g_den, chunk)
     ref_dx, ref_dcond, ref_grads = k1.fused_nerf_mlp_bwd_reference(x, cond_lin, w, cfg, s, g_rgb, g_den)
     assert _rel(dx, ref_dx) < 1e-3 and _rel(dcond, ref_dcond) < 1e-3
     for i, (a, r) in enumerate(zip(grads, ref_grads)):
         assert a.shape == r.shape and _rel(a, r) < 1e-3, f"operand {i}: {_rel(a, r)}"
     # Every gradient element is formed by exactly one (tile, split) per split.
     assert torch.equal(count, torch.ones_like(count))
+
+
+def test_k1_writes_the_relu_masks_as_bits(flagship):
+    """K1's mask plane, bit for bit: the activations it stored > 0, packed
+    layer by layer (trunk_0.., head_0..), rows past n zero; against the
+    plain version's stored activations it differs only where a stored value
+    does (a float32 sum in another order rounding to the other bf16)."""
+    cfg, w, x, _, cond_lin, s, _, _ = flagship
+    _, _, _, act, _, masks = _replay_k1(cfg, F_IN, x, cond_lin, w, s)
+    n, d = x.shape[1], cfg.net_depth
+    _, trunk, _, heads = k1.stored_activations(cfg, x.T, cond_lin.repeat_interleave(s, 0), w)
+    act_offs, _ = k1.act_layout(cfg, n)
+    segs = list(range(d)) + [d + 1 + i for i in range(cfg.net_depth_condition)]
+    stored = [act[act_offs[seg] :][: a.numel()].reshape(a.shape).float() for seg, a in
+              zip(segs, trunk + heads)]
+    offs, words = hm.mask_layout(cfg, n)
+    assert words == -(-n // ROWS) * 4 * (d * cfg.net_width + cfg.net_width_condition)
+    assert torch.equal(masks, _mask_plane(cfg, n, stored[:d], stored[d:]))
+    for off, a, got in zip(offs, trunk + heads, stored):
+        bits = _unpack_masks(masks[off:][: -(-n // ROWS) * 4 * a.shape[1]], a.shape[1])
+        assert not bits[n:].any()
+        assert not ((bits[:n] != (a > 0)) & (got == a)).any()
+    assert 0 < float(torch.cat([a > 0 for a in trunk], 1).float().mean()) < 1
+
+
+@pytest.mark.parametrize("cols", [128, 256])
+def test_mask_words_follow_the_accumulator_fragments(cols):
+    """pack_masks puts (row, column) where csrc/mlp_wide.cuh's threads keep
+    it: thread p = 128 wg + t, word i N / 128 + j / 16 of its N / 64, bit
+    16 e + j % 16, for row 64 wg + acc_row(t, i) and column acc_col(t, j) + e."""
+    active = torch.rand((2 * ROWS, cols), generator=torch.Generator().manual_seed(3)) < 0.5
+    words = hm.pack_masks(active)
+    assert words.dtype == torch.int32 and words.numel() == 2 * 4 * cols
+    for tile in range(2):
+        for p in range(256):
+            wg, t = divmod(p, 128)
+            for i in range(2):
+                row = ROWS * tile + 64 * wg + (t >> 5) * 16 + ((t & 31) >> 2) + 8 * i
+                for j in range(cols // 8):
+                    word = int(words[tile * 4 * cols + p * (cols // 64) + i * (cols // 128) + j // 16])
+                    for e in range(2):
+                        col = 8 * j + 2 * (t & 3) + e
+                        assert (word >> (16 * e + j % 16)) & 1 == int(active[row, col])
+    assert torch.equal(_unpack_masks(words, cols), active)
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+def test_k2_reads_its_masks_from_the_plane_bitwise(flagship, need_dx):
+    """The tile walk on K1's bit plane gives bitwise the G workspace, dx,
+    d cond_lin and gradients of the walk that tests the saved activations."""
+    cfg, w, x, _, cond_lin, s, g_rgb, g_den = flagship
+    bits = _replay_k2(cfg, F_IN, x, cond_lin, w, s, g_rgb, g_den, 64, "plane", need_dx)
+    acts = _replay_k2(cfg, F_IN, x, cond_lin, w, s, g_rgb, g_den, 64, "act", need_dx)
+    dx, dcond, grads, _, gbuf = bits
+    assert torch.equal(gbuf.float().nan_to_num(7.0), acts[4].float().nan_to_num(7.0))
+    assert (dx is None) == (not need_dx) and (dx is None or torch.equal(dx, acts[0]))
+    assert torch.equal(dcond, acts[1]) and all(torch.equal(a, b) for a, b in zip(grads, acts[2]))
+    # every row of G the walk writes was written
+    n = x.shape[1]
+    g_offs, _ = k1.g_layout(cfg, n)
+    assert not gbuf[g_offs[0] : g_offs[0] + n * cfg.net_width].float().isnan().any()
 
 
 def test_wide_dw_tiles_span_whole_layers():
@@ -353,13 +463,12 @@ def test_plans_are_cached_and_drop_the_dx_slices():
     n = 4096
     w = [torch.from_numpy(a) for a in _weights(cfg, F_IN)]
     _, _, w_offs, _, _, _ = k1.pack_weights(w, cfg, "cpu")
-    act_offs, _ = k1.act_layout(cfg, n)
     g_offs, _ = k1.g_layout(cfg, n)
-    a = hm.c_plan("bwd", cfg, F_IN, n, (w_offs, act_offs, g_offs))
-    b = hm.c_plan("bwd", MLPConfig(), F_IN, n, (w_offs, act_offs, g_offs))
+    a = hm.c_plan("bwd", cfg, F_IN, n, (w_offs, g_offs))
+    b = hm.c_plan("bwd", MLPConfig(), F_IN, n, (w_offs, g_offs))
     assert a is b and a[1] <= hm.MAX_MAPS and a[3] <= hm.MAX_SLICES
-    _, with_dx = hm.bwd_plan(cfg, F_IN, n, w_offs, act_offs, g_offs, True)
-    _, no_dx = hm.bwd_plan(cfg, F_IN, n, w_offs, act_offs, g_offs, False)
+    _, with_dx = hm.bwd_plan(cfg, F_IN, n, w_offs, g_offs, True)
+    _, no_dx = hm.bwd_plan(cfg, F_IN, n, w_offs, g_offs, False)
     # layers 0 and 5 read x: 4 slices of their x rows each
     assert len(with_dx) - len(no_dx) == 2 * 4 * hm.x_chunks(F_IN) and a[3] == len(with_dx)
 
