@@ -23,7 +23,7 @@
 // trunk and head layers as bits (save_mask: 272 bytes a sample), which K2's
 // tile kernel reads in place of the activations.
 //
-// Three builds: at the flagship widths (256 / 128) wide_mlp_fwd_kernel of
+// Two builds: at the flagship widths (256 / 128) wide_mlp_fwd_kernel of
 // mlp_wide.cuh, wgmma products whose weight slices arrive by TMA through an
 // mbarrier ring and whose saved activations leave by TMA stores that overlap
 // the next layer; at 128 / 128 (the object MLPs on the per-object route;
@@ -31,52 +31,11 @@
 // K3's kernel (mlp_obj.cuh, obj_mlp_fwd_kernel<1>): K3 for one object on
 // every tile, reading no mask, with its residuals in the object kernels'
 // layout, one [n][128] plane per segment, which K2's 128 / 128 build
-// reads; at other widths ((128, 256), (256, 256)) the mma.sync tile code of
-// mlp_tile.cuh.
+// reads. Other widths return -2 (ops/kernels/hopper_mlp.py BUILDS).
 
 #include "mlp_obj.cuh"
 
 namespace durf {
-
-template <int NTW, int NTC>
-__global__ void __launch_bounds__(THREADS)
-    fused_nerf_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cond,
-                              const bf16* __restrict__ w, const float* __restrict__ b,
-                              float* __restrict__ rgb_out, float* __restrict__ den_out,
-                              bf16* __restrict__ save_x, bf16* __restrict__ save_act,
-                              long long n, int s_per_ray, MlpDesc d) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int hmax = d.width > d.wc ? d.width : d.wc;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* hs = xs + TILE_M * ld_of(d.in_pad);
-  bf16* ws = hs + TILE_M * ld_of(hmax);
-  const long long tile0 = (long long)blockIdx.x * TILE_M;
-
-  load_x_tile(xs, x, d, tile0, n);
-  if (save_x != nullptr) store_tile(xs, ld_of(d.in_pad), d.in_pad, save_x, tile0, n);
-  float rgb[4], den[4];
-  run_mlp<NTW, NTC>(d, w, b, cond, xs, hs, ws, tile0, n, s_per_ray, rgb, den, save_act);
-
-  const long long sample = tile0 + (threadIdx.x >> 1);
-  if ((threadIdx.x & 1) == 0 && sample < n) {
-    for (int c = 0; c < d.n_rgb; ++c) rgb_out[c * n + sample] = rgb[c];
-    for (int c = 0; c < d.n_den; ++c) den_out[c * n + sample] = den[c];
-  }
-}
-
-template <int NTW, int NTC>
-static int launch(const float* x, const float* cond, const bf16* w, const float* b, float* rgb,
-                  float* den, bf16* save_x, bf16* save_act, long long n, int s_per_ray,
-                  const MlpDesc& d, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d);
-  auto kern = fused_nerf_mlp_fwd_kernel<NTW, NTC>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long grid = (n + TILE_M - 1) / TILE_M;
-  kern<<<(unsigned)grid, THREADS, smem, stream>>>(x, cond, w, b, rgb, den, save_x, save_act, n,
-                                                  s_per_ray, d);
-  return (int)cudaGetLastError();
-}
 
 // K1 at 256 / 128 (mlp_wide.cuh): the tensor maps and the slice schedule
 // come from the Python side (specs, slices; ops/kernels/hopper_mlp.py).
@@ -139,9 +98,5 @@ extern "C" int durf_fused_nerf_mlp_fwd(const float* x, const float* cond, const 
     return durf::obj::launch_fwd<1>(x, nullptr, cond, wb, b, rgb, den, sx, sa, od, specs, n_specs,
                                     slices, n_slices, s);
   }
-  if (width == 256 && wc == 256)
-    return durf::launch<8, 8>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
-  if (width == 128 && wc == 256)
-    return durf::launch<4, 8>(x, cond, wb, b, rgb, den, sx, sa, n, s_per_ray, d, s);
   return -2;
 }

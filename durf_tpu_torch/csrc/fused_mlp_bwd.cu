@@ -40,7 +40,7 @@
 // TAG 2): its tile kernel for one object on every tile, wide_dw_kernel
 // without the object axis, the fixed-order reduction and the per-ray sums,
 // on the residuals K1's 128 / 128 build saved. No other widths are built
-// (fused_mlp.py BWD_WIDTHS).
+// (ops/kernels/hopper_mlp.py BUILDS).
 
 #include "mlp_obj.cuh"
 

@@ -30,7 +30,7 @@
 //    tile kernel keeps dxe in the registers that sum the x-parts' products,
 //    so the gate epilogue reads it there, with the bf16 x rows from device
 //    memory, before it stores dx = g dxe once.
-// Only 128 / 128 is built (fused_mlp.py BWD_WIDTHS); other widths return -2.
+// Only 128 / 128 is built (ops/kernels/hopper_mlp.py BUILDS); other widths return -2.
 
 #include "mlp_obj.cuh"
 

@@ -1,11 +1,15 @@
-// What the backward launches share (Hopper, sm_90a): the arguments of the
-// K2 and K6 entry points (DURF_DEFINE_BWD_ENTRY) and of K4's, and the small
-// kernels that follow every backward's tile kernel and dW products.
+// The MLP descriptor every entry point builds from the flat arrays the
+// Python wrappers pass, and what the backward launches share (Hopper,
+// sm_90a): the arguments of the K2 and K6 entry points
+// (DURF_DEFINE_BWD_ENTRY) and of K4's, and the small kernels that follow
+// every backward's tile kernel and dW products.
 //
-// The tile kernels and dW products are wgmma + TMA kernels: K2 at the
-// flagship widths (256 / 128) those of mlp_wide.cuh, K2, K4 and K6 at the
-// object width (128 / 128) those of mlp_obj.cuh with mlp_wide.cuh's
-// wide_dw_kernel. Each backward then runs, on its stream:
+// Every MLP kernel is a wgmma + TMA kernel: K1 and K2 at the flagship
+// widths (256 / 128) those of mlp_wide.cuh; K3 and K4, and K1, K2, K5 and
+// K6 at the object width (128 / 128), those of mlp_obj.cuh, their weight
+// gradients mlp_wide.cuh's wide_dw_kernel. No other widths are built
+// (ops/kernels/hopper_mlp.py BUILDS). Each backward's tile kernel and dW
+// products are followed, on its stream, by:
 //  * reduce_kernel: the dW products' per-slice fp32 partials summed in a
 //    fixed order, so the gradients are deterministic;
 //  * ray_sum_kernel: d cond_lin[ray] = the sum over the ray's samples of
@@ -20,9 +24,63 @@
 
 #pragma once
 
-#include "mlp_tile.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace durf {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int THREADS = 256;  // threads of the reduction kernels' blocks
+constexpr int MAX_LAYERS = 24;
+
+// Packed weights: layer l starts at w + w_off[l] (bf16, [K][N] row-major)
+// and its bias at b + b_off[l] (fp32). Layer order: trunk_0..
+// trunk_{depth-1}, density_head, bottleneck, head_0 (its first `width` rows
+// only: the condition rows are applied outside as per-ray rows), head_1..,
+// rgb_head.
+struct MlpDesc {
+  int in_dim;      // F, features per sample
+  int width;       // trunk width W
+  int depth;       // trunk layers
+  int skip;        // skip_layer: layer i re-reads x when (i-1) % skip == 0, i > 1
+  int wc;          // head width
+  int depth_cond;  // head layers (>= 1)
+  int n_rgb;       // rgb channels (<= 4)
+  int n_den;       // density channels (<= 4)
+  long long w_off[MAX_LAYERS];
+  long long b_off[MAX_LAYERS];
+  // Saved activations for the backward: segment a is a [n][width] bf16
+  // row-major buffer at act + act_off[a]; segments are trunk_0..
+  // trunk_{depth-1} (width), bottleneck (width), head_0.. (wc).
+  long long act_off[MAX_LAYERS];
+};
+
+// The forward's descriptor (K1). Returns 0, or -1 when the layer or
+// activation-segment counts do not fit.
+inline int make_fwd_desc(MlpDesc& d, int in_dim, int width, int depth, int skip, int wc,
+                         int depth_cond, int n_rgb, int n_den, const long long* w_off,
+                         const long long* b_off, int n_layers, bool save, const long long* act_off,
+                         int n_act) {
+  if (n_layers > MAX_LAYERS || n_layers != depth + depth_cond + 3) return -1;
+  d = MlpDesc{};
+  d.in_dim = in_dim;
+  d.width = width;
+  d.depth = depth;
+  d.skip = skip;
+  d.wc = wc;
+  d.depth_cond = depth_cond;
+  d.n_rgb = n_rgb;
+  d.n_den = n_den;
+  for (int l = 0; l < n_layers; ++l) {
+    d.w_off[l] = w_off[l];
+    d.b_off[l] = b_off[l];
+  }
+  if (save && n_act != depth + 1 + depth_cond) return -1;
+  for (int a = 0; save && a < n_act; ++a) d.act_off[a] = act_off[a];
+  return 0;
+}
 
 // The cotangent workspace (bf16): G_l is [n][gw_l] at g_off[l], gw_l =
 // width (trunk, bottleneck), wc (head), 8 (density and rgb heads, zero past
@@ -160,7 +218,6 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
   d = MlpDesc{};
   e = BwdDesc{};
   d.in_dim = in_dim;
-  d.in_pad = (in_dim + BK - 1) / BK * BK;
   d.width = width;
   d.depth = depth;
   d.skip = skip;

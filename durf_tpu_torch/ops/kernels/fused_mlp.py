@@ -16,9 +16,8 @@ schedules built in hopper_mlp.py: at the flagship widths (256 / 128) those
 of csrc/mlp_wide.cuh; at 128 / 128 (the object MLPs on the per-object
 route; the width of the 4x128 proposal MLP) the mask-free build of K3's
 and K4's kernels (csrc/mlp_obj.cuh): one object, every tile, no mask, with
-K3's and K4's plans for one object. The forward at other widths ((128,
-256), (256, 256)) runs the mma.sync kernel of csrc/mlp_tile.cuh; the
-backward is not built there (BWD_WIDTHS).
+K3's and K4's plans for one object. No other widths are built
+(hopper_mlp.BUILDS).
 
 Layouts: x arrives feature-major [F, N] in float32, the coordinate-major
 encode's native layout (N = rays x samples, ray-major); outputs are
@@ -39,8 +38,8 @@ pallas_calls with a gate and a fill row): the MLP on bf16(g * x + (1 - g) *
 fill) blended in the tile from row-major bf16 rows x [N, F], a per-ray gate
 g and one fill row; K6 adds dgate and dfill to K2's outputs. At 128 / 128
 both are K1's and K2's builds there with the gate (csrc/mlp_obj.cuh, TAG 5
-and 6), on K3's and K4's plans for one object; K5 at other widths runs the
-mma.sync kernel, and K6 is built only at 128 / 128 (BWD_WIDTHS).
+and 6), on K3's and K4's plans for one object; neither is built at other
+widths.
 `FusedNerfMlpGatedFn` joins them as FusedNerfMlpFn joins K1 and K2.
 """
 
@@ -52,11 +51,9 @@ import functools
 
 import torch
 
-from durf_tpu_torch import metrics
 from durf_tpu_torch.ops.kernels import build, hopper_mlp
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
-_KERNEL_WIDTHS = (128, 256)
 HEAD_COLS = 8  # padded width of the density / rgb head cotangent rows
 DW_TILE = 128  # output rows (and columns, below 256 / 128) of a weight-gradient tile
 WIDE_DW_COLS = 256  # output columns of a tile of the wide dW kernel (csrc/mlp_wide.cuh)
@@ -484,9 +481,9 @@ def dw_jobs(config, in_dim, n_obj, act_offs, act_stride, g_offs, g_stride, x_col
 def _job_table(config, in_dim, n, n_obj, device):
     act_offs, act_stride = act_layout(config, n)
     g_offs, g_stride = g_layout(config, n)
-    wide = hopper_mlp.is_wide(config) and n_obj == 1
     rows, tiles = dw_jobs(config, in_dim, n_obj, act_offs, act_stride, g_offs, g_stride,
-                          x_cols(config, in_dim), WIDE_DW_COLS if wide else DW_TILE)
+                          x_cols(config, in_dim),
+                          WIDE_DW_COLS if hopper_mlp.is_wide(config) else DW_TILE)
     host = torch.tensor(rows, dtype=torch.int64)
     if device.type == "cuda":
         host = host.pin_memory()
@@ -539,74 +536,39 @@ def unpack_grads(flat, weights, config, in_dim: int, stacked: bool):
 
 
 def kernel_smem_bytes(config, in_dim: int) -> int:
-    """Shared memory of one forward CTA of the mma.sync or wide kernels
-    (mirrors smem_bytes in csrc/mlp_tile.cuh, fwd_smem in csrc/mlp_wide.cuh);
-    the wide backward CTA needs 197 KB. The object kernels (csrc/mlp_obj.cuh,
-    also K1, K2, K5 and K6 at 128 / 128) fit at every in_dim they take
-    (check_obj_config)."""
+    """Shared memory of one forward CTA (fwd_smem in csrc/mlp_wide.cuh and
+    csrc/mlp_obj.cuh; the object build's block adds a byte per (tile,
+    object) pair it walks); the wide backward CTA needs 197 KB."""
+    xc = hopper_mlp.x_chunks(in_dim)
     if hopper_mlp.is_wide(config):
-        xc = hopper_mlp.x_chunks(in_dim)
         return 1024 + 128 * 256 * 2 + xc * 128 * 128 + 4 * hopper_mlp.SLICE_BYTES + 64
-    in_pad = (in_dim + 31) // 32 * 32
-    hmax = max(config.net_width, config.net_width_condition)
-    return 2 * (128 * (in_pad + 8) + 128 * (hmax + 8) + 2 * 32 * (hmax + 8))
+    # The object build also stages the 1- and 3-wide heads' weights (8 KB).
+    return 1024 + 128 * 128 * 2 + xc * 128 * 128 + 4 * hopper_mlp.OBJ_SLICE_BYTES + 8192 + 64
 
 
-def check_kernel_config(config, in_dim: int) -> None:
-    """Raise if the kernels do not take this MLP shape."""
+def check_kernel_config(config, in_dim: int, pair: str = "K1/K2") -> None:
+    """Raise if kernel pair `pair` (hopper_mlp.BUILDS) does not take this
+    MLP shape: its widths, and what the build at those widths takes."""
     if config.net_activation != "relu":
         raise ValueError("the fused MLP kernels implement relu only")
-    if config.net_width not in _KERNEL_WIDTHS or config.net_width_condition not in _KERNEL_WIDTHS:
-        raise ValueError(
-            f"the fused MLP kernels take widths {_KERNEL_WIDTHS}; got "
-            f"net_width={config.net_width}, net_width_condition={config.net_width_condition}"
-        )
+    kind = hopper_mlp.build_of(config, pair)
     if config.net_depth_condition < 1 or config.skip_layer < 1:
         raise ValueError("the fused MLP kernels need net_depth_condition >= 1 and skip_layer >= 1")
     if config.num_rgb_channels > 4 or config.num_density_channels > 4:
         raise ValueError("the fused MLP kernels take at most 4 rgb and 4 density channels")
     if config.net_depth + config.net_depth_condition + 3 > 24:
         raise ValueError("the fused MLP kernels take at most 24 layers")
-    if hopper_mlp.is_wide(config) and (
-        hopper_mlp.x_chunks(in_dim) > hopper_mlp.MAX_X_CHUNKS or config.net_depth_condition > 2
+    wide = kind == hopper_mlp.WIDE
+    if hopper_mlp.x_chunks(in_dim) > hopper_mlp.MAX_X_CHUNKS or (
+        wide and config.net_depth_condition > 2
     ):
         raise ValueError(
-            "the wide MLP kernels take in_dim <= 128 and net_depth_condition <= 2; got "
-            f"{in_dim} and {config.net_depth_condition}"
+            f"the {kind} MLP kernels take in_dim <= 128"
+            f"{' and net_depth_condition <= 2' if wide else ''}; got in_dim {in_dim}, "
+            f"net_depth_condition {config.net_depth_condition}"
         )
     if kernel_smem_bytes(config, in_dim) > SMEM_LIMIT:
         raise ValueError(f"in_dim {in_dim} needs more shared memory than a block has")
-
-
-def check_obj_config(config, in_dim: int) -> None:
-    """Raise if the kernels of csrc/mlp_obj.cuh do not take this MLP shape
-    where they run it (K3, K4, and K1, K2, K5 and K6 at 128 / 128): at that
-    width they take in_dim <= 128."""
-    check_kernel_config(config, in_dim)
-    if hopper_mlp.is_obj(config) and hopper_mlp.x_chunks(in_dim) > hopper_mlp.MAX_X_CHUNKS:
-        raise ValueError(f"the object MLP kernels at width 128 take in_dim <= 128; got {in_dim}")
-
-
-# The (net_width, net_width_condition) pairs each backward kernel is built
-# for: K2 the flagship background MLP (csrc/mlp_wide.cuh) and the 128-wide
-# MLPs (the object MLPs on the per-object route, the proposal MLP's width;
-# the mask-free build of csrc/mlp_obj.cuh); K4 and K6 the object MLPs.
-BWD_WIDTHS = {
-    "fused_mlp_bwd": ((256, 128), (128, 128)),
-    "obj_mlp_bwd": ((128, 128),),
-    "fused_mlp_gated_bwd": ((128, 128),),
-}
-
-
-def check_bwd_config(config, what: str) -> None:
-    """Raise if the backward kernel of csrc/<what>.cu is not built for this
-    MLP's widths."""
-    widths = (config.net_width, config.net_width_condition)
-    if widths not in BWD_WIDTHS[what]:
-        raise ValueError(
-            f"{what} is built for (net_width, net_width_condition) in {BWD_WIDTHS[what]}; "
-            f"got {widths}"
-        )
 
 
 def check_cuda_operand(t: torch.Tensor, name: str, device, shape=None) -> None:
@@ -626,7 +588,8 @@ def stream_of(device) -> int:
 
 def x_cols(config, in_dim: int) -> int:
     """Columns of the saved input rows: in_dim rounded up to the wide
-    kernels' 64-column boxes, or to the mma.sync kernels' 32-row slices."""
+    build's 64-column boxes, or to 32 columns for the object build, whose
+    TMA stores and dW loads clip their 64-column boxes to the buffer."""
     step = hopper_mlp.BOX if hopper_mlp.is_wide(config) else 32
     return -(-in_dim // step) * step
 
@@ -655,7 +618,6 @@ BWD_ARGTYPES = (
     [_P, _P, _L] + [_P] * 8 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 9
     + [_OFFS] * 3 + [_I] + [_P] * 6 + [_P, _OFFS] + _PLAN_ARGTYPES + [_P]
 )
-_NO_PLAN = (None, 0, None, 0)
 
 
 def _k1_function():
@@ -671,7 +633,8 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
     `save`, else None; masks = (the relu masks' int32 words, each layer's
     word offset; hopper_mlp.mask_layout) at the flagship widths, else None."""
     in_dim, n = x.shape
-    check_obj_config(config, in_dim)
+    check_kernel_config(config, in_dim, "K1/K2")
+    wide = hopper_mlp.is_wide(config)
     check_cuda_operand(x, "x", x.device)
     check_cuda_operand(cond_lin, "cond_lin", x.device, (n // s_per_ray, config.net_width_condition))
     w, b, w_offs, b_offs, w_stride, _ = pack_weights(weights, config, x.device)
@@ -682,18 +645,18 @@ def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
     if save:
         x_save, act, act_offs, act_stride = save_buffers(config, in_dim, n, 1, x.device)
         masks = None
-        if hopper_mlp.is_wide(config):
+        if wide:
             mask_offs, words = hopper_mlp.mask_layout(config, n)
             masks = (torch.empty((words,), dtype=torch.int32, device=x.device), mask_offs)
         res = (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim, masks)
         ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs),
                 None if masks is None else masks[0].data_ptr(),
                 None if masks is None else build.offsets(masks[1]))
-    wt, plan = None, _NO_PLAN
-    if hopper_mlp.is_wide(config):  # B of the wgmma products: the transposed pack
+    wt = None
+    if wide:  # B of the wgmma products: the transposed pack
         wt, wt_offs, wtx_offs, _ = pack_weights_t(weights, config, in_dim, x.device)
         plan = hopper_mlp.c_plan("fwd", config, in_dim, n, (wt_offs, wtx_offs, act_offs))
-    elif hopper_mlp.is_obj(config):  # K3's plan for one object: B is the forward pack
+    else:  # K3's plan for one object: B is the forward pack
         plan = hopper_mlp.c_obj_plan("obj_fwd", config, in_dim, n, 1, w_offs, w_stride,
                                      x_cols(config, in_dim))
     fn = _k1_function()
@@ -718,11 +681,11 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
     """Allocate the backward's workspace and launch K2 or K6 (the C entry
     point `name` of csrc/<what>.cu) on the residuals the forward saved: the
     wgmma + TMA kernels, whose B is the forward pack, on the plan of the
-    wide kernels (256 / 128) or K4's for one object (128 / 128).
+    wide build (256 / 128) or K4's for one object (128 / 128).
     `gate` = (x rows [N, F] bf16, gate [B] fp32, fill [F] bf16) for K6, whose
     dx is then always formed. Returns (dx [F, N] or None, d cond_lin [B,
     W_c], flat weight grads, and for K6 (dgate [N] per sample, dfill [F]))."""
-    check_bwd_config(config, what)
+    wide = hopper_mlp.build_of(config, "K1/K2" if gate is None else "K5/K6") == hopper_mlp.WIDE
     x_save, act, act_offs, _, (w, w_offs, w_stride), in_dim, masks = residuals
     dev = x_save.device
     n = x_save.shape[0]
@@ -736,13 +699,9 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
     need_dx = need_dx or gate is not None
     g_offs, g_size = g_layout(config, n)
     mask_ptrs = (None, None)
-    if hopper_mlp.is_wide(config):
+    if wide:
         plan = hopper_mlp.c_plan("bwd", config, in_dim, n, (w_offs, g_offs), need_dx)
         mask_ptrs = (masks[0].data_ptr(), build.offsets(masks[1]))
-        # The samples the tile kernel walks; those it is handed relu masks
-        # for as K1's bit plane (the pointer below).
-        metrics.count("k2.samples", n)
-        metrics.count("k2.mask_bit_samples", n if mask_ptrs[0] else 0)
     else:  # K4's kernels for one object, on its cotangent workspace of whole planes
         plan = hopper_mlp.c_obj_plan("obj_bwd", config, in_dim, n, 1, w_offs, w_stride, need_dx)
         g_size = hopper_mlp.obj_g_stride(config, n)
@@ -829,7 +788,6 @@ class FusedNerfMlpFn(torch.autograd.Function):
         ctx.save_for_backward(x, cond_lin, *weights)
         if x.device.type == "cpu":
             return _plain_forward(x, cond_lin, weights, config, s_per_ray)
-        check_bwd_config(config, "fused_mlp_bwd")
         rgb, den, ctx.residuals = _k1_launch(x, cond_lin, weights, config, s_per_ray, save=True)
         return rgb, den
 
@@ -943,12 +901,12 @@ def fused_nerf_mlp_gated_bwd_reference(
 
 def _k5_launch(x, gate, fill, cond_lin, weights, config, s_per_ray: int, save: bool):
     """Launch K5 on x [N, F] (rounded to bf16 here), gate [B] and the fill
-    row; at 128 / 128 with K3's plan for one object. Returns (rgb [N,
+    row, with K3's plan for one object. Returns (rgb [N,
     C_rgb], den [N, C_den], residuals) with residuals = (K2-style residuals
     of the blended input, (x rows bf16, gate, fill bf16)) when `save`, else
     None."""
     n, in_dim = x.shape
-    check_obj_config(config, in_dim)
+    check_kernel_config(config, in_dim, "K5/K6")
     dev = x.device
     x_rows = x.detach().to(torch.bfloat16).contiguous()
     fill_row = fill.detach().reshape(-1).to(torch.bfloat16).contiguous()
@@ -968,10 +926,8 @@ def _k5_launch(x, gate, fill, cond_lin, weights, config, s_per_ray: int, save: b
             (x_rows, gate, fill_row),
         )
         ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs))
-    plan = _NO_PLAN
-    if hopper_mlp.is_obj(config):
-        plan = hopper_mlp.c_obj_plan("obj_fwd", config, in_dim, n, 1, w_offs, w_stride,
-                                     x_cols(config, in_dim))
+    plan = hopper_mlp.c_obj_plan("obj_fwd", config, in_dim, n, 1, w_offs, w_stride,
+                                 x_cols(config, in_dim))
     fn = build.load("fused_mlp_gated").durf_fused_nerf_mlp_gated_fwd
     fn.argtypes = _K5_ARGTYPES
     fn.restype = _c.c_int
@@ -1025,7 +981,6 @@ class FusedNerfMlpGatedFn(torch.autograd.Function):
         ctx.save_for_backward(x, gate, fill, cond_lin, *weights)
         if x.device.type == "cpu":
             return _gated_plain_forward(x, gate, fill, cond_lin, weights, config, s_per_ray)
-        check_bwd_config(config, "fused_mlp_gated_bwd")
         rgb, den, ctx.residuals = _k5_launch(
             x, gate, fill, cond_lin, weights, config, s_per_ray, save=True
         )

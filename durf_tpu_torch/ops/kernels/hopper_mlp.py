@@ -33,7 +33,9 @@ the object to the plane. K3 reads its weights MN-major: a slice is a
 64-row block of W_l [K][128], two 64 x 64 boxes (c0 and c0 + 64).
 
 K1 and K2 at 128 / 128 run the mask-free build of the same kernels (one
-object, every tile) on K3's and K4's plans for N_obj = 1.
+object, every tile) on K3's and K4's plans for N_obj = 1, and K5 and K6
+that build with the gate. BUILDS says which build each kernel pair runs at
+which widths; no other width is built.
 """
 
 from __future__ import annotations
@@ -44,11 +46,18 @@ import torch
 
 from durf_tpu_torch.ops.kernels import build
 
-WIDE_WIDTHS = (256, 128)  # (net_width, net_width_condition) of the wide kernels
+WIDE, OBJ = "wide", "object"  # csrc/mlp_wide.cuh; csrc/mlp_obj.cuh
+# The build each kernel pair runs, forward and backward alike, by
+# (net_width, net_width_condition). The C entry points take these widths
+# alone and return -2 at any other.
+BUILDS = {
+    "K1/K2": {(256, 128): WIDE, (128, 128): OBJ},
+    "K3/K4": {(128, 128): OBJ},
+    "K5/K6": {(128, 128): OBJ},
+}
 BOX = 64  # columns of one swizzled box: 128 bytes of bf16
 SLICE_BYTES = 32768  # one ring stage
 MAX_MAPS, MAX_SLICES, MAX_JOBS, MAX_X_CHUNKS = 16, 64, 14, 2
-OBJ_WIDTHS = (128, 128)  # (net_width, net_width_condition) of the object kernels
 OBJ_SLICE_BYTES = 16384  # one ring stage of K3 and K4
 OBJ_FWD_BOXES = 2  # boxes a K3 slice loads: c0 and c0 + 64
 SPEC_FIELDS, SLICE_FIELDS = 9, 4
@@ -64,9 +73,21 @@ O_XSAVE, O_ACT, O_W = range(3)
 OB_ACT, OB_G, OB_W, OB_WX = range(4)
 
 
+def build_of(config, pair: str) -> str:
+    """The build (WIDE or OBJ) that runs kernel pair `pair` at this MLP's
+    widths. Raises a ValueError naming the widths it is built for."""
+    widths = (config.net_width, config.net_width_condition)
+    if widths not in BUILDS[pair]:
+        raise ValueError(
+            f"{pair} is built for the widths (net_width, net_width_condition) in "
+            f"{tuple(BUILDS[pair])}; got {widths}"
+        )
+    return BUILDS[pair][widths]
+
+
 def is_wide(config) -> bool:
-    """Whether K1 and K2 run the wgmma + TMA kernels for this MLP."""
-    return (config.net_width, config.net_width_condition) == WIDE_WIDTHS
+    """Whether K1 and K2 run the wide build for this MLP."""
+    return BUILDS["K1/K2"].get((config.net_width, config.net_width_condition)) == WIDE
 
 
 def x_chunks(in_dim: int) -> int:
@@ -199,12 +220,6 @@ def pack_masks(active: torch.Tensor) -> torch.Tensor:
     for b in range(32):
         words |= bits[:, b].long() << b
     return (words - ((words >> 31) << 32)).to(torch.int32)
-
-
-def is_obj(config) -> bool:
-    """Whether the wgmma + TMA object kernels run this MLP: K3 and K4, and
-    K1 and K2 in their mask-free build."""
-    return (config.net_width, config.net_width_condition) == OBJ_WIDTHS
 
 
 def obj_planes(config) -> tuple:

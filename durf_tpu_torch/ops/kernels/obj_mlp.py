@@ -19,8 +19,8 @@ At the object MLPs' width (128 / 128) both are wgmma + TMA kernels
 (csrc/mlp_obj.cuh; maps and schedules in hopper_mlp.py) that run only the
 (128-sample tile, object) pairs some ray of the tile hits (`kept_pairs`):
 for a 0/1 mask a skipped pair adds exactly 0, so the outputs are those of
-the dense plain versions. At other widths K3 runs the mma.sync kernel of
-csrc/mlp_tile.cuh on every pair; K4 is built for 128 / 128 only.
+the dense plain versions. Neither is built at other widths
+(hopper_mlp.BUILDS).
 
 For a 0/1 hit mask, hit * MLP(hit*x + (1-hit)*c0) == hit * MLP(x), so the
 masked-encode blend of the batched path disappears. The per-ray condition
@@ -42,9 +42,8 @@ import torch
 from durf_tpu_torch import metrics
 from durf_tpu_torch.ops.kernels import build, hopper_mlp
 from durf_tpu_torch.ops.kernels.fused_mlp import (
-    check_bwd_config,
     check_cuda_operand,
-    check_obj_config,
+    check_kernel_config,
     dot,
     g_layout,
     grad_layout,
@@ -145,7 +144,6 @@ _c = ctypes
 _P, _I, _L = _c.c_void_p, _c.c_int, _c.c_longlong
 _OFFS = _c.POINTER(_c.c_longlong)
 _PLAN = [_OFFS, _I, _OFFS, _I]
-_NO_PLAN = (None, 0, None, 0)
 _K3_ARGTYPES = [_P] * 7 + [_L, _L] + [_I] * 10 + [_OFFS, _OFFS, _I, _L, _L] + [
     _P, _P, _OFFS, _I, _L] + _PLAN + [_P]
 _K4_ARGTYPES = (
@@ -167,7 +165,7 @@ def _k3_launch(x, hit, cond_lin, weights, config, s_per_ray: int, save: bool):
     None."""
     in_dim, n = x.shape
     n_obj, n_rays = hit.shape
-    check_obj_config(config, in_dim)
+    check_kernel_config(config, in_dim, "K3/K4")
     check_cuda_operand(x, "x", x.device)
     check_cuda_operand(hit, "hit", x.device)
     check_cuda_operand(cond_lin, "cond_lin", x.device, (n_obj, n_rays, config.net_width_condition))
@@ -181,10 +179,8 @@ def _k3_launch(x, hit, cond_lin, weights, config, s_per_ray: int, save: bool):
         x_save, act, act_offs, act_stride = save_buffers(config, in_dim, n, n_obj, x.device)
         res = (x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim)
         ptrs = (x_save.data_ptr(), act.data_ptr(), build.offsets(act_offs), len(act_offs), act_stride)
-    plan = _NO_PLAN
-    if hopper_mlp.is_obj(config):
-        plan = hopper_mlp.c_obj_plan("obj_fwd", config, in_dim, n, n_obj, w_offs, w_stride,
-                                     x_cols(config, in_dim))
+    plan = hopper_mlp.c_obj_plan("obj_fwd", config, in_dim, n, n_obj, w_offs, w_stride,
+                                 x_cols(config, in_dim))
     fn = _k3_function()
     with torch.cuda.device(x.device):
         err = fn(
@@ -206,7 +202,7 @@ def _k4_launch(residuals, hit, g_rgb, g_den, config, s_per_ray: int, need_dx: bo
     """Allocate K4's workspace and launch it (csrc/obj_mlp_bwd.cu) on the
     residuals K3 saved. Returns (dx [F, N] or None, d cond_lin [N_obj, B,
     W_c], flat weight grads [N_obj * per-object total])."""
-    check_bwd_config(config, "obj_mlp_bwd")
+    hopper_mlp.build_of(config, "K3/K4")  # raises at the widths K4 is not built for
     x_save, act, act_offs, act_stride, (w, w_offs, w_stride), in_dim = residuals
     dev = x_save.device
     n = x_save.shape[0]
@@ -273,7 +269,6 @@ class FusedObjMlpFn(torch.autograd.Function):
         ctx.save_for_backward(x, hit, cond_lin, *weights)
         if x.device.type == "cpu":
             return fused_obj_mlp_reference(x, hit, cond_lin, weights, config, s_per_ray)
-        check_bwd_config(config, "obj_mlp_bwd")
         rgb, den, ctx.residuals = _k3_launch(
             x, hit, cond_lin, weights, config, s_per_ray, save=True
         )

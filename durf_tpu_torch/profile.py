@@ -51,9 +51,9 @@ import time
 # others'; K1, K2, K5 and K6 at 128 / 128 the same obj_mlp_* kernels with
 # the tag 1, 2, 5 or 6 (their mask-free builds) and wide_dw_kernel<2 or <6.
 GROUPS = (
-    ("K1", ("fused_nerf_mlp_fwd_kernel", "wide_mlp_fwd_kernel<1>", "obj_mlp_fwd_kernel<1,")),
+    ("K1", ("wide_mlp_fwd_kernel<1>", "obj_mlp_fwd_kernel<1,")),
     ("K3", ("obj_mlp_fwd_kernel<3,",)),
-    ("K5", ("fused_nerf_mlp_gated_fwd_kernel", "obj_mlp_fwd_kernel<5,")),
+    ("K5", ("obj_mlp_fwd_kernel<5,",)),
 ) + tuple(
     (f"K{t}", tuple(f"{k}<{t}" for k in ("mlp_bwd_kernel", "dw_kernel", "reduce_kernel",
                                           "ray_sum_kernel", "feature_sum_kernel")))

@@ -30,7 +30,7 @@ from pathlib import Path
 from time_obj_kernels import device_split, time_ms
 
 RAYS, SAMPLES, F_IN, F_C, GATE_HIT = 4096, 128, 63, 27, 0.03
-K5_PARTS = (("kernel", "fused_nerf_mlp_gated_fwd_kernel"), ("kernel", "obj_mlp_fwd_kernel<5,"))
+K5_PARTS = (("kernel", "obj_mlp_fwd_kernel<5,"),)
 K6_PARTS = (("tile", "mlp_bwd_kernel<6"), ("dW", "dw_kernel<6"), ("reduce", "reduce_kernel<6"),
             ("ray_sums", "ray_sum_kernel<6"), ("dfill_sum", "feature_sum_kernel<6"))
 

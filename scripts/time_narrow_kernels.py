@@ -35,7 +35,7 @@ from time_obj_kernels import device_split, time_ms
 
 RAYS, SAMPLES, F_C = 4096, 128, 27
 STEPS, CHUNKS, WARMUP = 10, 5, 2
-K1_PARTS = (("kernel", "fused_nerf_mlp_fwd_kernel"), ("kernel", "obj_mlp_fwd_kernel"))
+K1_PARTS = (("kernel", "obj_mlp_fwd_kernel"),)
 K2_PARTS = (("tile", "mlp_bwd_kernel<2"), ("dW", "dw_kernel<2"), ("reduce", "reduce_kernel<2"),
             ("ray_sums", "ray_sum_kernel<2"))
 

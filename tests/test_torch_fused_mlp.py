@@ -108,6 +108,8 @@ def test_pack_weights_layout(setup):
         (dict(net_width=256, net_width_condition=128), True),
         (dict(net_width=128, net_width_condition=128), True),
         (dict(net_width=64, net_width_condition=128), False),
+        (dict(net_width=128, net_width_condition=256), False),
+        (dict(net_width=256, net_width_condition=256), False),
         (dict(net_width=256, net_width_condition=128, net_depth_condition=0), False),
     ],
 )

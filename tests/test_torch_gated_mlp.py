@@ -332,7 +332,6 @@ def test_k6_gate_epilogue_layout_replay_matches_plain_backward():
 
 @pytest.mark.parametrize("kernel,group", [
     ("void durf::obj::obj_mlp_fwd_kernel<5, 1>(float const*, float const*)", "K5"),
-    ("void durf::fused_nerf_mlp_gated_fwd_kernel<4, 8>(__nv_bfloat16 const*)", "K5"),
     ("void durf::obj::obj_mlp_fwd_kernel<1, 1>(float const*, float const*)", "K1"),
     ("void durf::obj::obj_mlp_fwd_kernel<3, 2>(float const*, float const*)", "K3"),
     ("void durf::obj::obj_mlp_bwd_kernel<6, 1>(float const*, float const*)", "K6"),

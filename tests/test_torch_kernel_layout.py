@@ -20,6 +20,7 @@ import torch
 from durf_tpu_torch.configs import MLPConfig, ModelConfig
 from durf_tpu_torch.models.mlp import NerfMLP
 from durf_tpu_torch.ops.kernels import fused_mlp as k1
+from durf_tpu_torch.ops.kernels import hopper_mlp as hm
 from durf_tpu_torch.ops.kernels import obj_mlp as k3
 
 F_C = 27
@@ -225,17 +226,19 @@ def test_backward_kernels_take_the_flagship_widths(what, widths, ok):
     that run it: K2 the background MLP and, on the per-object route, the
     object MLPs; K4 and K6 the object MLPs. Others raise."""
     model = ModelConfig()
-    flagship = {
-        "fused_mlp_bwd": model.mlp, "obj_mlp_bwd": model.box_mlp, "fused_mlp_gated_bwd": model.box_mlp,
+    pair, flagship = {
+        "fused_mlp_bwd": ("K1/K2", model.mlp),
+        "obj_mlp_bwd": ("K3/K4", model.box_mlp),
+        "fused_mlp_gated_bwd": ("K5/K6", model.box_mlp),
     }[what]
-    assert (flagship.net_width, flagship.net_width_condition) in k1.BWD_WIDTHS[what]
-    assert (model.box_mlp.net_width, model.box_mlp.net_width_condition) in k1.BWD_WIDTHS[what]
+    assert (flagship.net_width, flagship.net_width_condition) in hm.BUILDS[pair]
+    assert (model.box_mlp.net_width, model.box_mlp.net_width_condition) in hm.BUILDS[pair]
     cfg = MLPConfig(net_width=widths[0], net_width_condition=widths[1])
     if ok:
-        k1.check_bwd_config(cfg, what)
+        hm.build_of(cfg, pair)
     else:
-        with pytest.raises(ValueError, match=what):
-            k1.check_bwd_config(cfg, what)
+        with pytest.raises(ValueError, match=pair):
+            hm.build_of(cfg, pair)
 
 
 def test_kernel_workspace_serves_one_backward():

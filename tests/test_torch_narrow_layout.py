@@ -22,9 +22,10 @@ tensors, and:
     fused_nerf_mlp_gated_reference / fused_nerf_mlp_gated_bwd_reference;
   * a mutated plan (offset, plane, slice order) fails the replay;
   * the route: 128 / 128 hands the wgmma kernels a plan and no transposed
-    pack (K5 and K6 too), 256 / 128 its wide plan, the other K1 widths the
-    mma.sync kernel no plan; unsupported shapes raise, and a failed launch
-    raises and counts nothing (there is no fallback);
+    pack (K5 and K6 too), 256 / 128 its wide plan; a width no build takes
+    (hopper_mlp.BUILDS) raises before any entry point, as do other
+    unsupported shapes, and a failed launch raises and counts nothing
+    (there is no fallback);
   * the port's plain K1 and its backward match the JAX package's fused MLP
     in interpret mode at 8x128 and 4x128 (tolerances of
     test_torch_fused_mlp.py and tests/test_pallas_mlp.py:78-81).
@@ -32,6 +33,7 @@ tensors, and:
 
 import contextlib
 import copy
+import re
 import types
 
 import jax
@@ -48,6 +50,7 @@ from durf_tpu_torch.configs import MLPConfig
 from durf_tpu_torch.ops.kernels import build
 from durf_tpu_torch.ops.kernels import fused_mlp as k1
 from durf_tpu_torch.ops.kernels import hopper_mlp as hm
+from durf_tpu_torch.ops.kernels import obj_mlp as k3
 
 F_C = 27
 B, S = 6, 40  # 240 samples: two tiles, the second ragged, rays across the tile edge
@@ -77,14 +80,15 @@ class _Spy:
         monkeypatch.setattr(build, "load", lambda lib: types.SimpleNamespace(
             **{name: _Entry(self.log, name, self.state) for name in (
                 "durf_fused_nerf_mlp_fwd", "durf_fused_nerf_mlp_bwd",
-                "durf_fused_nerf_mlp_gated_fwd", "durf_fused_nerf_mlp_gated_bwd")}))
+                "durf_fused_nerf_mlp_gated_fwd", "durf_fused_nerf_mlp_gated_bwd",
+                "durf_fused_obj_mlp_fwd")}))
         monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
         # Four SMs: the dW split gives this small batch two splits.
         monkeypatch.setattr(torch.cuda, "get_device_properties",
                             lambda d: types.SimpleNamespace(multi_processor_count=4))
         monkeypatch.setattr(k1, "stream_of", lambda d: 0)
         for fn in (k1.fused_nerf_mlp, k1.fused_nerf_mlp_bwd, k1.fused_nerf_mlp_gated,
-                   k1.fused_nerf_mlp_gated_bwd):
+                   k1.fused_nerf_mlp_gated_bwd, k3.fused_obj_mlp):
             monkeypatch.setattr(fn, "launches", 0)
 
     def last(self, name):
@@ -237,7 +241,6 @@ def _mlp(widths, in_dim=60, depth=4):
 
 @pytest.mark.parametrize("widths,route", [
     ((128, 128), "wgmma, object kernels"), ((256, 128), "wgmma, wide kernels"),
-    ((128, 256), "mma.sync"), ((256, 256), "mma.sync"),
 ])
 def test_k1_takes_the_wgmma_kernels_at_128_and_256_by_128(spy, widths, route):
     cfg, w = _mlp(widths)
@@ -249,12 +252,41 @@ def test_k1_takes_the_wgmma_kernels_at_128_and_256_by_128(spy, widths, route):
     plan, wt = _plan(args), args[-6]
     if route == "wgmma, object kernels":  # no transposed pack: B is the forward pack
         assert wt is None and [m[0] for m in plan[0]] == [hm.XSAVE, hm.ACT, hm.W]
-    elif route == "wgmma, wide kernels":  # B is the transposed pack
+    else:  # B is the transposed pack
         assert wt is not None and plan[0][hm.F_ACT][0] == hm.ACT
         assert {m[0] for m in plan[0][3:]} == {hm.WT}
-    else:
-        assert wt is None and plan is None
     assert k1.fused_nerf_mlp.launches == 1
+
+
+def _refused_launch(kernel, widths):
+    """A K1, K3 or K5 launch at `widths` and the launch counter it would
+    bump."""
+    cfg, w = _mlp(widths)
+    n, wc = B * S, widths[1]
+    if kernel == "K1":
+        return (lambda: k1._k1_launch(torch.rand((60, n)), torch.rand((B, wc)), w, cfg, S, True),
+                k1.fused_nerf_mlp)
+    if kernel == "K3":
+        ws = obj._weights(cfg, 60, 2, 3, F_C)
+        return (lambda: k3._k3_launch(torch.rand((60, n)), torch.ones((2, B)), torch.rand((2, B, wc)),
+                                      ws, cfg, S, True), k3.fused_obj_mlp)
+    return (lambda: k1._k5_launch(torch.rand((n, 60)), torch.ones(B), torch.rand(60),
+                                  torch.rand((B, wc)), w, cfg, S, True), k1.fused_nerf_mlp_gated)
+
+
+@pytest.mark.parametrize("kernel,widths", [
+    ("K1", (128, 256)), ("K1", (256, 256)), ("K3", (256, 128)), ("K5", (256, 128)),
+])
+def test_widths_no_build_takes_raise_before_any_entry_point(spy, kernel, widths):
+    """Outside hopper_mlp.BUILDS a forward raises a ValueError that names
+    the widths its pair is built for, calls no entry point and counts no
+    launch: no other kernel stands in."""
+    launch, counted = _refused_launch(kernel, widths)
+    pair = {"K1": "K1/K2", "K3": "K3/K4", "K5": "K5/K6"}[kernel]
+    named = f"{pair} is built for the widths (net_width, net_width_condition) in "
+    with pytest.raises(ValueError, match=re.escape(f"{named}{tuple(hm.BUILDS[pair])}; got {widths}")):
+        launch()
+    assert spy.log == [] and counted.launches == 0
 
 
 @pytest.mark.parametrize("widths", [(128, 128), (256, 128)])
@@ -387,12 +419,16 @@ def _k6_errors(s, x, gate, fill, cond_lin, w, g_rgb, g_den, plan, chunk):
 
 @pytest.mark.parametrize("b,s,gates", [
     pytest.param(B, S, (0.0, 1.0), id="6x40-gates-0-1"),
-    pytest.param(1000, 77, (0.0, 1.0, 0.25, 0.7), id="1000x77-gates-fractional"),
+    # Fractional gates, rays straddling tile edges (S = 77), 7 tiles with a
+    # ragged last one, and two dW splits with a ragged last one.
+    pytest.param(11, 77, (0.0, 1.0, 0.25, 0.7), id="11x77-gates-fractional"),
 ])
 def test_k5_k6_plans_replay_the_gated_forward_and_backward(spy, b, s, gates):
     x, gate, fill, cond, cond_lin, w, g_rgb, g_den = _gated_case(b, s, gates)
-    assert {0.0, 1.0} <= set(gate.tolist())
+    assert set(np.float32(gates).tolist()) == set(gate.tolist())
     fwd, bwd, chunk = _k5_k6_plans(spy, s, x, gate, fill, cond_lin, w, g_rgb, g_den)
+    n = b * s
+    assert -(-n // chunk) >= 2 and n % chunk != 0, (n, chunk)
     out, res = _k5_errors(s, x, gate, fill, cond, cond_lin, w, fwd)
     assert out < 2e-2 and res < 1e-3, (out, res)
     err = _k6_errors(s, x, gate, fill, cond_lin, w, g_rgb, g_den, bwd, chunk)
@@ -442,9 +478,8 @@ def test_unsupported_shapes_and_failed_launches_raise(spy):
     with pytest.raises(ValueError, match="in_dim <= 128"):
         k1._k1_launch(torch.rand((129, B * S)), torch.rand((B, 128)), w, cfg, S, save=True)
     cfg, w = _mlp((128, 256))
-    _, _, res = k1._k1_launch(torch.rand((60, B * S)), torch.rand((B, 256)), w, cfg, S, save=True)
-    with pytest.raises(ValueError, match="built for"):
-        k1.fused_nerf_mlp_bwd(res, None, None, w, cfg, S)
+    with pytest.raises(ValueError, match="built for the widths"):
+        k1._k1_launch(torch.rand((60, B * S)), torch.rand((B, 256)), w, cfg, S, save=True)
     cfg, w = _mlp((64, 128))
     with pytest.raises(ValueError, match="widths"):
         k1._k1_launch(torch.rand((60, B * S)), torch.rand((B, 128)), w, cfg, S, save=False)

@@ -542,10 +542,10 @@ def test_obj_plans_hold_any_object_count():
 
 def test_obj_kernels_refuse_what_they_do_not_take():
     cfg = MLPConfig(net_width=128)
-    k3.check_obj_config(cfg, 63)
-    k3.check_obj_config(cfg, 128)
+    k3.check_kernel_config(cfg, 63, "K3/K4")
+    k3.check_kernel_config(cfg, 128, "K3/K4")
     with pytest.raises(ValueError, match="in_dim <= 128"):
-        k3.check_obj_config(cfg, 129)
+        k3.check_kernel_config(cfg, 129, "K3/K4")
     with pytest.raises(ValueError, match="whole 128-wide row"):
         hm.obj_fwd_plan(cfg, F_IN, 256, 2, [0, 8000], 16384, 64)
 
