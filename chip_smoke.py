@@ -650,7 +650,10 @@ def check_k2_masks(dev, gen):
     against the saved activations > 0 packed on the card, bitwise, layer by
     layer; K2 without and with dx against the plain backward (BWD_TOL) and
     two calls bitwise equal; device ms of K1 with save, K2's tile kernel and
-    its dW products beside their bytes bounds."""
+    its dW products beside their bytes bounds, and for the dW products also
+    the bytes their SMs take in from L2 (fused_mlp.dw_ingest_bytes: each tile's
+    A and G boxes, the G of a cluster's two row tiles once) and the card's
+    2-CTA clusters at once (printed only)."""
     import torch
 
     from durf_tpu_torch.configs import MLPConfig
@@ -746,7 +749,12 @@ def check_k2_masks(dev, gen):
         bound_ms = 1e3 * nbytes / PEAK_BYTES
         print(f"{name} N={n}: device {ms[key]:.3f} ms, bytes bound {bound_ms:.3f} ms "
               f"({nbytes / 1e9:.3f} GB, {nbytes / ms[key] / 1e6:.0f} GB/s)")
-        out[name] = dict(device_ms=ms[key], bound_ms=bound_ms, gb=nbytes / 1e9)
+        out[name] = dict(device_ms=ms[key], bound_ms=bound_ms)
+    ingest, unshared = k1.dw_ingest_bytes(cfg, f_in, n)
+    print(f"K2 dW N={n}: its SMs take in {ingest / 1e9:.3f} GB from L2 ({ingest // n} B a "
+          f"sample; {unshared / 1e9:.3f} GB were each tile to load all of G), "
+          f"{ingest / ms['wide_dw_kernel<2'] / 1e6:.0f} GB/s; device bytes {dw_bytes / 1e9:.3f} GB; "
+          f"{k1.k2_dw_max_clusters()} of its 2-CTA clusters at once")
     del res, words, act, x, cond, cond_lin, g_rgb, g_den
     torch.cuda.empty_cache()
     return out

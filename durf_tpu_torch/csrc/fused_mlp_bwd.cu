@@ -13,9 +13,10 @@
 // a launch at that shape, 9.4 ms at full bandwidth: the tile kernel reads
 // the relu masks as bits (272 bytes a sample) and writes each layer's
 // cotangent G (4896), and the dW products read G back with the saved
-// activations (x_save and act, 4992). Fusing dW into the tile kernel would
-// drop G's round trip, but one tile's fp32 partial of one 256 x 256 layer
-// is 256 KB, more than an SM holds.
+// activations (x_save and act, 4992); the two row tiles of a 256-row layer
+// take each G box from L2 once, multicast to both (mlp_wide.cuh). Fusing
+// dW into the tile kernel would drop G's round trip, but one tile's fp32
+// partial of one 256 x 256 layer is 256 KB, more than an SM holds.
 //
 // What the TPU design relied on that Hopper lacks, and what this design does:
 //  * A sequential grid carried the weight-gradient sums: the TPU kernel
@@ -46,9 +47,10 @@
 
 namespace durf {
 
-// K2: at 256 / 128 the wide tile kernel, the dW products, their reduction
-// and the per-ray sums; at 128 / 128 one object of K4's launches
-// (obj::launch_narrow_bwd).
+// K2: at 256 / 128 the wide tile kernel, the dW products (two tiles to a
+// cluster, a job's row tiles sharing G: wide::cluster_wide_dw_kernel on the
+// pair table a.pairs), their reduction and the per-ray sums; at 128 / 128
+// one object of K4's launches (obj::launch_narrow_bwd).
 template <>
 int bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const GateArgs& ga,
                   const WideArgs& wa, cudaStream_t stream) {
@@ -69,6 +71,9 @@ int bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const Ga
   wide::DwPlan dwp;
   if ((err = wide::make_dw_plan(dwp, a.jobs_host, a.n_jobs, a.n, a.x_save, a.act, a.g)) != 0)
     return err;
+  wide::DwPairs dwpairs;
+  if ((err = wide::make_dw_pairs(dwpairs, a.pairs, a.n_pairs, a.n_tiles, a.n_splits)) != 0)
+    return err;
 
   const size_t smem = wide::bwd_smem();
   auto tile = wide::wide_mlp_bwd_kernel<2>;
@@ -80,11 +85,11 @@ int bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const Ga
   if ((err = (int)cudaGetLastError()) != 0) return err;
 
   const size_t dsmem = wide::dw_smem();
-  auto dw = wide::wide_dw_kernel<2>;
+  auto dw = wide::cluster_wide_dw_kernel<2>;
   ce = cudaFuncSetAttribute(dw, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dsmem);
   if (ce != cudaSuccess) return (int)ce;
-  dw<<<(unsigned)((long long)a.n_tiles * a.n_splits), wide::THREADS_DW, dsmem, stream>>>(
-      a.jobs, a.n_jobs, a.n_tiles, a.n, a.chunk, a.part, a.total, dwp, nullptr, 1, 0, 1, 0);
+  dw<<<(unsigned)wide::dw_pair_blocks(dwpairs), wide::THREADS_DW, dsmem, stream>>>(
+      a.jobs, a.n_jobs, a.n, a.chunk, a.part, a.total, dwp, dwpairs);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   if ((err = launch_reduce<2>(a, stream)) != 0) return err;
   return launch_ray_sum<2>(a, d, e, stream);
@@ -93,3 +98,17 @@ int bwd_launch<2>(const BwdArgs& a, const MlpDesc& d, const BwdDesc& e, const Ga
 }  // namespace durf
 
 DURF_DEFINE_BWD_ENTRY(durf_fused_nerf_mlp_bwd, 2)
+
+// How many 2-CTA clusters of K2's dW kernel at the flagship widths the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *clusters.
+extern "C" int durf_k2_dw_max_clusters(int* clusters) {
+  auto dw = durf::wide::cluster_wide_dw_kernel<2>;
+  const size_t dsmem = durf::wide::dw_smem();
+  cudaError_t ce = cudaFuncSetAttribute(dw, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dsmem);
+  if (ce != cudaSuccess) return (int)ce;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(2, 1, 1);
+  config.blockDim = dim3(durf::wide::THREADS_DW, 1, 1);
+  config.dynamicSmemBytes = dsmem;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, dw, &config);
+}

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the wgmma + TMA MLP kernels: mbarriers,
-// TMA tensor copies, wgmma shared-memory descriptors and instructions, and
-// the host-side encoding of tensor maps (mlp_wide.cuh, K1 and K2 at the
-// flagship widths).
+// Hopper (sm_90a) building blocks of the wgmma + TMA MLP kernels: mbarriers
+// (also a peer CTA's), TMA tensor copies (also multicast to a cluster),
+// thread-block cluster ids and barriers, wgmma shared-memory descriptors and
+// instructions, and the host-side encoding of tensor maps (mlp_wide.cuh, K1
+// and K2 at the flagship widths).
 //
 // Shared-memory tiles are bf16 in the 128-byte swizzle that TMA writes and
 // wgmma reads: a tile of R rows and C columns is C / 64 column blocks of
@@ -50,6 +51,30 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                "r"(bytes)
                : "memory");
 }
+// An arrival on the mbarrier at `bar`'s offset in CTA `cta` of the cluster,
+// with mbar_arrive's release at CTA scope: a consumer's release of a stage
+// that the other CTA's producer refills by TMA needs no more (what it read
+// there, it has read), and a release at cluster scope costs a fence a stage.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)), "r"(cta)
+      : "memory");
+}
+
+// ---- thread-block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of the cluster that has not exited is here; what each wrote
+// before is visible to all of them after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 __device__ __forceinline__ uint64_t globaltimer() {
   uint64_t t;
   asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
@@ -83,6 +108,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+// The same box into the same offset of every CTA of the cluster in
+// `cta_mask`, each CTA's mbarrier at `bar`'s offset taking its bytes: one
+// read from L2 for all of them.
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                   int c0, int c1, int c2, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar)),
+      "h"(cta_mask)
       : "memory");
 }
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,

@@ -174,6 +174,10 @@ struct BwdArgs {
   long long total;
   long long n;
   int s_per_ray;
+  // K2 at the flagship widths: the pair table of its dW clusters
+  // (wide::make_dw_pairs), [n_pairs][wide::PF] in host memory.
+  const long long* pairs = nullptr;
+  int n_pairs = 0;
 };
 
 template <int TAG>
@@ -243,8 +247,9 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
       const float* g_rgb, const float* g_den, long long n_rays, const void* w, const void* act,  \
       const void* x_save, void* g, float* dx, float* dcond, const long long* jobs,               \
       const long long* jobs_host, int n_jobs, int n_tiles, int n_splits, long long chunk,        \
-      float* part, float* dw, long long total, long long n, int s_per_ray, int in_dim,           \
-      int width, int depth, int skip, int wc, int depth_cond, int n_rgb, int n_den,              \
+      const long long* pairs, int n_pairs, float* part, float* dw, long long total, long long n, \
+      int s_per_ray, int in_dim, int width, int depth, int skip, int wc, int depth_cond,         \
+      int n_rgb, int n_den,                                                                      \
       const long long* w_off, const long long* act_off, const long long* g_off, int n_layers,    \
       const void* gx, const float* gate, const void* gfill, float* dgate, float* dfill_part,     \
       float* dfill, const void* mask, const long long* mask_off, const long long* specs,         \
@@ -273,7 +278,9 @@ inline int make_bwd_descs(MlpDesc& d, BwdDesc& e, int in_dim, int width, int dep
                     dw,                                                                          \
                     total,                                                                       \
                     n,                                                                           \
-                    s_per_ray};                                                                  \
+                    s_per_ray,                                                                   \
+                    pairs,                                                                       \
+                    n_pairs};                                                                    \
     durf::GateArgs ga{static_cast<const durf::bf16*>(gx), gate,                                  \
                       static_cast<const durf::bf16*>(gfill), dgate, dfill_part, dfill};          \
     durf::WideArgs wa{specs, n_specs, slices, n_slices, static_cast<const uint32_t*>(mask),      \

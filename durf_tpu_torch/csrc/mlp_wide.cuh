@@ -35,13 +35,33 @@
 //    writes (4896 a sample at the flagship widths), with the weight slices
 //    streaming from L2 for every tile. G_{l-1} goes out by a TMA store from
 //    the tile the next product reads.
-//  * wide_dw_kernel (K2's, K4's and K6's weight gradients): dW = A^T G over a slice of
-//    samples per block, 128 x N output tiles (N = the layer's 64, 128 or
-//    256 columns) over the two warpgroups, both operands MN-major (samples
-//    are rows in device memory), 64 samples a stage, 4 stages. The row tiles
-//    of one (layer, slice) are neighbours in the grid, so the G slab they
-//    share is read from device memory about once. fp32 partials per slice,
-//    summed in a fixed order by reduce_kernel: bitwise reproducible.
+//  * wide_dw_kernel (K4's and K6's weight gradients, and K2's at 128 /
+//    128): dW = A^T G over a slice of samples per block, 128 x N output
+//    tiles (N = the layer's 64, 128 or 256 columns) over the two
+//    warpgroups, both operands MN-major (samples are rows in device
+//    memory), 64 samples a stage, 4 stages of 48 KB. fp32 partials per
+//    slice, summed in a fixed order by reduce_kernel: bitwise reproducible.
+//  * cluster_wide_dw_kernel (K2's at the flagship widths): the same tiles,
+//    slices and sums, two CTAs to a cluster (fused_mlp.py:dw_pairs). Its bound
+//    is bytes: 20.7 GB a level from device memory at 16384 x 128 (x_save, act
+//    and G each read once), 6.2 ms. But the SMs take in more, and that set its
+//    pace: a 256-row layer has two row tiles that each loaded all of G, so
+//    every G slab went to two SMs (33.0 GB a level into the SMs, 3.5 TB/s over
+//    9.1-9.6 ms on an H100 at 700 W). Here the two row tiles of a job are one
+//    cluster on one slice: each CTA loads its own A boxes and every other G box
+//    of a stage, multicast into both CTAs' stage, so each G box leaves L2 once
+//    for the pair (23.6 GB a level into the SMs; 7.4 ms on the same card, 83%
+//    of the bound). A stage's `full` barrier takes the CTA's A bytes and all of
+//    G's; its `empty` barrier counts the 8 consumer warps of both CTAs, each
+//    warp arriving on its own CTA's and (mapa) its peer's, since either
+//    producer writes into both; cluster barriers order the barriers'
+//    initialisation before any multicast and keep each CTA alive until its peer
+//    can no longer arrive on it; the arrivals release at CTA scope, as a CTA's
+//    own do (at cluster scope each costs a fence, and the kernel ran 27% slower
+//    than wide_dw_kernel). The tiles of the one-row-tile jobs (l0 and the skip
+//    layer's x rows, both on x_save; rgb) pair up without sharing across all
+//    slices, an odd one out with a CTA that exits at once, so the clusters fill
+//    the card's waves as wide_dw_kernel's blocks would.
 
 #pragma once
 
@@ -814,9 +834,22 @@ struct DwSkip {
   }
 };
 
-template <int N, bool OBJ>
+// A consumer warp is done with stage st; PEER (cluster_wide_dw_kernel,
+// when the pair shares G): also on the other CTA's barrier, since its
+// producer multicasts into this CTA's stage too.
+template <bool PEER>
+__device__ __forceinline__ void dw_release(uint64_t* empty, int st, int t, bool peer) {
+  __syncwarp();
+  if ((t & 31) == 0) {
+    hop::mbar_arrive(&empty[st]);
+    if (PEER && peer) hop::mbar_arrive_cluster(&empty[st], hop::cluster_ctarank() ^ 1u);
+  }
+}
+
+template <int N, bool OBJ, bool PEER = false>
 __device__ void dw_tile(const long long* job, int tm, int nks, float* p, unsigned char* stages,
-                        uint64_t* full, uint64_t* empty, int wg, int t, const unsigned char* runs) {
+                        uint64_t* full, uint64_t* empty, int wg, int t, const unsigned char* runs,
+                        bool peer = false) {
   const int k = (int)job[5], j = (int)job[6];
   const long long out = job[7], bias = job[8];
   const bool rows = 128 * tm + 64 * wg < k;
@@ -863,16 +896,12 @@ __device__ void dw_tile(const long long* job, int tm, int nks, float* p, unsigne
     }
     if (prev >= 0) {
       if (rows) hop::wgmma_wait<1>();
-      __syncwarp();
-      if ((t & 31) == 0) hop::mbar_arrive(&empty[prev]);
+      dw_release<PEER>(empty, prev, t, peer);
     }
     prev = st;
   }
   if (rows) hop::wgmma_wait<0>();
-  if (prev >= 0) {
-    __syncwarp();
-    if ((t & 31) == 0) hop::mbar_arrive(&empty[prev]);
-  }
+  if (prev >= 0) dw_release<PEER>(empty, prev, t, peer);
   hop::fence_acc(acc);
   if (rows) {
 #pragma unroll
@@ -902,6 +931,78 @@ __device__ void dw_tile(const long long* job, int tm, int nks, float* p, unsigne
   }
 }
 
+// What a dW block (or CTA) works on: output tile `tile` of job row jb (its
+// row tile tm) over the DW_BK-sample stages of split `split`, with the A
+// and G boxes a stage holds.
+struct DwWork {
+  const long long* job;
+  int jb, tm, a_boxes, g_boxes, nks;
+  long long s_begin;
+};
+__device__ __forceinline__ DwWork dw_locate(const long long* jobs, int n_jobs, int tile,
+                                            int split, long long chunk, long long n) {
+  DwWork w;
+  w.jb = 0;
+  while (w.jb + 1 < n_jobs && jobs[(w.jb + 1) * JF + 9] <= tile) ++w.jb;
+  w.job = jobs + w.jb * JF;
+  w.tm = tile - (int)w.job[9];
+  const int k = (int)w.job[5], j = (int)w.job[6];
+  w.s_begin = (long long)split * chunk;
+  const long long s_end = w.s_begin + chunk < n ? w.s_begin + chunk : n;
+  w.nks = s_end > w.s_begin ? (int)((s_end - w.s_begin + DW_BK - 1) / DW_BK) : 0;
+  w.a_boxes = min(2, (k - 128 * w.tm + 63) / 64);
+  w.g_boxes = (j + 63) / 64;
+  return w;
+}
+
+// Thread 0: the ring's barriers; `empty` counts `consumers` warp arrivals.
+__device__ __forceinline__ void dw_init_barriers(uint64_t* full, uint64_t* empty, int consumers) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], consumers);
+    }
+    hop::mbar_init_fence();
+  }
+}
+
+// The producer's i-th stage, samples from s0: once the stage is free, its
+// `full` barrier expects the A boxes and all of G's, and the producer loads
+// the A boxes (plane za) and G boxes c0, c0 + dc, ... (plane o); with
+// MULTICAST into the same stage of both CTAs of the cluster.
+template <bool MULTICAST>
+__device__ __forceinline__ void dw_produce(const DwPlan& plan, const DwWork& w,
+                                           unsigned char* stages, uint64_t* full, uint64_t* empty,
+                                           int i, int s0, int za, int o, int c0, int dc) {
+  const int st = i % DW_STAGES;
+  hop::mbar_wait(&empty[st], ((i / DW_STAGES) & 1) ^ 1);
+  hop::mbar_expect_tx(&full[st], (w.a_boxes + w.g_boxes) * DW_BOX);
+  unsigned char* sa = stages + st * DW_STAGE;
+  for (int b = 0; b < w.a_boxes; ++b)
+    hop::tma_load(sa + b * DW_BOX, &plan.a[w.jb], &full[st], 128 * w.tm + 64 * b, s0, za);
+  for (int c = c0; c < w.g_boxes; c += dc) {
+    if (MULTICAST)
+      hop::tma_load_multicast(sa + (2 + c) * DW_BOX, &plan.g[w.jb], &full[st], 64 * c, s0, o,
+                              0b11);
+    else
+      hop::tma_load(sa + (2 + c) * DW_BOX, &plan.g[w.jb], &full[st], 64 * c, s0, o);
+  }
+}
+
+// The two consumer warpgroups: dw_tile at the job's G width.
+template <bool OBJ, bool PEER = false>
+__device__ __forceinline__ void dw_consume(const DwWork& w, float* p, unsigned char* stages,
+                                           uint64_t* full, uint64_t* empty,
+                                           const unsigned char* runs, bool peer = false) {
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  if (w.g_boxes == 1)
+    dw_tile<64, OBJ, PEER>(w.job, w.tm, w.nks, p, stages, full, empty, wg, t, runs, peer);
+  else if (w.g_boxes == 2)
+    dw_tile<128, OBJ, PEER>(w.job, w.tm, w.nks, p, stages, full, empty, wg, t, runs, peer);
+  else
+    dw_tile<256, OBJ, PEER>(w.job, w.tm, w.nks, p, stages, full, empty, wg, t, runs, peer);
+}
+
 // Block b: output tile b % n_tiles and split b / n_tiles (samples [split *
 // chunk, ...)); with OBJ (K4) the jobs are one object's, and block b takes
 // object (b / n_tiles) % n_obj of split b / (n_tiles n_obj): its A and G
@@ -923,52 +1024,89 @@ __global__ void __launch_bounds__(THREADS_DW, 1)
   const int tile = blockIdx.x % n_tiles;
   const int o = OBJ ? (blockIdx.x / n_tiles) % n_obj : 0;
   const int split = OBJ ? blockIdx.x / n_tiles / n_obj : blockIdx.x / n_tiles;
-  int jb = 0;
-  while (jb + 1 < n_jobs && jobs[(jb + 1) * JF + 9] <= tile) ++jb;
-  const long long* job = jobs + jb * JF;
-  const int tm = tile - (int)job[9];
-  const int k = (int)job[5], j = (int)job[6];
-  const long long s_begin = (long long)split * chunk;
-  const long long s_end = s_begin + chunk < n ? s_begin + chunk : n;
-  const int nks = s_end > s_begin ? (int)((s_end - s_begin + DW_BK - 1) / DW_BK) : 0;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < DW_STAGES; ++s) {
-      hop::mbar_init(&full[s], 1);
-      hop::mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    hop::mbar_init_fence();
-  }
+  const DwWork w = dw_locate(jobs, n_jobs, tile, split, chunk, n);
+  dw_init_barriers(full, empty, CONSUMER_WARPS);
   if (OBJ) {
     const DwSkip skip{hit + o * n_rays, n, s_per_ray};
-    for (int ks = threadIdx.x; ks < nks; ks += blockDim.x)
-      runs[ks] = skip.runs(s_begin + (long long)ks * DW_BK);
+    for (int ks = threadIdx.x; ks < w.nks; ks += blockDim.x)
+      runs[ks] = skip.runs(w.s_begin + (long long)ks * DW_BK);
   }
   __syncthreads();
-  const int a_boxes = min(2, (k - 128 * tm + 63) / 64), g_boxes = (j + 63) / 64;
   if (threadIdx.x >= 256) {
     if (threadIdx.x != 256) return;
-    const int za = job[0] == BUF_XSAVE ? 0 : o;
+    const int za = w.job[0] == BUF_XSAVE ? 0 : o;
     int ran = 0;
-    for (int ks = 0; ks < nks; ++ks) {
+    for (int ks = 0; ks < w.nks; ++ks) {
       if (OBJ && !runs[ks]) continue;
-      const int s0 = (int)(s_begin + (long long)ks * DW_BK);
-      const int i = OBJ ? ran++ : ks;
-      const int st = i % DW_STAGES;
-      hop::mbar_wait(&empty[st], ((i / DW_STAGES) & 1) ^ 1);
-      hop::mbar_expect_tx(&full[st], (a_boxes + g_boxes) * DW_BOX);
-      unsigned char* sa = stages + st * DW_STAGE;
-      for (int b = 0; b < a_boxes; ++b)
-        hop::tma_load(sa + b * DW_BOX, &plan.a[jb], &full[st], 128 * tm + 64 * b, s0, za);
-      for (int c = 0; c < g_boxes; ++c)
-        hop::tma_load(sa + (2 + c) * DW_BOX, &plan.g[jb], &full[st], 64 * c, s0, o);
+      dw_produce<false>(plan, w, stages, full, empty, OBJ ? ran++ : ks,
+                        (int)(w.s_begin + (long long)ks * DW_BK), za, o, 0, 1);
     }
     return;
   }
-  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-  float* p = part + (long long)split * total + o * per_obj;
-  if (g_boxes == 1) dw_tile<64, OBJ>(job, tm, nks, p, stages, full, empty, wg, t, runs);
-  else if (g_boxes == 2) dw_tile<128, OBJ>(job, tm, nks, p, stages, full, empty, wg, t, runs);
-  else dw_tile<256, OBJ>(job, tm, nks, p, stages, full, empty, wg, t, runs);
+  dw_consume<OBJ>(w, part + (long long)split * total + o * per_obj, stages, full, empty, runs);
+}
+
+// The clusters of cluster_wide_dw_kernel (ops/kernels/fused_mlp.py:dw_pairs,
+// make_dw_pairs): n_shared pairs of row tiles that share G (tile[p][0] and
+// [1]), then n_single tiles of the jobs with one row tile (tile[i][0]).
+constexpr int MAX_PAIRS = 2 * MAX_JOBS;
+struct DwPairs {
+  short tile[MAX_PAIRS][2];
+  int n_shared, n_single, n_splits;
+};
+
+// K2's weight gradients at the flagship widths: wide_dw_kernel's tiles on
+// its sample slices, two CTAs to a cluster. Clusters c < n_shared n_splits
+// take shared pair c % n_shared on split c / n_shared: each CTA issues its
+// own A boxes and every other G box of a stage, multicast to both. A
+// stage's `full` barrier takes the CTA's A bytes and all of G's; its
+// `empty` barrier counts the consumer warps of both CTAs, since either
+// producer writes into both; the barriers are initialised, and the CTAs
+// exit, at a cluster barrier. The later clusters take the one-row-tile
+// tiles of all splits two at a time, item i being tile i % n_single of
+// split i / n_single, each CTA loading as wide_dw_kernel does; a CTA past
+// the last item exits at once. So the clusters fill the card's waves as
+// wide_dw_kernel's blocks do, and the sums are its sums, bitwise.
+template <int TAG>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS_DW, 1)
+    cluster_wide_dw_kernel(const long long* __restrict__ jobs, int n_jobs, long long n,
+                           long long chunk, float* __restrict__ part, long long total,
+                           const __grid_constant__ DwPlan plan,
+                           const __grid_constant__ DwPairs pairs) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + DW_STAGES * DW_STAGE);
+  uint64_t* empty = full + DW_STAGES;
+  const int rank = (int)hop::cluster_ctarank();
+  const int cluster = blockIdx.x / 2, shared_clusters = pairs.n_shared * pairs.n_splits;
+  const bool shared = cluster < shared_clusters;
+  int tile, split;
+  if (shared) {
+    tile = pairs.tile[cluster % pairs.n_shared][rank];
+    split = cluster / pairs.n_shared;
+  } else {
+    const int i = 2 * (cluster - shared_clusters) + rank;
+    if (i >= pairs.n_single * pairs.n_splits) return;
+    tile = pairs.tile[pairs.n_shared + i % pairs.n_single][0];
+    split = i / pairs.n_single;
+  }
+  const DwWork w = dw_locate(jobs, n_jobs, tile, split, chunk, n);
+  dw_init_barriers(full, empty, (shared ? 2 : 1) * CONSUMER_WARPS);
+  __syncthreads();
+  if (shared) hop::cluster_sync();
+  if (threadIdx.x >= 256) {
+    for (int ks = 0; threadIdx.x == 256 && ks < w.nks; ++ks) {
+      const int s0 = (int)(w.s_begin + (long long)ks * DW_BK);
+      if (shared) dw_produce<true>(plan, w, stages, full, empty, ks, s0, 0, 0, rank, 2);
+      else dw_produce<false>(plan, w, stages, full, empty, ks, s0, 0, 0, 0, 1);
+    }
+    __syncwarp();
+  } else {
+    dw_consume<false, true>(w, part + (long long)split * total, stages, full, empty, nullptr,
+                            shared);
+  }
+  // Neither CTA leaves while the other may still arrive on its barriers.
+  if (shared) hop::cluster_sync();
 }
 
 // ---- host ----
@@ -1050,6 +1188,33 @@ inline int make_dw_plan(DwPlan& plan, const long long* jobs_host, int n_jobs, lo
     if (jb[11] != 1 || jb[6] > W) return -1;
   }
   return 0;
+}
+
+// The clusters of K2's dW kernel from the pair table (fused_mlp.py:dw_pairs,
+// rows of PF in host memory: the tile of rank 0, of rank 1 or -1, 1 where
+// the two share G; the shared rows first) over n_splits splits. Returns 0
+// or -1.
+constexpr int PF = 3;
+inline int make_dw_pairs(DwPairs& dp, const long long* rows, int n_rows, int n_tiles,
+                         int n_splits) {
+  if (rows == nullptr || n_rows < 1 || n_rows > MAX_PAIRS || n_splits < 1) return -1;
+  dp = DwPairs{};
+  dp.n_splits = n_splits;
+  for (int r = 0; r < n_rows; ++r) {
+    const long long* row = rows + (long long)r * PF;
+    const bool shared = row[2] != 0;
+    if (row[0] < 0 || row[0] >= n_tiles) return -1;
+    if (shared ? dp.n_single > 0 || row[1] < 0 || row[1] >= n_tiles : row[1] != -1) return -1;
+    dp.tile[r][0] = (short)row[0];
+    dp.tile[r][1] = (short)row[1];
+    ++(shared ? dp.n_shared : dp.n_single);
+  }
+  return 0;
+}
+// Blocks of the launch: two for each cluster.
+inline long long dw_pair_blocks(const DwPairs& dp) {
+  const long long singles = (long long)dp.n_single * dp.n_splits;
+  return 2 * ((long long)dp.n_shared * dp.n_splits + (singles + 1) / 2);
 }
 
 }  // namespace wide

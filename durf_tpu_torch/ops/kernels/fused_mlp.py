@@ -51,6 +51,7 @@ import functools
 
 import torch
 
+from durf_tpu_torch import metrics
 from durf_tpu_torch.ops.kernels import build, hopper_mlp
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
@@ -58,6 +59,7 @@ HEAD_COLS = 8  # padded width of the density / rgb head cotangent rows
 DW_TILE = 128  # output rows (and columns, below 256 / 128) of a weight-gradient tile
 WIDE_DW_COLS = 256  # output columns of a tile of the wide dW kernel (csrc/mlp_wide.cuh)
 JOB_FIELDS = 12
+PAIR_FIELDS = 3  # a 2-CTA cluster of the wide K2's dW kernel: tile of rank 0, of rank 1, shared
 
 
 def layer_dims(config, in_dim: int) -> list:
@@ -477,17 +479,62 @@ def dw_jobs(config, in_dim, n_obj, act_offs, act_stride, g_offs, g_stride, x_col
     return rows, tiles
 
 
+def dw_pairs(rows) -> tuple:
+    """The pair table of the wide K2's dW kernel over a job table's tiles:
+    rows of PAIR_FIELDS, first [row tile 0, row tile 1, 1] for each job
+    with two row tiles (same G columns; a cluster takes both on one sample
+    slice, so they share G), then [tile, -1, 0] for each job with one row
+    tile, which the kernel pairs up without sharing, across the sample
+    slices (csrc/mlp_wide.cuh:cluster_wide_dw_kernel). Returns (pairs, the
+    tiles that share G)."""
+    shared, single = [], []
+    for row in rows:
+        first, mt, nt = row[9], row[10], row[11]
+        assert nt == 1, "a wide dW tile spans all of a layer's columns"
+        shared += [[first + tm, first + tm + 1, 1] for tm in range(0, mt - 1, 2)]
+        single += [[first + mt - 1, -1, 0]] if mt % 2 else []
+    return shared + single, 2 * len(shared)
+
+
+def dw_box_bytes(rows, pairs) -> tuple:
+    """Bytes a sample of one backward that the wide dW tiles take into their
+    SMs (A and G boxes of 64 bf16 columns): (A, G, the G that a shared
+    pair's two CTAs take from one L2 read, dw_pairs). The SMs take in A +
+    G - shared."""
+    box = 2 * 64
+    a = sum(min(2, -(-(r[5] - 128 * tm) // 64)) for r in rows for tm in range(r[10]))
+    g_cols = {r[9] + tm: -(-r[6] // 64) for r in rows for tm in range(r[10])}
+    g = sum(g_cols.values())
+    return box * a, box * g, box * sum(g_cols[p[0]] for p in pairs if p[2])
+
+
+def dw_ingest_bytes(config, in_dim: int, n: int) -> tuple:
+    """Bytes the wide K2's dW tiles take into their SMs in one backward of
+    n samples (dw_box_bytes over its job and pair tables): (as launched,
+    were each tile to load all of G)."""
+    rows, _ = dw_jobs(config, in_dim, 1, *act_layout(config, n), *g_layout(config, n),
+                      x_cols(config, in_dim), WIDE_DW_COLS)
+    a, g, shared = dw_box_bytes(rows, dw_pairs(rows)[0])
+    return (a + g - shared) * n, (a + g) * n
+
+
 @functools.lru_cache(maxsize=32)
 def _job_table(config, in_dim, n, n_obj, device):
+    """(jobs on `device`, jobs in host memory, tiles) and, for the wide
+    build, (its dW pair table in host memory, the tiles that share G)."""
     act_offs, act_stride = act_layout(config, n)
     g_offs, g_stride = g_layout(config, n)
+    wide = hopper_mlp.is_wide(config)
     rows, tiles = dw_jobs(config, in_dim, n_obj, act_offs, act_stride, g_offs, g_stride,
-                          x_cols(config, in_dim),
-                          WIDE_DW_COLS if hopper_mlp.is_wide(config) else DW_TILE)
+                          x_cols(config, in_dim), WIDE_DW_COLS if wide else DW_TILE)
     host = torch.tensor(rows, dtype=torch.int64)
     if device.type == "cuda":
         host = host.pin_memory()
-    return host.to(device, non_blocking=True), host, tiles
+    jobs = (host.to(device, non_blocking=True), host, tiles)
+    if not wide or n_obj != 1:
+        return jobs + (None, 0)
+    pairs, shared = dw_pairs(rows)
+    return jobs + (torch.tensor(pairs, dtype=torch.int64), shared)
 
 
 @functools.lru_cache(maxsize=64)
@@ -515,7 +562,16 @@ def job_table(config, in_dim: int, n: int, n_obj: int, device):
     n_obj) and kept; the copy to the card is asynchronous, so a launch
     makes no host sync."""
     device = torch.device(device)
-    return _job_table(hopper_mlp.Keyed(config), in_dim, n, n_obj, device)
+    return _job_table(hopper_mlp.Keyed(config), in_dim, n, n_obj, device)[:3]
+
+
+def dw_pair_table(config, in_dim: int, n: int, device):
+    """The wide K2's dW pair table of one backward shape (dw_pairs), built
+    and kept with its job table: (the table in host memory, which the launch
+    reads into the kernel's parameters, the tiles whose G arrives by
+    multicast); (None, 0) for the other builds."""
+    device = torch.device(device)
+    return _job_table(hopper_mlp.Keyed(config), in_dim, n, 1, device)[3:]
 
 
 def unpack_grads(flat, weights, config, in_dim: int, stacked: bool):
@@ -615,7 +671,7 @@ _K1_ARGTYPES = _FWD_ARGTYPES[:-1] + [_P, _OFFS, _P] + _PLAN_ARGTYPES + [_P]
 _K5_ARGTYPES = [_P, _P] + _FWD_ARGTYPES[:-1] + _PLAN_ARGTYPES + [_P]
 # The K2 / K6 entry point (DURF_DEFINE_BWD_ENTRY in csrc/mlp_bwd.cuh).
 BWD_ARGTYPES = (
-    [_P, _P, _L] + [_P] * 8 + [_I, _I, _I, _L, _P, _P, _L, _L] + [_I] * 9
+    [_P, _P, _L] + [_P] * 8 + [_I, _I, _I, _L, _P, _I, _P, _P, _L, _L] + [_I] * 9
     + [_OFFS] * 3 + [_I] + [_P] * 6 + [_P, _OFFS] + _PLAN_ARGTYPES + [_P]
 )
 
@@ -625,6 +681,16 @@ def _k1_function():
     fn.argtypes = _K1_ARGTYPES
     fn.restype = _c.c_int
     return fn
+
+
+def k2_dw_max_clusters() -> int:
+    """How many 2-CTA clusters of the wide K2's dW kernel the current card
+    holds at once (cudaOccupancyMaxActiveClusters)."""
+    fn = build.load("fused_mlp_bwd").durf_k2_dw_max_clusters
+    fn.argtypes, fn.restype = [_c.POINTER(_c.c_int)], _c.c_int
+    out = _c.c_int(0)
+    build.check(fn(_c.byref(out)), "durf_k2_dw_max_clusters")
+    return out.value
 
 
 def _k1_launch(x, cond_lin, weights, config, s_per_ray: int, save: bool):
@@ -707,6 +773,12 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
         g_size = hopper_mlp.obj_g_stride(config, n)
     g = torch.empty((g_size,), dtype=torch.bfloat16, device=dev)
     jobs, jobs_host, n_tiles = job_table(config, in_dim, n, 1, dev)
+    pairs, n_pairs = None, 0
+    if wide:  # the dW tiles two to a cluster, the row tiles of a layer sharing G
+        pairs, shared = dw_pair_table(config, in_dim, n, dev)
+        n_pairs = pairs.shape[0]
+        metrics.count("k2.dw_tiles", n_tiles)
+        metrics.count("k2.dw_tiles_shared", shared)
     _, total = grad_layout(config, in_dim)
     chunk = wide_dw_chunk(n, n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
     n_splits = max(1, -(-n // chunk))
@@ -732,6 +804,7 @@ def launch_bwd(name, what, residuals, g_rgb, g_den, weights, config, s_per_ray, 
             x_save.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
             dcond.data_ptr(), jobs.data_ptr(), jobs_host.data_ptr(),
             jobs.shape[0], n_tiles, n_splits, chunk,
+            None if pairs is None else pairs.data_ptr(), n_pairs,
             part.data_ptr(), flat.data_ptr(), total, n, s_per_ray, in_dim,
             config.net_width, config.net_depth, config.skip_layer,
             config.net_width_condition, config.net_depth_condition,

@@ -15,9 +15,15 @@ each one's device time per call by launch (K1: its kernel; K2: tile kernel,
 weight gradients, reduction, per-ray sums; "other" is the wrappers' own
 device work). Last, a sha256 of K1's outputs with save and of K2's with dx
 (dx, d cond_lin, every gradient): two trees give the same digest on these
-inputs exactly when their outputs are bitwise equal. Prints one JSON line
-{"label", "device", "power_limit", "ms": {...}, "device_ms": {...},
-"digest": {...}}.
+inputs exactly when their outputs are bitwise equal. Also K2's dW products
+against their bytes: the device bytes they must move (x_save, act and G,
+each read once; 20.7 GB a level) over their device time, the bytes their
+SMs take in from L2 (fused_mlp.dw_ingest_bytes: each tile's A and G boxes,
+less the G a cluster's two CTAs share) and how many of K2's 2-CTA dW
+clusters the card holds at once (cudaOccupancyMaxActiveClusters), both
+null for a tree without the clusters. Prints one JSON
+line {"label", "device", "power_limit", "ms": {...}, "device_ms": {...},
+"dw": {...}, "digest": {...}}.
 """
 
 from __future__ import annotations
@@ -42,6 +48,19 @@ def digest(tensors) -> str:
     for t in tensors:
         h.update(t.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def dw_account(k1, cfg, n: int, split: dict) -> dict:
+    """K2's dW products at N = n: device GB a level (every input byte read
+    once), GB/s by case, GB a level into the SMs and the clusters the card
+    holds (null where the tree has no clusters)."""
+    _, act_stride = k1.act_layout(cfg, n)
+    device_bytes = 2.0 * (k1.x_cols(cfg, F_IN) * n + act_stride + sum(k1.g_widths(cfg)) * n)
+    clustered = hasattr(k1, "k2_dw_max_clusters")
+    return {"device_gb": device_bytes / 1e9,
+            "gb_s": {k: device_bytes / v["dW"] / 1e6 for k, v in split.items() if "dW" in v},
+            "sm_ingest_gb": k1.dw_ingest_bytes(cfg, F_IN, n)[0] / 1e9 if clustered else None,
+            "max_active_clusters": k1.k2_dw_max_clusters() if clustered else None}
 
 
 def main(argv=None) -> int:
@@ -94,7 +113,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(json.dumps({"label": args.label, "device": torch.cuda.get_device_name(0),
-                      "power_limit": smi, "ms": ms, "device_ms": split, "digest": digests}))
+                      "power_limit": smi, "ms": ms, "device_ms": split,
+                      "dw": dw_account(k1, cfg, n, split), "digest": digests}))
     return 0
 
 

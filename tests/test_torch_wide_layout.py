@@ -18,6 +18,10 @@ a bf16 rounding on the other side), atol 2e-2 for forward outputs (as the
 chip check).
 """
 
+import collections
+import contextlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ import torch
 from durf_tpu.configs import MLPConfig as JMLPConfig
 from durf_tpu.ops.pallas.fused_mlp import mlp_reference_forward
 from durf_tpu_torch.configs import MLPConfig
+from durf_tpu_torch.ops.kernels import build
 from durf_tpu_torch.ops.kernels import fused_mlp as k1
 from durf_tpu_torch.ops.kernels import hopper_mlp as hm
 
@@ -198,6 +203,22 @@ def _replay_k1(cfg, in_dim, x, cond_lin, weights, s_per_ray):
     return rgb, den, x_save, act, (wpack, w_offs), masks
 
 
+def _clusters(pairs, n_splits):
+    """The clusters of csrc/mlp_wide.cuh:cluster_wide_dw_kernel over a pair
+    table (fused_mlp.dw_pairs) in launch order, as its blocks find them:
+    ((tile, split) of rank 0, (tile, split) of rank 1 or None, shared).
+    First every split's shared pairs, split by split; then the one-row-tile
+    tiles of all splits two to a cluster, item i being tile i % singles of
+    split i // singles, the last one alone when their number is odd."""
+    shared = [p for p in pairs if p[2]]
+    single = [p[0] for p in pairs if not p[2]]
+    out = [((t0, s), (t1, s), True) for s in range(n_splits) for t0, t1, _ in shared]
+    items = [(t, s) for s in range(n_splits) for t in single]
+    items.append(None)
+    out += [(items[i], items[i + 1], False) for i in range(0, len(items) - 1, 2)]
+    return out
+
+
 def _replay_k2(cfg, in_dim, x, cond_lin, weights, s_per_ray, g_rgb, g_den, chunk,
                masks_from="plane", need_dx=True):
     """K2's three launches through their maps, schedule, mask layout and job
@@ -270,37 +291,61 @@ def _replay_k2(cfg, in_dim, x, cond_lin, weights, s_per_ray, g_rgb, g_den, chunk
             _store_tile(gbuf, specs[hm.B_G], g, tile0, i - 1)
         ring.done()
 
-    # dW: tiles of 128 features x all j columns, one partial per split.
+    # dW: tiles of 128 features x all j columns, one partial per split, two
+    # tiles to a cluster in the kernel's order (_clusters): where a pair
+    # shares G, each CTA's producer issues every other G box of a stage into
+    # both CTAs' stages; a one-row-tile tile walks its own ring.
     rows_, n_tiles = k1.dw_jobs(cfg, in_dim, 1, *k1.act_layout(cfg, n), g_offs, g_stride,
                                 k1.x_cols(cfg, in_dim), k1.WIDE_DW_COLS)
     _, total = k1.grad_layout(cfg, in_dim)
     n_splits = -(-n // chunk)
     part = torch.full((n_splits, total), float("nan"))
     count = torch.zeros((n_splits, total), dtype=torch.int32)
-    for split in range(n_splits):
-        s0, s1 = split * chunk, min(n, (split + 1) * chunk)
-        for tile in range(n_tiles):
-            job = next(r for r in reversed(rows_) if r[9] <= tile)
-            a_buf, a_off, lda, g_off, ldg, k, j, out, bias, first, _, nt = job
-            assert nt == 1 and j <= k1.WIDE_DW_COLS
-            tm = tile - first
-            a_spec = [a_buf, a_off, lda, n, 1, lda, lda * n, 64, 64]
-            g_spec = [hm.G, g_off, ldg, n, 1, ldg, ldg * n, 64, 64]
-            src = x_save if a_buf == hm.XSAVE else act
-            acc, bsum = torch.zeros((128, 64 * -(-j // 64))), 0.0
+
+    def tile_job(tile):
+        job = next(r for r in reversed(rows_) if r[9] <= tile)
+        g_off, ldg, j = job[3], job[4], job[6]
+        assert job[11] == 1 and j <= k1.WIDE_DW_COLS
+        return job, tile - job[9], [hm.G, g_off, ldg, n, 1, ldg, ldg * n, 64, 64], -(-j // 64)
+
+    for r0, r1, shared in _clusters(k1.dw_pairs(rows_)[0], n_splits):
+        ctas = [c for c in (r0, r1) if c is not None]  # (tile, split)
+        if shared:
+            assert r0[1] == r1[1] and tile_job(r0[0])[0] is tile_job(r1[0])[0]
+        for ring in [ctas] if shared else [[c] for c in ctas]:  # the CTAs a ring's stages feed
+            split = ring[0][1]
+            s0, s1 = split * chunk, min(n, (split + 1) * chunk)
+            acc = {t: torch.zeros((128, 64 * tile_job(t)[3])) for t, _ in ring}
+            bsum = {t: 0.0 for t, _ in ring}
             for st in range(s0, s1, 64):  # one ring stage: 64 samples
-                boxes = min(2, -(-(k - 128 * tm) // 64))
-                a = torch.cat([_box(src, a_spec, 128 * tm + 64 * b, st, 0) for b in range(boxes)], 1)
-                gg = torch.cat([_box(gbuf, g_spec, 64 * c, st, 0) for c in range(-(-j // 64))], 1)
-                acc[: 64 * boxes] += a.T @ gg
-                bsum = bsum + gg.sum(0)
-            r0, r1 = 128 * tm, min(k, 128 * tm + 128)
-            blk = part[split, out : out + k * j].reshape(k, j)
-            blk[r0:r1] = acc[: r1 - r0, :j]
-            count[split, out : out + k * j].reshape(k, j)[r0:r1] += 1
-            if bias >= 0 and tm == 0:
-                part[split, bias : bias + j] = bsum[:j]
-                count[split, bias : bias + j] += 1
+                got = {t: {} for t, _ in ring}  # each CTA's G boxes of the stage
+                for rank, (tile, _) in enumerate(ring):  # the producers
+                    _, _, g_spec, gb = tile_job(tile)
+                    for c in range(rank, gb, 2) if shared else range(gb):
+                        for dst, _ in ring:
+                            assert c not in got[dst]
+                            got[dst][c] = _box(gbuf, g_spec, 64 * c, st, 0)
+                for tile, _ in ring:  # the consumers, once the stage's bytes are all in
+                    job, tm, _, gb = tile_job(tile)
+                    a_buf, a_off, lda, k = job[0], job[1], job[2], job[5]
+                    assert sorted(got[tile]) == list(range(gb))
+                    a_spec = [a_buf, a_off, lda, n, 1, lda, lda * n, 64, 64]
+                    src = x_save if a_buf == hm.XSAVE else act
+                    boxes = min(2, -(-(k - 128 * tm) // 64))
+                    a = torch.cat([_box(src, a_spec, 128 * tm + 64 * b, st, 0) for b in range(boxes)], 1)
+                    gg = torch.cat([got[tile][c] for c in range(gb)], 1)
+                    acc[tile][: 64 * boxes] += a.T @ gg
+                    bsum[tile] = bsum[tile] + gg.sum(0)
+            for tile, _ in ring:
+                job, tm, _, _ = tile_job(tile)
+                k, j, out, bias = job[5], job[6], job[7], job[8]
+                lo, hi = 128 * tm, min(k, 128 * tm + 128)
+                blk = part[split, out : out + k * j].reshape(k, j)
+                blk[lo:hi] = acc[tile][: hi - lo, :j]
+                count[split, out : out + k * j].reshape(k, j)[lo:hi] += 1
+                if bias >= 0 and tm == 0:
+                    part[split, bias : bias + j] = bsum[tile][:j]
+                    count[split, bias : bias + j] += 1
     flat = part[0].clone()
     for split in range(1, n_splits):  # reduce_kernel: slices in order
         flat = flat + part[split]
@@ -436,6 +481,113 @@ def test_wide_dw_tiles_span_whole_layers():
     assert len(rows) == 13 <= hm.MAX_JOBS and all(r[11] == 1 and r[6] <= 256 for r in rows)
     assert tiles == sum(-(-r[5] // 128) for r in rows) == 23
     assert [r[9] for r in rows] == sorted(r[9] for r in rows)
+
+
+@pytest.mark.parametrize("kw,in_dim,n_splits", [({}, F_IN, 17), ({"net_depth_condition": 2}, F_IN, 3),
+                                                ({}, 128, 2), ({"skip_layer": 2}, 100, 1)])
+def test_wide_dw_clusters_run_every_tile_once_per_split(kw, in_dim, n_splits):
+    """K2's dW clusters (dw_pairs, _clusters): every (job, row tile) runs
+    once per split, on one CTA; a cluster that shares G holds the two row
+    tiles of one job (one G map) on one split; the one-row-tile tiles pair
+    up without sharing, an odd one out last and with no partner."""
+    cfg = MLPConfig(**kw)
+    n = 1000
+    rows, tiles = k1.dw_jobs(cfg, in_dim, 1, *k1.act_layout(cfg, n), *k1.g_layout(cfg, n),
+                             k1.x_cols(cfg, in_dim), k1.WIDE_DW_COLS)
+    pairs, shared = k1.dw_pairs(rows)
+    assert all(len(p) == k1.PAIR_FIELDS for p in pairs)
+    assert [p[2] for p in pairs] == sorted((p[2] for p in pairs), reverse=True)  # shared first
+    job = lambda t: next(r for r in reversed(rows) if r[9] <= t)  # noqa: E731
+    for t0, t1, sh in pairs:
+        if sh:
+            assert job(t0) is job(t1) and (t0 - job(t0)[9], t1 - job(t1)[9]) == (0, 1)
+        else:
+            assert job(t0)[10] == 1 and t1 == -1
+    assert shared == 2 * sum(p[2] for p in pairs) == sum(2 * (r[10] // 2) for r in rows)
+    clusters = _clusters(pairs, n_splits)
+    ran = sorted(c for r0, r1, _ in clusters for c in (r0, r1) if c is not None)
+    assert ran == [(t, s) for t in range(tiles) for s in range(n_splits)]
+    for r0, r1, sh in clusters:
+        if sh:
+            assert r0[1] == r1[1] and [r0[0], r1[0], 1] in pairs
+        else:
+            assert job(r0[0])[10] == 1 and (r1 is None or job(r1[0])[10] == 1)
+    assert [r1 for _, r1, _ in clusters].count(None) == (tiles - shared) * n_splits % 2
+    assert all(r1 is not None for _, r1, _ in clusters[:-1])
+    singles = (tiles - shared) * n_splits
+    assert len(clusters) == shared // 2 * n_splits + -(-singles // 2)
+
+
+def test_wide_dw_pairs_share_g_at_the_flagship_widths():
+    """At the flagship widths 20 of the 23 dW tiles take G by multicast: of
+    the 10,112 B of G boxes the tiles load a sample, 4,480 cross from L2
+    once instead of twice (the trunk's layers 1-7, bottleneck, head_0 and
+    the density head); l0, the skip layer's x rows and rgb load their own.
+    At the first training cell's 17 splits the card runs 196 clusters, one
+    CTA idle, where the tiles alone are 391 blocks."""
+    cfg = MLPConfig()
+    n = 4096
+    rows, tiles = k1.dw_jobs(cfg, F_IN, 1, *k1.act_layout(cfg, n), *k1.g_layout(cfg, n),
+                             k1.x_cols(cfg, F_IN), k1.WIDE_DW_COLS)
+    pairs, shared = k1.dw_pairs(rows)
+    assert (shared, tiles, len(pairs)) == (20, 23, 13)
+    a, g, saved = k1.dw_box_bytes(rows, pairs)
+    assert (a + g, g, saved) == (15744, 10112, 4480)
+    assert k1.dw_box_bytes(rows, []) == (a, g, 0)
+    assert k1.dw_ingest_bytes(cfg, F_IN, n) == (11264 * n, 15744 * n)
+    assert pairs[-3:] == [[0, -1, 0], [11, -1, 0], [22, -1, 0]]
+    clusters = _clusters(pairs, 17)
+    assert len(clusters) == 196 and clusters[-1][1] is None
+    # Built with the job table, once per shape, and kept.
+    host, shared_ = k1.dw_pair_table(cfg, F_IN, n, "cpu")
+    assert host.tolist() == pairs and shared_ == 20
+    assert k1.dw_pair_table(cfg, F_IN, n, "cpu")[0] is host
+    # No pairs for the object build's job tables.
+    assert k1.dw_pair_table(MLPConfig(net_width=128), 63, n, "cpu") == (None, 0)
+
+
+@pytest.mark.parametrize("widths,counts", [((256, 128), (23, 20)), ((128, 128), None)])
+def test_k2_counts_its_dw_tiles(monkeypatch, widths, counts):
+    """The wide K2 counts, while a profiler records, the dW tiles a launch
+    runs (`k2.dw_tiles`) and those whose G arrives by multicast
+    (`k2.dw_tiles_shared`), and hands the entry point its pair table; the
+    128 / 128 build counts neither and gets none. The C entry points are
+    recorders here."""
+    from durf_tpu_torch import metrics
+
+    seen = {}
+
+    def entry(name):
+        def call(*args):
+            seen[name] = args
+            return 0
+        return call
+
+    monkeypatch.setattr(build, "load", lambda lib: types.SimpleNamespace(
+        durf_fused_nerf_mlp_fwd=entry("fwd"), durf_fused_nerf_mlp_bwd=entry("bwd")))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=4))
+    monkeypatch.setattr(k1, "stream_of", lambda d: 0)
+    for fn in (k1.fused_nerf_mlp, k1.fused_nerf_mlp_bwd):  # the recorded launches count nowhere
+        monkeypatch.setattr(fn, "launches", fn.launches)
+        monkeypatch.setattr(fn, "width_launches", collections.Counter())
+    cfg = MLPConfig(net_width=widths[0], net_width_condition=widths[1])
+    w = [torch.from_numpy(a) for a in _weights(cfg, F_IN)]
+    b, s = 2, 64
+    _, _, res = k1._k1_launch(torch.rand((F_IN, b * s)), torch.rand((b, widths[1])), w, cfg, s,
+                              save=True)
+    metrics.counters()
+    with torch.profiler.profile():
+        k1.fused_nerf_mlp_bwd(res, torch.rand((3, b * s)), torch.rand((1, b * s)), w, cfg, s)
+    got = metrics.counters()
+    pairs, n_pairs = seen["bwd"][15:17]
+    if counts is None:
+        assert "k2.dw_tiles" not in got and (pairs, n_pairs) == (None, 0)
+    else:
+        assert (got["k2.dw_tiles"], got["k2.dw_tiles_shared"]) == counts
+        host, _ = k1.dw_pair_table(cfg, F_IN, b * s, "cpu")
+        assert (pairs, n_pairs) == (host.data_ptr(), 13)
 
 
 def test_job_table_is_built_once_and_holds_offsets():
